@@ -1,0 +1,145 @@
+"""Shared model building blocks (``transcar_tpu/models/common.py``).
+
+Conventions:
+  * The backbone keeps activations as NCHW tensors in channels-last
+    memory (cuDNN's fast layout); ``permute(0, 2, 3, 1)`` of such a tensor
+    is the NHWC view the JAX package and the DCN kernel use, for free.
+  * Parameters are float32; a conv casts its weights to the activation
+    dtype (the flax ``nn.Conv(dtype=...)`` analog), so the backbone runs
+    in bfloat16 when its input is bfloat16.
+  * Head matmuls are full float32 (``Precision.HIGHEST`` in JAX): a flax
+    ``Dense`` is an ``nn.Linear`` here, under :func:`disable_tf32`.
+  * Parameter names follow the flax tree, so ``train/convert.py`` maps
+    one onto the other by a generic walk.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from transcar_tpu_torch.ops.attention import multihead_attention
+from transcar_tpu_torch.ops.pallas_attention import masked_mha
+
+LN_EPS = 1e-5
+
+
+def disable_tf32() -> None:
+    """Full float32 matmuls and convolutions: TF32 keeps ~10 mantissa
+    bits, and cuDNN allows it for float32 convolutions by default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class TorchMHA(nn.Module):
+    """Parameters of torch ``nn.MultiheadAttention`` after the in_proj
+    split, in the JAX layout (``w*`` are [in, out]); see ops/attention.py.
+
+    ``use_pallas`` with a mask routes through the masked-attention kernel
+    wrapper (ops/pallas_attention.py), as the JAX module routes to its
+    Pallas kernel."""
+
+    def __init__(self, embed_dims: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        for name in ("q", "k", "v", "o"):
+            self.register_parameter(
+                "w" + name, nn.Parameter(torch.empty(embed_dims, embed_dims)))
+            self.register_parameter(
+                "b" + name, nn.Parameter(torch.zeros(embed_dims)))
+
+    def params(self) -> dict:
+        return {n: getattr(self, n) for n in
+                ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+
+    def forward(self, q, k, v, mask=None, use_pallas: bool = False):
+        """mask: optional bool [B, Q, T], True = MASKED (torch attn_mask)."""
+        if use_pallas and mask is not None:
+            return masked_mha(q, k, v, self.params(), self.num_heads, ~mask)
+        return multihead_attention(q, k, v, self.params(), self.num_heads,
+                                   mask=mask)
+
+
+class MLP(nn.Module):
+    """Linear stack with optional LayerNorm + activation between layers
+    (names ``linear{i}`` / ``ln{i}`` as in flax)."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 layer_norm: bool = False, final_activation: bool = False):
+        super().__init__()
+        self.n = len(features)
+        self.layer_norm = layer_norm
+        self.final_activation = final_activation
+        dims = [in_features, *features]
+        for i in range(self.n):
+            setattr(self, f"linear{i}", nn.Linear(dims[i], dims[i + 1]))
+            if layer_norm and (i < self.n - 1 or final_activation):
+                setattr(self, f"ln{i}", nn.LayerNorm(dims[i + 1], eps=LN_EPS))
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = getattr(self, f"linear{i}")(x)
+            if i < self.n - 1 or self.final_activation:
+                if self.layer_norm:
+                    x = getattr(self, f"ln{i}")(x)
+                x = F.relu(x)
+        return x
+
+
+class FFN(nn.Module):
+    """mmcv FFN at inference: Linear → ReLU → Linear + residual."""
+
+    def __init__(self, embed_dims: int, hidden_dims: int):
+        super().__init__()
+        self.linear1 = nn.Linear(embed_dims, hidden_dims)
+        self.linear2 = nn.Linear(hidden_dims, embed_dims)
+
+    def forward(self, x):
+        return x + self.linear2(F.relu(self.linear1(x)))
+
+
+class FrozenBN(nn.Module):
+    """BatchNorm with frozen statistics and affine params: a per-channel
+    scale and bias, folded in float32 and cast to the activation dtype
+    (as the JAX module does).  NCHW."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        bias = self.bias - self.running_mean * scale
+        shape = (1, -1, 1, 1)
+        return (x * scale.to(x.dtype).view(shape)
+                + bias.to(x.dtype).view(shape))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype (weights are cast)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + frozen BN (+ ReLU), NCHW; names ``conv`` / ``bn``."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 padding: int = 0, relu: bool = True):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                           bias=False)
+        self.bn = FrozenBN(cout)
+        self.relu = relu
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
