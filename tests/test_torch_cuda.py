@@ -52,6 +52,67 @@ def test_dcn_kernel_rejects_unsupported_shapes(dev):
                                      torch.zeros(3, 3, 24, 8, device=dev))
 
 
+def _dcn_bwd_case(dev, n, h, w, cin, cout, dtype, offsets):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(n, h, w, cin, device=dev, generator=g)
+    om = torch.randn(n, h, w, 27, device=dev, generator=g)
+    if offsets == "pm8":
+        om[..., :18] = torch.rand(n, h, w, 18, device=dev, generator=g) * 16 - 8
+    elif offsets == "zero":
+        om[..., :18] = 0.0
+    else:
+        om[..., :18] = torch.randint(-3, 4, (n, h, w, 18), device=dev,
+                                     generator=g).float()
+    wt = torch.randn(3, 3, cin, cout, device=dev, generator=g) * 0.05
+    d_out = torch.randn(n, h, w, cout, device=dev, generator=g)
+    return x.to(dtype), om.to(dtype), wt, d_out.to(dtype)
+
+
+# K3 against autograd of the plain version, per output relative to its
+# max|plain|: float32 differs by summation order (atomics), bfloat16 by
+# the plain version's bf16 rounding of d_samp and of each corner scatter
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("cin,cout", [(32, 40), (64, 136)])
+@pytest.mark.parametrize("offsets", ["pm8", "zero", "integer"])
+def test_dcn_backward_kernel(dev, dtype, tol, cin, cout, offsets):
+    # 7 × 11 pixels × 2 images: no multiple of the 64-pixel or 32-pixel
+    # tiles; Cin below the 128-channel slices, Cout off the 128 tile
+    x, om, wt, d_out = _dcn_bwd_case(dev, 2, 7, 11, cin, cout, dtype,
+                                     offsets)
+    before = pallas_dcn.backward_launches
+    got = pallas_dcn.backward_kernel(x, om, wt, d_out)
+    ref = pallas_dcn.plain_backward(x, om, wt, d_out)
+    assert pallas_dcn.backward_launches == before + 1
+    for name, a, b in zip(("d_x", "d_om", "d_w"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max()
+        assert err <= tol * b.float().abs().max(), (name, err.item())
+
+
+def test_dcn_autograd_function(dev):
+    # the wrapper's autograd: K1 forward and K3 backward, the float32
+    # weight's gradient in float32, d_x in the NHWC view's layout
+    x, om, wt, d_out = _dcn_bwd_case(dev, 1, 9, 13, 32, 32, torch.bfloat16,
+                                     "pm8")
+    xc = x.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    omr = om.clone().requires_grad_()
+    wr = wt.clone().requires_grad_()
+    f0, b0 = pallas_dcn.launches, pallas_dcn.backward_launches
+    out = pallas_dcn.fused_deform_conv(xc.permute(0, 2, 3, 1), omr, wr)
+    out.backward(d_out)
+    assert (pallas_dcn.launches, pallas_dcn.backward_launches) == (f0 + 1,
+                                                                   b0 + 1)
+    assert wr.grad.dtype == torch.float32
+    assert xc.grad.shape == xc.shape and torch.isfinite(xc.grad).all()
+    ref = pallas_dcn.plain_backward(x, om, wt, d_out)
+    for a, b in zip((xc.grad.permute(0, 2, 3, 1), omr.grad, wr.grad), ref):
+        assert (a.float() - b.float()).abs().max() <= (
+            2e-2 * b.float().abs().max())
+
+
 @pytest.mark.parametrize("b,nq,nt", [(2, 150, 200), (1, 33, 1)])
 def test_masked_attention_kernel(dev, b, nq, nt):
     g = torch.Generator(device=dev).manual_seed(1)

@@ -236,6 +236,73 @@ def test_cli_rejects_unported_presets():
         benchmark.run(["transcar_vovnet_trainval", "--device", "cpu"])
 
 
+def _jax_package_uses(path):
+    """Lines of one source file that import jax, the JAX package or the
+    JAX driver entry, or that reach a file of the JAX package by path."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            names = []
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "optax", "transcar_tpu",
+                       "__graft_entry__"):
+                bad.append((node.lineno, f"import {name}"))
+        if isinstance(node, (ast.Name, ast.Attribute)):
+            ident = node.id if isinstance(node, ast.Name) else node.attr
+            if ident in ("spec_from_file_location", "SourceFileLoader",
+                         "run_path", "load_shared", "import_module",
+                         "__import__"):
+                bad.append((node.lineno, ident))
+        if isinstance(node, ast.Call):      # paths handed to any call
+            for arg in [*node.args, *(k.value for k in node.keywords)]:
+                for sub in ast.walk(arg):
+                    if (isinstance(sub, ast.Constant)
+                            and isinstance(sub.value, str)
+                            and ("transcar_tpu/" in sub.value
+                                 or sub.value in ("transcar_tpu",
+                                                  "__graft_entry__")
+                                 or "__graft_entry__." in sub.value)):
+                        bad.append((node.lineno, sub.value))
+    return bad
+
+
+def test_port_sources_never_reach_the_jax_package():
+    import glob
+
+    files = sorted(glob.glob(os.path.join(REPO, "transcar_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    found = {os.path.relpath(f, REPO): _jax_package_uses(f) for f in files}
+    assert not any(found.values()), {k: v for k, v in found.items() if v}
+
+
+def test_jax_package_use_detector(tmp_path):
+    # the detector itself finds each kind of use
+    src = tmp_path / "probe.py"
+    src.write_text(
+        "import jax.numpy as jnp\n"
+        "from transcar_tpu.core import config\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'x', 'transcar_tpu/core/config.py')\n"
+        "open('transcar_tpu/cli/train.py')\n"
+        "import __graft_entry__\n")
+    kinds = [b for _, b in _jax_package_uses(str(src))]
+    assert "import jax.numpy" in kinds and "import __graft_entry__" in kinds
+    assert "import transcar_tpu.core" in kinds
+    assert "spec_from_file_location" in kinds
+    assert "transcar_tpu/cli/train.py" in kinds
+
+
 def test_port_never_imports_jax():
     code = (
         "import sys, torch\n"
@@ -243,8 +310,12 @@ def test_port_never_imports_jax():
         "from transcar_tpu_torch.cli import benchmark\n"
         f"rec, out = benchmark.run({TINY_CLI!r})\n"
         "assert torch.isfinite(out['all_bbox_preds']).all()\n"
+        "rec, state = benchmark.run_train(['detr3d_r101', '--train'] + "
+        f"{TINY_CLI!r})\n"
+        "assert state.step == 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'transcar_tpu' or m.startswith('transcar_tpu.')]\n"
+        " or m == 'transcar_tpu' or m.startswith('transcar_tpu.')"
+        " or m == '__graft_entry__']\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

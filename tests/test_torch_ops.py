@@ -9,6 +9,7 @@ plain versions in tests/test_torch_cuda.py.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from tests.geom import camera_ring_l2i
@@ -132,6 +133,45 @@ def test_dcn_bf16():
     assert err_port <= 1e-2, err_port
     assert err_port <= err_jax, (err_port, err_jax)
     np.testing.assert_allclose(ours, ref, rtol=0, atol=3e-2 * scale)
+
+
+# --- K3: DCNv2 backward -----------------------------------------------------
+
+def _jax_dcn_grads(x, om, weight, d_out):
+    def f(a, b, c):
+        out = jax.vmap(lambda xi, oi: jdcn(xi, oi, c))(a, b)
+        return jnp.sum(out * d_out)
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(om), jnp.asarray(weight))]
+
+
+@pytest.mark.parametrize("offsets", ["zero", "integer", "pm8"])
+def test_dcn_backward_matches_jax_grad(offsets):
+    # float32, 1e-4 of max|ref| per output.  "zero" is the mmcv init: every
+    # tap on its grid position, border taps at py = -1 and py = H, where
+    # both sides take the one-sided floor-convention derivative
+    x, om, weight = _dcn_case(9, 2, 9, 11, 8, 16, 8.0, 8.0)
+    if offsets == "zero":
+        om[..., :18] = 0.0
+    elif offsets == "integer":
+        om[..., :18] = np.random.default_rng(10).integers(-3, 4, (2, 9, 11,
+                                                                   18))
+    d_out = np.random.default_rng(11).normal(size=(2, 9, 11, 16)).astype(
+        np.float32)
+    refs = _jax_dcn_grads(x, om, weight, d_out)
+    # the kernel wrapper's CPU path (autograd of ops/dcn.py), with the
+    # weight as the float32 parameter, and K3's plain version
+    xs, oms, ws = (t(a).requires_grad_() for a in (x, om, weight))
+    pallas_dcn.fused_deform_conv(xs, oms, ws).backward(t(d_out))
+    plain = pallas_dcn.plain_backward(t(x), t(om), t(weight), t(d_out))
+    for name, a, b, r in zip(("d_x", "d_om", "d_w"),
+                             (xs.grad, oms.grad, ws.grad), plain, refs):
+        assert a.dtype == torch.float32
+        scale = np.abs(r).max()
+        np.testing.assert_allclose(a.numpy(), r, rtol=0, atol=1e-4 * scale,
+                                   err_msg=name)
+        np.testing.assert_allclose(b.numpy(), r, rtol=0, atol=1e-4 * scale,
+                                   err_msg=name)
 
 
 # --- small modules ----------------------------------------------------------

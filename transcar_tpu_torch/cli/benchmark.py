@@ -1,19 +1,29 @@
-"""Inference throughput of the port (``transcar_tpu/cli/benchmark.py`` analog).
+"""Inference and training throughput of the port
+(``transcar_tpu/cli/benchmark.py`` and ``bench.py``'s train rows).
 
 Usage (from the repository root)::
 
     python -m transcar_tpu_torch.cli.benchmark transcar_r101 \
         [--samples 20] [--warmup 3] [--batch 1] [--cfg-options k.sub=v ...]
+    python -m transcar_tpu_torch.cli.benchmark detr3d_r101 --train \
+        [--samples 5] [--warmup 2]
 
-Times batch inference after ``--warmup`` requests, with
+Inference times batch requests after ``--warmup`` requests, with
 ``torch.cuda.synchronize()`` around the timed loop (the reference protocol,
 tools/analysis_tools/benchmark.py:64-91, which ``bench.py`` cites), on
-seeded random weights and the inputs of ``__graft_entry__._fake_batch``.
-Prints one JSON line: samples/s, ms/sample, the device's name, the
+seeded random weights and the synthetic batch of ``data/synthetic.py``.
+It prints one JSON line: samples/s, ms/sample, the device's name, the
 kernel launches of the run, and two audits of the first warmup request:
 the share of DCN taps whose vertical offset exceeds 5 px (the TPU
 kernel's exact band; here every tap is exact) and the share of (query,
 radar token) pairs the fusion masks keep.
+
+``--train`` times ``--samples`` train steps (forward, loss with Hungarian
+targets, backward, clip, AdamW; ``train/step.py``) after ``--warmup``
+steps on one synthetic batch, and prints steps/s, ms/step, the kernel
+launches of the run and per step, the peak device memory, and the loss
+of the first and the last step.  ``--dropout`` sets the head's dropout
+rate (0.1 in the reference).
 
 Random weights would leave every DCN ``conv_offset`` at mmcv's zero init,
 so the deformable convs would sample only whole-pixel taps; the
@@ -31,15 +41,18 @@ import contextlib
 import json
 import math
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
-from transcar_tpu_torch.core.config import get_preset, load_shared
+from transcar_tpu_torch.core.config import get_preset, parse_overrides
+from transcar_tpu_torch.data.synthetic import fake_batch
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.resnet import DCNConv
 from transcar_tpu_torch.ops import pallas_attention, pallas_dcn
+from transcar_tpu_torch.train.step import init_state, train_step
 
 #: Scale of the random DCN offsets: conv_offset weights are drawn
 #: N(0, (OFFSET_PX / √fan_in)²).  The seeded backbone feeds the DCN convs
@@ -59,10 +72,15 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--train", action="store_true",
+                    help="time train steps instead of inference requests")
+    ap.add_argument("--dropout", type=float, default=0.1,
+                    help="the head's dropout rate in training")
     ap.add_argument("--trace-dir", default=None,
                     help="capture a torch.profiler trace of the timed loop "
-                         "into this directory (chrome trace + a table of "
-                         "device time by kernel)")
+                         "into this directory (chrome trace, a table of "
+                         "device time by kernel, and summary.json: device "
+                         "busy time, idle share, time by kernel group)")
     ap.add_argument("--cfg-options", nargs="*", default=[],
                     help="dotted deep overrides, as for the JAX CLIs")
     args = ap.parse_args(argv)
@@ -116,41 +134,154 @@ def _profiler(trace_dir, dev):
     return profile(activities=acts)
 
 
-def _write_trace(prof, trace_dir, dev):
+def _write_trace(prof, trace_dir, dev, wall_s: float, count: int) -> dict:
+    """Write the chrome trace, a table of time by kernel and
+    ``summary.json`` (:func:`trace_summary`); returns the summary."""
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
     sort = "cuda_time_total" if dev.type == "cuda" else "cpu_time_total"
     with open(os.path.join(trace_dir, "kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by=sort, row_limit=60))
+    summary = trace_summary(path, wall_s, count)
+    with open(os.path.join(trace_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return summary
 
 
-def run(argv=None):
-    """Build, warm up and time; returns (record, last outputs)."""
-    args = parse_args(argv)
+#: Kernel groups of the trace summary: the first pattern a kernel's name
+#: contains decides its group.
+KERNEL_GROUPS = (
+    ("K1 dcn_forward", ("dcn_forward_kernel",)),
+    ("K3 dcn_backward", ("dcn_bwd_",)),
+    ("K2 masked_attention", ("masked_attention",)),
+    ("GEMM / convolution (cuBLAS, cuDNN)", (
+        "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
+        "fprop", "implicit")),
+    ("optimizer (AdamW, clip)", ("multi_tensor", "adam", "Adam", "foreach")),
+    ("index / gather / scatter", ("index", "gather", "scatter", "Index")),
+    ("elementwise / reduce / copy", ("elementwise", "vectorized", "reduce",
+                                     "Reduce", "copy", "Copy", "fill",
+                                     "Fill", "norm", "Norm", "softmax",
+                                     "Softmax", "CatArray", "pool")),
+)
+
+
+def trace_summary(trace_path: str, wall_s: float, count: int) -> dict:
+    """Device time of a profiled loop of ``count`` iterations that took
+    ``wall_s`` seconds: the union of the kernels' intervals (busy), the
+    idle share of the wall time, kernels per iteration, and time per
+    iteration by kernel group (summed kernel durations, so overlapping
+    kernels count twice there)."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    ks = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                if e.get("cat") == "kernel" and "dur" in e)
+    busy_us, groups = 0.0, {}
+    end = None
+    for s, e, name in ks:
+        if end is None or s > end:
+            busy_us += e - s
+            end = e
+        elif e > end:
+            busy_us += e - end
+            end = e
+        group = next((g for g, pats in KERNEL_GROUPS
+                      if any(p in name for p in pats)), "other")
+        groups[group] = groups.get(group, 0.0) + (e - s)
+    per = max(count, 1)
+    return {
+        "iterations": count,
+        "wall_ms_per_iter": 1e3 * wall_s / per,
+        "device_busy_ms_per_iter": busy_us / 1e3 / per,
+        "device_idle_share": (1.0 - busy_us / 1e6 / wall_s) if ks else None,
+        "kernels_per_iter": len(ks) / per,
+        "ms_per_iter_by_group": {g: v / 1e3 / per for g, v in
+                                 sorted(groups.items(),
+                                        key=lambda kv: -kv[1])},
+    }
+
+
+def _setup(args, training: bool):
+    """Config, model with randomized DCN offsets, and the synthetic batch
+    on the device."""
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
                            "False (use --device cpu for a CPU run)")
-    import __graft_entry__ as ge        # its fake batch needs numpy only
-
-    overrides = load_shared("transcar_tpu/cli/train.py").parse_overrides(
-        args.cfg_options)
-    cfg = get_preset(args.preset, overrides)
-    model = build_model(cfg, device=dev, seed=args.seed)
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    randomize_offsets(model, gen)
+    cfg = get_preset(args.preset, parse_overrides(args.cfg_options))
+    model = build_model(cfg, device=dev, training=training, seed=args.seed,
+                        dropout=args.dropout)
+    randomize_offsets(model, torch.Generator().manual_seed(args.seed + 1))
     head = cfg.model.head
-    batch = ge._fake_batch(np.random.default_rng(args.seed), args.batch,
-                           head.num_cams, args.height, args.width,
-                           head.num_radar_tokens)
-    inputs = [torch.from_numpy(batch["images"]).to(dev),
-              torch.from_numpy(batch["lidar2img"]).to(dev),
-              torch.from_numpy(batch["radar_tokens"]).to(dev)
-              if head.with_radar_fusion else None]
+    batch = fake_batch(np.random.default_rng(args.seed), args.batch,
+                       head.num_cams, args.height, args.width,
+                       head.num_radar_tokens)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if not head.with_radar_fusion:
+        batch.pop("radar_tokens")
+    return cfg, model, batch, dev
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+
+def _device_name(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_train(argv=None):
+    """Build, warm up and time train steps; returns (record, state)."""
+    args = parse_args(argv)
+    cfg, model, batch, dev = _setup(args, training=True)
+    steps = args.warmup + args.samples
+    state = init_state(cfg, model, total_steps=steps)
+    gen = torch.Generator().manual_seed(args.seed + 2)
+    counts0 = (pallas_dcn.launches, pallas_dcn.backward_launches)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    for _ in range(args.warmup):
+        losses.append(train_step(state, batch, gen))
+    _sync(dev)
+    with _profiler(args.trace_dir, dev) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.samples):
+            losses.append(train_step(state, batch, gen))
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    trace = (None if args.trace_dir is None else
+             _write_trace(prof, args.trace_dir, dev, dt, args.samples))
+    launches = {"dcn_forward": pallas_dcn.launches - counts0[0],
+                "dcn_backward": pallas_dcn.backward_launches - counts0[1]}
+    record = {
+        "preset": args.preset,
+        "mode": "train",
+        "batch": args.batch,
+        "img_hw": [args.height, args.width],
+        "device": _device_name(dev),
+        "steps_per_sec": args.samples / dt,
+        "ms_per_step": 1000.0 * dt / args.samples,
+        "steps": steps,
+        "kernel_launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "loss_first": {k: float(v) for k, v in losses[0].items()},
+        "loss_last": {k: float(v) for k, v in losses[-1].items()},
+        "fusion_only": state.stop_camera_grad,
+        "trace": trace,
+    }
+    return record, state
+
+
+def run(argv=None):
+    """Build, warm up and time inference; returns (record, last outputs)."""
+    args = parse_args(argv)
+    cfg, model, batch, dev = _setup(args, training=False)
+    inputs = [batch["images"], batch["lidar2img"], batch.get("radar_tokens")]
 
     counts0 = (pallas_dcn.launches, pallas_attention.launches)
     stats = dict.fromkeys(("dcn_taps", "dcn_past_5px", "fusion_pairs",
@@ -161,21 +292,20 @@ def run(argv=None):
             out = model(*inputs)
             for h in handles:
                 h.remove()
-        sync()
+        _sync(dev)
         with _profiler(args.trace_dir, dev) as prof:
             t0 = time.perf_counter()
             for _ in range(args.samples):
                 out = model(*inputs)
-            sync()
+            _sync(dev)
             dt = time.perf_counter() - t0
-    if args.trace_dir is not None:
-        _write_trace(prof, args.trace_dir, dev)
+    trace = (None if args.trace_dir is None else
+             _write_trace(prof, args.trace_dir, dev, dt, args.samples))
     record = {
         "preset": args.preset,
         "batch": args.batch,
         "img_hw": [args.height, args.width],
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": _device_name(dev),
         "samples_per_sec": args.samples * args.batch / dt,
         "ms_per_sample": 1000.0 * dt / (args.samples * args.batch),
         "requests": args.warmup + args.samples,
@@ -183,6 +313,7 @@ def run(argv=None):
             "dcn_forward": pallas_dcn.launches - counts0[0],
             "masked_attention": pallas_attention.launches - counts0[1],
         },
+        "trace": trace,
     }
     if stats["dcn_taps"]:
         record["dcn_taps_past_5px"] = float(stats["dcn_past_5px"]
@@ -194,7 +325,8 @@ def run(argv=None):
 
 
 def main(argv=None):
-    record, _ = run(argv)
+    train = "--train" in (argv if argv is not None else sys.argv[1:])
+    record, _ = (run_train if train else run)(argv)
     print(json.dumps(record))
 
 

@@ -1,4 +1,4 @@
-"""3D box codec helpers used at inference (``transcar_tpu/core/boxes.py``).
+"""3D box codec helpers (``transcar_tpu/core/boxes.py``).
 
 The 10-dim box code is ``(cx, cy, log w, log l, cz, log h, sin yaw,
 cos yaw, vx, vy)``; see the JAX module for the reference citations.
@@ -6,6 +6,18 @@ cos yaw, vx, vy)``; see the JAX module for the reference citations.
 from __future__ import annotations
 
 import torch
+
+
+def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
+    """Encode ``(cx, cy, cz, w, l, h, yaw[, vx, vy])`` into the regression
+    code: z moves to slot 4, dims are logged, yaw becomes (sin, cos)."""
+    rot = bboxes[..., 6:7]
+    parts = [bboxes[..., 0:1], bboxes[..., 1:2], bboxes[..., 3:4].log(),
+             bboxes[..., 4:5].log(), bboxes[..., 2:3], bboxes[..., 5:6].log(),
+             rot.sin(), rot.cos()]
+    if bboxes.shape[-1] > 7:
+        parts += [bboxes[..., 7:8], bboxes[..., 8:9]]
+    return torch.cat(parts, dim=-1)
 
 
 def denormalize_bbox(normalized: torch.Tensor) -> torch.Tensor:

@@ -38,12 +38,16 @@ class TorchMHA(nn.Module):
     split, in the JAX layout (``w*`` are [in, out]); see ops/attention.py.
 
     ``use_pallas`` with a mask routes through the masked-attention kernel
-    wrapper (ops/pallas_attention.py), as the JAX module routes to its
-    Pallas kernel."""
+    wrapper (ops/pallas_attention.py) at inference, as the JAX module
+    routes to its Pallas kernel only when deterministic; in training the
+    plain formulation runs, with ``dropout`` on the attention
+    probabilities (the kernel has no backward)."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         for name in ("q", "k", "v", "o"):
             self.register_parameter(
                 "w" + name, nn.Parameter(torch.empty(embed_dims, embed_dims)))
@@ -56,10 +60,11 @@ class TorchMHA(nn.Module):
 
     def forward(self, q, k, v, mask=None, use_pallas: bool = False):
         """mask: optional bool [B, Q, T], True = MASKED (torch attn_mask)."""
-        if use_pallas and mask is not None:
+        if use_pallas and mask is not None and not self.training:
             return masked_mha(q, k, v, self.params(), self.num_heads, ~mask)
-        return multihead_attention(q, k, v, self.params(), self.num_heads,
-                                   mask=mask)
+        return multihead_attention(
+            q, k, v, self.params(), self.num_heads, mask=mask,
+            dropout=self.dropout if self.training else 0.0)
 
 
 class MLP(nn.Module):
@@ -89,15 +94,19 @@ class MLP(nn.Module):
 
 
 class FFN(nn.Module):
-    """mmcv FFN at inference: Linear → ReLU → Linear + residual."""
+    """mmcv FFN: Linear → ReLU → Dropout → Linear → Dropout + residual
+    (dropout only in training)."""
 
-    def __init__(self, embed_dims: int, hidden_dims: int):
+    def __init__(self, embed_dims: int, hidden_dims: int,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = nn.Linear(embed_dims, hidden_dims)
         self.linear2 = nn.Linear(hidden_dims, embed_dims)
 
     def forward(self, x):
-        return x + self.linear2(F.relu(self.linear1(x)))
+        y = F.dropout(F.relu(self.linear1(x)), self.dropout, self.training)
+        return x + F.dropout(self.linear2(y), self.dropout, self.training)
 
 
 class FrozenBN(nn.Module):

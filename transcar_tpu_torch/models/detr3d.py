@@ -1,10 +1,14 @@
 """DETR3D query decoder layer (``transcar_tpu/models/detr3d.py``):
-self-attn → 3D-reference cross-attn → FFN, post-norm, inference only."""
+self-attn → 3D-reference cross-attn → FFN, post-norm.  In training,
+dropout (``dropout``, 0.1 in the reference) acts on the attention
+probabilities, the self-attention and cross-attention outputs and the
+FFN, as in the JAX modules."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from transcar_tpu_torch.core.boxes import denorm_points, inverse_sigmoid
@@ -20,8 +24,10 @@ class Detr3DCrossAttention(nn.Module):
     def __init__(self, embed_dims: int = 256, num_cams: int = 6,
                  num_points: int = 1, num_levels: int = 4,
                  pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0,
-                                                51.2, 51.2, 3.0)):
+                                                51.2, 51.2, 3.0),
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.num_cams, self.num_points = num_cams, num_points
         self.num_levels, self.pc_range = num_levels, pc_range
         self.attention_weights = nn.Linear(
@@ -43,9 +49,11 @@ class Detr3DCrossAttention(nn.Module):
         sampled = sampled[:, :, :, None]                      # [B,Q,N,P,L,E]
         vis_w = vis.transpose(1, 2)[:, :, :, None, None]      # [B,Q,N,1,1]
         w = torch.sigmoid(weights) * vis_w.to(weights.dtype)
-        fused = torch.einsum("bqnple,bqnpl->bqe", sampled, w)
+        dt = torch.promote_types(sampled.dtype, w.dtype)   # as jnp.einsum
+        fused = torch.einsum("bqnple,bqnpl->bqe", sampled.to(dt), w.to(dt))
         pos_feat = self.position_encoder(inverse_sigmoid(ref_points01))
-        return self.output_proj(fused) + query + pos_feat
+        out = F.dropout(self.output_proj(fused), self.dropout, self.training)
+        return out + query + pos_feat
 
 
 class Detr3DDecoderLayer(nn.Module):
@@ -57,21 +65,25 @@ class Detr3DDecoderLayer(nn.Module):
                  ffn_dims: int = 512, num_cams: int = 6, num_points: int = 1,
                  num_levels: int = 4,
                  pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0,
-                                                51.2, 51.2, 3.0)):
+                                                51.2, 51.2, 3.0),
+                 dropout: float = 0.1):
         super().__init__()
-        self.self_attn = TorchMHA(embed_dims, num_heads)
+        self.dropout = dropout
+        self.self_attn = TorchMHA(embed_dims, num_heads, dropout)
         self.norm1 = nn.LayerNorm(embed_dims, eps=LN_EPS)
         self.cross_attn = Detr3DCrossAttention(embed_dims, num_cams,
                                                num_points, num_levels,
-                                               pc_range)
+                                               pc_range, dropout)
         self.norm2 = nn.LayerNorm(embed_dims, eps=LN_EPS)
-        self.ffn = FFN(embed_dims, ffn_dims)
+        self.ffn = FFN(embed_dims, ffn_dims, dropout)
         self.norm3 = nn.LayerNorm(embed_dims, eps=LN_EPS)
 
     def forward(self, query, query_pos, ref_points01, mlvl_feats, lidar2img,
                 img_hw):
         q = query + query_pos
-        query = self.norm1(query + self.self_attn(q, q, query))
+        attn = F.dropout(self.self_attn(q, q, query), self.dropout,
+                         self.training)
+        query = self.norm1(query + attn)
         query = self.norm2(self.cross_attn(query, query_pos, ref_points01,
                                            mlvl_feats, lidar2img, img_hw))
         return self.norm3(self.ffn(query))

@@ -1,6 +1,14 @@
-"""TransCAR head: DETR3D camera decoding + radar-fusion layers, inference
-only (``transcar_tpu/models/head.py``; structure and reference citations
+"""TransCAR head: DETR3D camera decoding + radar-fusion layers
+(``transcar_tpu/models/head.py``; structure and reference citations
 there).
+
+Training behaviour as in the JAX head: the reference points are detached
+after every decoder layer (iterative refinement, detr3d_transformer.py
+:195-203); ``stop_camera_grad`` (fusion-only training) runs the camera
+decoder without a graph and detaches its outputs at the fusion input; in
+training the fusion layers drop out (rate ``dropout``) their attention
+probabilities, attention outputs (gated by "≥ 1 visible token") and FFN,
+and take the plain attention formulation.
 
 ``strict_reference_compat`` keeps the reference's quirks verbatim: fusion
 layer 1 adds NORMALIZED z as its base (the z-denorm no-op), the mask
@@ -20,10 +28,11 @@ from transcar_tpu_torch.models.detr3d import Detr3DDecoderLayer
 
 
 class TransCARHead(nn.Module):
-    def __init__(self, cfg):
-        """cfg: a ``HeadConfig``."""
+    def __init__(self, cfg, dropout: float = 0.1):
+        """cfg: a ``HeadConfig``; dropout: the training dropout rate."""
         super().__init__()
         self.cfg = c = cfg
+        self.dropout = dropout
         e = c.embed_dims
         self.query_embedding = nn.Parameter(torch.empty(c.num_query, 2 * e))
         self.reference_points = nn.Linear(e, 3)
@@ -31,7 +40,8 @@ class TransCARHead(nn.Module):
             setattr(self, f"decoder_layer{i}", Detr3DDecoderLayer(
                 embed_dims=e, num_heads=c.num_heads, ffn_dims=c.ffn_dims,
                 num_cams=c.num_cams, num_points=c.num_points,
-                num_levels=c.num_levels, pc_range=c.pc_range))
+                num_levels=c.num_levels, pc_range=c.pc_range,
+                dropout=dropout))
             setattr(self, f"cls_branch{i}",
                     MLP(e, (e, e, c.num_classes), layer_norm=True))
             setattr(self, f"reg_branch{i}", MLP(e, (e, e, c.code_size)))
@@ -41,7 +51,8 @@ class TransCARHead(nn.Module):
             self.radar_feat_encoder = MLP(c.radar_feat_dim, (64, 128, e),
                                           final_activation=True)
             for i in range(c.num_fusion_layers):
-                setattr(self, f"fusion{i}_attn", TorchMHA(e, c.num_heads))
+                setattr(self, f"fusion{i}_attn",
+                        TorchMHA(e, c.num_heads, dropout))
                 setattr(self, f"fusion{i}_linear1", nn.Linear(e, c.ffn_dims))
                 setattr(self, f"fusion{i}_linear2", nn.Linear(c.ffn_dims, e))
                 setattr(self, f"fusion{i}_norm2", nn.LayerNorm(e, eps=LN_EPS))
@@ -55,16 +66,32 @@ class TransCARHead(nn.Module):
         hi = torch.tensor(self.cfg.pc_range[3:], device=device)
         return lo, hi
 
-    def forward(self, mlvl_feats, lidar2img, img_hw, radar_tokens=None):
+    def forward(self, mlvl_feats, lidar2img, img_hw, radar_tokens=None,
+                stop_camera_grad: bool = False):
         """Args:
           mlvl_feats: list of [B, N, H_l, W_l, E] FPN levels (float32).
           lidar2img: [B, N, 4, 4].
           img_hw: (H, W) of the padded input image.
           radar_tokens: [B, T, 36] featurized radar (required with fusion).
+          stop_camera_grad: build no camera backward (fusion-only
+            training); the fusion stage's gradients are unchanged.
         Returns:
           dict(all_cls_scores [L, B, Q, num_classes],
                all_bbox_preds [L, B, Q, code_size]).
         """
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not stop_camera_grad):
+            out = self.decode(mlvl_feats, lidar2img, img_hw)
+        if not self.cfg.with_radar_fusion:
+            return {"all_cls_scores": torch.stack(out[0]),
+                    "all_bbox_preds": torch.stack(out[1])}
+        _, cam_coord, query, ref = out
+        return self.fuse(query, ref, cam_coord[-1], radar_tokens)
+
+    def decode(self, mlvl_feats, lidar2img, img_hw):
+        """The DETR3D camera decoder: per-layer class scores and
+        denormalized box codes, the last query features and the final
+        (detached) reference points in [0, 1]."""
         c = self.cfg
         e = c.embed_dims
         b = mlvl_feats[0].shape[0]
@@ -88,12 +115,9 @@ class TransCARHead(nn.Module):
                 tmp[..., 5:],
             ], dim=-1))
             cam_cls.append(getattr(self, f"cls_branch{lid}")(query))
-            ref = torch.cat([xy, z], dim=-1)      # iterative refinement
-
-        if not c.with_radar_fusion:
-            return {"all_cls_scores": torch.stack(cam_cls),
-                    "all_bbox_preds": torch.stack(cam_coord)}
-        return self.fuse(query, ref, cam_coord[-1], radar_tokens)
+            # iterative refinement, detached (detr3d_transformer.py:195-203)
+            ref = torch.cat([xy, z], dim=-1).detach()
+        return cam_cls, cam_coord, query, ref
 
     def fuse(self, query, ref01, cam_coord_last, radar_tokens):
         """TransCAR fusion stage (detr3d_head.py:538-729).
@@ -121,10 +145,12 @@ class TransCARHead(nn.Module):
                 query, radar_emb, radar_emb, mask=~keep,
                 use_pallas=c.use_pallas_attention)
             gate = keep.any(dim=-1, keepdim=True).to(query.dtype)
-            query = getattr(self, f"fusion{i}_norm2")(query + attn * gate)
-            ffn = getattr(self, f"fusion{i}_linear2")(
-                F.relu(getattr(self, f"fusion{i}_linear1")(query)))
-            query = getattr(self, f"fusion{i}_norm3")(query + ffn)
+            query = getattr(self, f"fusion{i}_norm2")(
+                query + self._dropout(attn) * gate)
+            ffn = getattr(self, f"fusion{i}_linear2")(self._dropout(
+                F.relu(getattr(self, f"fusion{i}_linear1")(query))))
+            query = getattr(self, f"fusion{i}_norm3")(
+                query + self._dropout(ffn))
 
             cls = getattr(self, f"final_cls{i}")(query)
             reg = getattr(self, f"final_reg{i}")(query)
@@ -141,6 +167,9 @@ class TransCARHead(nn.Module):
             tmp_prev = coord
         return {"all_cls_scores": torch.stack(out_cls),
                 "all_bbox_preds": torch.stack(out_coord)}
+
+    def _dropout(self, x):
+        return F.dropout(x, self.dropout, self.training)
 
 
 def fusion_keep_mask(centers_xy, box_coord, radar_xy, clamp):

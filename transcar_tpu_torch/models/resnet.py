@@ -6,6 +6,11 @@ Caffe style puts the stride on each bottleneck's first 1×1 conv, so the
 channels-last memory; the DCN conv hands the kernel their free NHWC view.
 The JAX package's opt-in variants (int8, the phase stem, the fused
 bottleneck) are not ported.
+
+Training: the stem and the first ``frozen_stages`` stages get
+``requires_grad=False`` (mmdet ``_freeze_stages``; frozen BN is buffers
+throughout), and ``remat`` recomputes each bottleneck's forward in the
+backward (``torch.utils.checkpoint``, the ``nn.remat`` analog).
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transcar_tpu_torch.models.common import Conv2d, ConvBN, FrozenBN
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
@@ -32,7 +38,11 @@ class DCNConv(nn.Module):
 
     ``impl="exact"`` calls the plain version (ops/dcn.py) on any device;
     ``"pallas"`` calls the kernel wrapper (ops/pallas_dcn.py), which runs
-    the CUDA kernel on a CUDA tensor and the plain version on a CPU one.
+    the CUDA kernels (K1 forward, K3 backward) on a CUDA tensor and the
+    plain version on a CPU one.  The wrapper gets the float32 ``weight``
+    and casts it inside, as the JAX module hands ``fused_deform_conv_ad``
+    its float32 param, so the weight gradient reaches the optimizer
+    unrounded.
     """
 
     def __init__(self, in_features: int, features: int, impl: str = "exact"):
@@ -46,11 +56,11 @@ class DCNConv(nn.Module):
     def forward(self, x):
         om = self.conv_offset(x).permute(0, 2, 3, 1)          # NHWC views
         xh = x.permute(0, 2, 3, 1)
-        w = self.weight.permute(2, 3, 1, 0).to(x.dtype)      # [3,3,Cin,Cout]
+        w = self.weight.permute(2, 3, 1, 0)                  # [3,3,Cin,Cout]
         if self.impl == "pallas":
             out = fused_deform_conv(xh, om, w)
         else:
-            out = modulated_deform_conv(xh, om, w)
+            out = modulated_deform_conv(xh, om, w.to(x.dtype))
         return out.permute(0, 3, 1, 2)
 
 
@@ -87,8 +97,10 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 101,
                  with_dcn: Tuple[bool, ...] = (False, False, True, True),
                  compute_dtype: Optional[str] = "bfloat16",
-                 dcn_impl: str = "exact"):
+                 dcn_impl: str = "exact", frozen_stages: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.compute_dtype = (getattr(torch, compute_dtype)
                               if compute_dtype else None)
         self.stem = ConvBN(3, 64, 7, stride=2, padding=3)
@@ -107,6 +119,11 @@ class ResNet(nn.Module):
                 inplanes = planes * 4
             self.block_names.append(names)
             planes *= 2
+        frozen = ["stem"] if frozen_stages >= 0 else []
+        for names in self.block_names[:max(frozen_stages, 0)]:
+            frozen += names
+        for name in frozen:
+            getattr(self, name).requires_grad_(False)
 
     def forward(self, x):
         if self.compute_dtype is not None:
@@ -115,6 +132,10 @@ class ResNet(nn.Module):
         outs = []
         for names in self.block_names:
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = block(x)
             outs.append(x)
         return outs

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` compiles in ONE ``nvcc`` call into one shared library
-with a plain C interface, loaded with ``ctypes``: a source that includes
-no PyTorch header builds in seconds, where ``torch.utils.cpp_extension``
-takes minutes.  The library lands in ``transcar_tpu_torch/build/`` (listed
+Every ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``: a source that
+includes no PyTorch header builds in seconds, where
+``torch.utils.cpp_extension`` takes minutes.  The library lands in ``transcar_tpu_torch/build/`` (listed
 in ``.gitignore``) under a name keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.
 
@@ -24,7 +25,7 @@ PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -59,14 +60,33 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = so.with_name(f"{tag}.so.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    so.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, so)        # atomic: a concurrent build never sees half
     return so
 

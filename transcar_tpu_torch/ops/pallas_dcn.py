@@ -24,41 +24,89 @@ take a CUDA-core FMA loop instead, so the float32 path has no TF32).
 The sampled [pixels, 9·Cin] matrix never reaches device memory.  The
 TPU kernel's row band, one-hot matmuls and ``rows_per_step`` were Mosaic
 workarounds and are gone: the result is exact for any offset.
+
+The backward, K3 (``csrc/dcn_backward.cu``), replaces
+``transcar_tpu/ops/pallas_dcn.py::_fused_dcn_bwd_impl`` (the Pallas
+``_bwd_kernel``, the custom VJP of ``fused_deform_conv_ad``).  It returns
+d_x, d_offset_mask and d_W, all accumulated in float32.  What bounds it:
+two GEMMs as large as the forward's, d_samp = d_out × W9ᵀ and
+d_W = sampledᵀ × d_out (2 × 41 GFLOP per layer-3 launch), so it is
+tensor-core bound; its compulsory traffic (x, offset_mask, W, d_out in,
+d_x, d_offset_mask, d_W out) is about 60 MB per layer-3 launch in bf16.
+What the design does about it: two kernels.  (a) A block owns 64 pixels;
+per tap and 128-channel slice it forms d_samp on the tensor cores, then
+one lane per 4 channels rebuilds the pixel's four bilinear corners,
+scatters σ(mask)·weight·d_samp into a float32 d_x with 16-byte vector
+atomics and reduces the offset and mask terms over the channels with warp
+shuffles (one-sided floor-convention derivatives, so an integer sample
+position differentiates as ``ops/dcn.py`` under autograd does).  (b) An
+implicit GEMM over the pixels that regathers the modulated sample tile,
+rounded to the working type as the forward rounds it, against d_out;
+pixel splits add their float32 partial tiles with atomics.  The summation
+order of the atomics varies from run to run.  The band, one-hot matmuls
+and ``rows_per_step`` of the TPU kernel are gone: exact for any offset.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from transcar_tpu_torch.ops import kernel_lib
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
 
-#: Kernel launches since the count was last set to 0.
+#: K1 (forward) launches since the count was last set to 0.
 launches = 0
+#: K3 (backward) launches since the count was last set to 0.
+backward_launches = 0
 
 _ENTRY = {torch.bfloat16: "dcn_forward_bf16", torch.float32: "dcn_forward_f32"}
+_BWD_ENTRY = {torch.bfloat16: "dcn_backward_bf16",
+              torch.float32: "dcn_backward_f32"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
-    """DCNv2, 3×3 / stride 1 / pad 1 / dilation 1, exact for any offset.
+    """DCNv2, 3×3 / stride 1 / pad 1 / dilation 1, exact for any offset,
+    differentiable in all three inputs.
 
     Args:
       x: [N, H, W, Cin] (bfloat16 or float32).
       offset_mask: [N, H, W, 27] raw conv_offset output, same dtype as x
         (mmcv layout: ch 2k = Δy_k, 2k+1 = Δx_k, 18+k = mask logit).
-      weight: [3, 3, Cin, Cout]; cast to x.dtype.
+      weight: [3, 3, Cin, Cout], any float dtype (the float32 parameter):
+        cast to x.dtype for the product, and its gradient comes back in
+        its own dtype, accumulated in float32.
     Returns:
       [N, H, W, Cout] in x.dtype.
 
-    A CPU tensor takes the plain version (``ops/dcn.py``); a CUDA tensor
-    launches the kernel or raises.
+    A CPU tensor takes the plain version (``ops/dcn.py`` under autograd);
+    a CUDA tensor launches K1 forward and K3 backward, or raises.
     """
     if x.device.type == "cpu":
         return modulated_deform_conv(x, offset_mask, weight.to(x.dtype))
-    global launches
+    return FusedDeformConvFunction.apply(x, offset_mask, weight)
+
+
+class FusedDeformConvFunction(torch.autograd.Function):
+    """K1 forward, K3 backward (the custom VJP of the JAX package's
+    ``fused_deform_conv_ad``)."""
+
+    @staticmethod
+    def forward(ctx, x, offset_mask, weight):
+        x, offset_mask = x.contiguous(), offset_mask.contiguous()
+        ctx.save_for_backward(x, offset_mask, weight)
+        return forward_kernel(x, offset_mask, weight)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return backward_kernel(*ctx.saved_tensors, d_out)
+
+
+def _check(x, offset_mask, weight) -> None:
+    """Raise on what the kernels do not take."""
     n, h, w, cin = x.shape
     cout = weight.shape[-1]
     if x.dtype not in _ENTRY:
@@ -76,12 +124,25 @@ def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
     if not (x.is_cuda and offset_mask.device == x.device
             and weight.device == x.device):
         raise ValueError("dcn kernel: all tensors must be on one CUDA device")
+
+
+def _aligned(*tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("dcn kernel needs 16-byte aligned tensors")
+
+
+def forward_kernel(x: torch.Tensor, offset_mask: torch.Tensor,
+                   weight: torch.Tensor) -> torch.Tensor:
+    """K1 on CUDA tensors (see :func:`fused_deform_conv`)."""
+    global launches
+    _check(x, offset_mask, weight)
+    n, h, w, cin = x.shape
+    cout = weight.shape[-1]
     x = x.contiguous()
     offset_mask = offset_mask.contiguous()
     weight = weight.to(x.dtype).contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    if x.data_ptr() % 16 or weight.data_ptr() % 16:
-        raise ValueError("dcn kernel needs 16-byte aligned x and weight")
+    _aligned(x, weight)
     fn = kernel_lib.function(_ENTRY[x.dtype], _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(x.device):
@@ -91,3 +152,55 @@ def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
     kernel_lib.check(rc, _ENTRY[x.dtype])
     launches += 1
     return out
+
+
+def backward_kernel(x: torch.Tensor, offset_mask: torch.Tensor,
+                    weight: torch.Tensor, d_out: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors: (d_x, d_offset_mask, d_weight) of
+    :func:`fused_deform_conv` for the output gradient ``d_out``.
+
+    d_out is taken in x.dtype and made contiguous NHWC; d_x comes back
+    contiguous NHWC in x.dtype (the layout of the forward's NHWC view of
+    a channels-last tensor), d_offset_mask in its dtype and d_weight in
+    the weight's dtype.
+    """
+    global backward_launches
+    _check(x, offset_mask, weight)
+    n, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    x = x.contiguous()
+    offset_mask = offset_mask.contiguous()
+    w_t = weight.to(x.dtype).contiguous()
+    d_out = d_out.to(x.dtype).contiguous()
+    if d_out.shape != (n, h, w, cout):
+        raise ValueError(f"d_out {tuple(d_out.shape)} must be "
+                         f"[{n}, {h}, {w}, {cout}]")
+    d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device=x.device)
+    d_om = torch.empty_like(offset_mask)
+    d_w = torch.zeros((9 * cin, cout), dtype=torch.float32, device=x.device)
+    _aligned(x, w_t, d_out, d_x, d_w)
+    name = _BWD_ENTRY[x.dtype]
+    fn = kernel_lib.function(name, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), offset_mask.data_ptr(), w_t.data_ptr(),
+                d_out.data_ptr(), d_x.data_ptr(), d_om.data_ptr(),
+                d_w.data_ptr(), n, h, w, cin, cout, stream)
+    kernel_lib.check(rc, name)
+    backward_launches += 1
+    return (d_x.to(x.dtype), d_om,
+            d_w.reshape(3, 3, cin, cout).to(weight.dtype))
+
+
+def plain_backward(x: torch.Tensor, offset_mask: torch.Tensor,
+                   weight: torch.Tensor, d_out: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's plain version: autograd through ``ops/dcn.py`` (the CPU path
+    of :func:`fused_deform_conv`), on any device."""
+    with torch.enable_grad():
+        xs, oms, ws = (t.detach().requires_grad_()
+                       for t in (x, offset_mask, weight))
+        out = modulated_deform_conv(xs, oms, ws.to(x.dtype))
+        return torch.autograd.grad(out, (xs, oms, ws), d_out)

@@ -31,7 +31,8 @@ _RENAME = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params (nested mappings of arrays, with or without the
-    top-level ``"params"``) → ``state_dict`` for ``load_state_dict``."""
+    top-level ``"params"``) → ``state_dict`` for ``load_state_dict``:
+    float32, or float64 where a leaf is float64."""
     if set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -41,7 +42,8 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(val, Mapping):
                 walk(val, prefix + key + ".")
                 continue
-            arr = np.asarray(val, dtype=np.float32)
+            arr = np.asarray(val)
+            arr = arr.astype(np.promote_types(arr.dtype, np.float32))
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2 and key == "kernel":
