@@ -27,7 +27,26 @@ non-zero):
      the ``transcar_r101`` fusion-only recipe (K1 only), bfloat16
      backbone; finite losses, launch counts per step, which parameters
      moved, peak memory, ms/step; then one float32 step of each recipe,
-     kernel path against plain path (see phase_train_check).
+     kernel path against plain path (see phase_train_check);
+  8. K4 (OSA concat-reduce), K5 (whole OSA block) and K6 (fused
+     bottleneck) against their plain versions at every distinct flagship
+     shape (the 7 VoVNet-99 block shapes, the 3 R101 stride-1 non-DCN
+     bottleneck shapes), bfloat16 and float32; K4 beside a cuDNN 1×1
+     ``F.conv2d`` over the concatenation built beforehand;
+  9. the VoVNet-99 slice through ``benchmark transcar_vovnet_trainval``:
+     16 K4 + 3 K2 + 0 K1 launches per request, finite outputs and decode,
+     float32 kernel path against plain path (one decoder layer),
+     samples/s and peak memory of the kernel and the plain path in
+     bfloat16;
+ 10. the K5 path: the full-width VoVNet-99 backbone with
+     ``stage_impls=("fused",) * 4`` (16 K5 launches) against the K4
+     default on the 4 stage outputs, float32, and both timed in bfloat16;
+ 11. the K6 path: ``benchmark transcar_r101 --cfg-options
+     model.backbone.block_impl=fused``: 6 K6 + 26 K1 + 3 K2 per request,
+     float32 against the plain path, samples/s beside the default path;
+ 12. one ``transcar_vovnet_trainval --train`` fusion-only run: finite
+     loss, camera frozen, no kernel launches (training takes the plain
+     OSA tail, as in JAX), ms/step and peak memory.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA the
@@ -61,6 +80,36 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 ATTN_TOL = 2e-4          # as tests/test_pallas_attention.py
 SLICE_TOL = 1e-3         # float32 slice, kernel path vs plain path
+# VoVNet-99 OSA blocks on 6 × 928 × 1600 (stem → 232 × 400):
+# (H, W, C0, Ch, Cout, launches per request); 5 chain convs each
+VOV_BLOCKS = (
+    (232, 400, 128, 128, 256, 1),
+    (116, 200, 256, 160, 512, 1),
+    (116, 200, 512, 160, 512, 2),
+    (58, 100, 512, 192, 768, 1),
+    (58, 100, 768, 192, 768, 8),
+    (29, 50, 768, 224, 1024, 1),
+    (29, 50, 1024, 224, 1024, 2),
+)
+# R101 stride-1 non-DCN bottlenecks (layer1_0, layer1_1..2, layer2_1..3):
+# (H, W, Cin, Cm, Cout, downsample, launches per request)
+R101_K6 = (
+    (232, 400, 64, 64, 256, True, 1),
+    (232, 400, 256, 64, 256, False, 2),
+    (116, 200, 512, 128, 512, False, 3),
+)
+# K4 / K5 / K6 against their plain versions, max|kernel − plain| over
+# max|plain|: float32 by summation order; bfloat16 by that order before
+# one output rounding (K4), or before the rounding of each chain output,
+# where a value on a rounding boundary may go either way and carry into
+# the next conv (K5, K6).  The channel sums are float32 values meeting
+# in atomics in an order that changes from run to run.
+CONV_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+CHAIN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+SUMS_TOL = 1e-4
+# the K5 path against the K4 path over 16 float32 blocks: the two differ
+# by summation order in every conv and reduce, compounded block by block
+BACKBONE_TOL = 1e-3
 # float32 train step, kernel path vs plain path: loss and gradient norm
 # differ by summation order (the d_x / d_W atomics, the DCN GEMMs); the
 # parameters after one AdamW step agree to 1e-2·lr in all but a few
@@ -325,39 +374,32 @@ def phase_k2() -> dict:
 def phase_slice(smi: str) -> dict:
     from transcar_tpu_torch.cli import benchmark
     from transcar_tpu_torch.core.config import get_preset
-    from transcar_tpu_torch.eval.decode import nms_free_decode
     from transcar_tpu_torch.models.resnet import RESNET_DEPTHS
-    from transcar_tpu_torch.ops import pallas_attention, pallas_dcn
 
     preset = "transcar_r101"
     cfg = get_preset(preset)
     depths = RESNET_DEPTHS[int(cfg.model.backbone.kind[6:])]
-    per_req = (sum(d for d, dcn in zip(depths, cfg.model.backbone.with_dcn)
-                   if dcn), cfg.model.head.num_fusion_layers)     # (26, 3)
+    per_req = {"dcn_forward": sum(d for d, dcn in zip(
+                   depths, cfg.model.backbone.with_dcn) if dcn),        # 26
+               "masked_attention": cfg.model.head.num_fusion_layers}    # 3
     plain = ["model.backbone.dcn_impl=exact",
              "model.head.use_pallas_attention=false"]
 
     # the main path: bfloat16 backbone, float32 head, through the kernels
-    pallas_dcn.launches = pallas_attention.launches = 0
+    _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
-    launches = (pallas_dcn.launches, pallas_attention.launches)
-    want = tuple(n * rec["requests"] for n in per_req)
-    for key, val in out.items():
-        if val.shape != (per_req[1], 1, 900, 10) or not torch.isfinite(val).all():
-            raise AssertionError(f"slice {key}: shape {tuple(val.shape)}, "
-                                 f"finite {bool(torch.isfinite(val).all())}")
-    dec = nms_free_decode(out, cfg.model.head)
-    if dec["boxes"].shape != (1, 300, 9) or not torch.isfinite(dec["boxes"]).all():
-        raise AssertionError("decode: bad boxes")
+    want = {k: per_req.get(k, 0) * rec["requests"]
+            for k in rec["kernel_launches"]}
+    valid = _check_outputs("slice", out, cfg)
     print(f"slice {preset} 6x928x1600 bs1 (bf16 backbone, fp32 head): "
-          f"{rec['requests']} requests, launches K1 {launches[0]} K2 "
-          f"{launches[1]} (want {want[0]}, {want[1]}: {per_req[0]} + "
-          f"{per_req[1]} per request); outputs finite; decode "
-          f"{int(dec['valid'].sum())}/300 valid boxes; DCN taps with "
-          f"|dy|>5 px {rec['dcn_taps_past_5px']:.4f}; fusion keeps "
+          f"{rec['requests']} requests, launches {rec['kernel_launches']} "
+          f"(want {per_req} per request, no other kernel); outputs finite; "
+          f"decode {valid}/300 valid boxes; DCN taps with |dy|>5 px "
+          f"{rec['dcn_taps_past_5px']:.4f}; fusion keeps "
           f"{rec['fusion_keep_share']:.3e} of (query, token) pairs")
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
+    if rec["kernel_launches"] != want:
+        raise AssertionError(f"kernel launches {rec['kernel_launches']} != "
+                             f"{want}")
 
     # float32 backbone: the kernel path against the plain path.  The
     # random-weight decoder amplifies any perturbation about 10x per layer
@@ -365,15 +407,7 @@ def phase_slice(smi: str) -> dict:
     # layers' outputs then to 2e-6, 1e-4, 1e-3, 2e-2, 0.14 and 1.05), so
     # this check keeps one decoder layer: full backbone and FPN (26 K1
     # launches), one decoder layer, the 3 fusion layers (3 K2 launches).
-    f32 = [preset, "--samples", "1", "--warmup", "0", "--cfg-options",
-           "model.backbone.compute_dtype=float32",
-           "model.head.num_decoder_layers=1"]
-    _, k32 = benchmark.run(f32)
-    _, p32 = benchmark.run(f32 + plain)
-    worst = 0.0
-    for key in k32:
-        a, b = k32[key].double(), p32[key].double()
-        worst = max(worst, ((a - b).abs() / (1 + b.abs())).max().item())
+    worst = _fp32_vs_plain(preset, [], plain)
     print(f"slice fp32 (1 decoder layer) kernel path vs plain path: max "
           f"|diff|/(1+|plain|) {worst:.3e} (tol {SLICE_TOL:.0e}) "
           f"{'ok' if worst <= SLICE_TOL else 'FAIL'}")
@@ -386,7 +420,7 @@ def phase_slice(smi: str) -> dict:
           f"({rec['ms_per_sample']:.2f} ms/sample) on {smi}")
     print(f"slice bf16 plain path: {plain_rec['samples_per_sec']:.3f} "
           f"samples/s ({plain_rec['ms_per_sample']:.2f} ms/sample) on {smi}")
-    return {"dcn_forward": launches[0], "masked_attention": launches[1]}
+    return {k: rec["kernel_launches"][k] for k in per_req}
 
 
 def _initial_params(preset: str, cfg_options=()) -> dict:
@@ -436,8 +470,7 @@ def phase_train(smi: str) -> dict:
                     if dcn)                                           # 26
         start = _initial_params(preset)
         # this recipe's path, counts at 0 just before and read just after
-        pallas_dcn.launches = pallas_dcn.backward_launches = 0
-        pallas_attention.launches = 0
+        _zero_counts()
         rec, state = benchmark.run_train([preset, "--train", "--samples",
                                           str(timed), "--warmup",
                                           str(warmup)])
@@ -540,6 +573,418 @@ def phase_train_check() -> None:
         torch.cuda.empty_cache()
 
 
+def _rel_err(got, ref) -> tuple:
+    """(max |got − ref|, that over max |ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def _affine(g, c):
+    return (torch.rand(c, device="cuda", generator=g) + 0.5,
+            torch.randn(c, device="cuda", generator=g) * 0.1)
+
+
+def _kernel_result() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": "operations", "library_ms": None}
+
+
+def phase_k4() -> dict:
+    """K4 at the 7 VoVNet-99 block shapes; per request (16 launches) in
+    bfloat16 beside one cuDNN 1×1 convolution over the concatenation."""
+    from transcar_tpu_torch.ops import pallas_osa
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    res = _kernel_result()
+    res["library_ms"] = 0.0
+    bound_kinds = set()
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, c0, ch, cout, per_req in VOV_BLOCKS:
+            n, widths = 6, [c0] + [ch] * 5
+            pieces = [torch.randn(n, h, w, c, device="cuda", generator=g)
+                      .to(dtype) for c in widths]
+            ws = [(torch.randn(c, cout, device="cuda", generator=g)
+                   / math.sqrt(sum(widths))).to(dtype) for c in widths]
+            s, b = _affine(g, cout)
+            out, sums = pallas_osa.osa_reduce(pieces, ws, s, b)
+            ref, ref_sums = pallas_osa.plain_osa_reduce(pieces, ws, s, b)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(out, ref)
+            _, srel = _rel_err(sums, ref_sums)
+            ok = (math.isfinite(rel) and rel <= CONV_TOL[dtype]
+                  and srel <= SUMS_TOL)
+            line = (f"K4 osa_reduce {str(dtype)[6:]} 6x{h}x{w} "
+                    f"sum(C)={sum(widths)}->{cout}: max_abs_err {err:.3e} "
+                    f"max_rel_err {rel:.3e} (tol {CONV_TOL[dtype]:.0e}), "
+                    f"sums rel err {srel:.3e} (tol {SUMS_TOL:.0e})")
+            if dtype == torch.bfloat16:         # the main path's dtype
+                del ref, ref_sums
+                ms = cuda_ms(lambda: pallas_osa.osa_reduce(pieces, ws, s, b))
+                plain_ms = cuda_ms(lambda: pallas_osa.plain_osa_reduce(
+                    pieces, ws, s, b), iters=5, warmup=1)
+                # the library yardstick: one cuDNN 1×1 conv over the
+                # concatenation, built beforehand and not timed
+                xcat = torch.cat(pieces, -1).permute(0, 3, 1, 2)
+                wcat = torch.cat(ws, 0).t()[:, :, None, None].contiguous(
+                    memory_format=torch.channels_last)
+                lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xcat,
+                                                                    wcat))
+                del xcat, wcat
+                bound, kind = bound_ms(2.0 * n * h * w * sum(widths) * cout,
+                                       dtype, nbytes(*pieces, *ws, s, b, out,
+                                                     sums))
+                bound_kinds.add(kind)
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["ms"] += per_req * ms
+                res["plain_ms"] += per_req * plain_ms
+                res["library_ms"] += per_req * lib_ms
+                res["bound_ms"] += per_req * bound
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                         f"cuDNN 1x1 conv over the concatenation "
+                         f"{lib_ms:.3f} ms, bound {bound:.3f} ms by {kind}")
+            print(line + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"K4 {dtype} 6x{h}x{w} disagrees with "
+                                     f"its plain version: {rel}, sums {srel}")
+            del pieces, ws, out, sums
+    res["bound_by"] = "operations" if "operations" in bound_kinds else "bytes"
+    print(f"K4 per request on the bfloat16 path (16 launches): kernel "
+          f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, cuDNN 1x1 "
+          f"conv {res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms")
+    return res
+
+
+def phase_k5() -> dict:
+    """K5 at the 7 VoVNet-99 block shapes; per request (16 calls)."""
+    from transcar_tpu_torch.ops import pallas_osa_block
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    res = _kernel_result()
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, c0, ch, cout, per_req in VOV_BLOCKS:
+            n = 6
+            x = torch.randn(n, h, w, c0, device="cuda", generator=g).to(dtype)
+            w9s, affs, cin = [], [], c0
+            for _ in range(5):
+                w9s.append((torch.randn(3, 3, cin, ch, device="cuda",
+                                        generator=g)
+                            / math.sqrt(9 * cin)).to(dtype))
+                affs.append(_affine(g, ch))
+                cin = ch
+            widths = [c0] + [ch] * 5
+            rws = [(torch.randn(c, cout, device="cuda", generator=g)
+                    / math.sqrt(sum(widths))).to(dtype) for c in widths]
+            raff = _affine(g, cout)
+            args = (x, w9s, affs, rws, raff)
+            out, sums = pallas_osa_block.osa_block_fused(*args)
+            ref, ref_sums = pallas_osa_block.plain_osa_block(*args)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(out, ref)
+            _, srel = _rel_err(sums, ref_sums)
+            stol = SUMS_TOL if dtype == torch.float32 else CHAIN_TOL[dtype]
+            ok = math.isfinite(rel) and rel <= CHAIN_TOL[dtype] and srel <= stol
+            line = (f"K5 osa_block {str(dtype)[6:]} 6x{h}x{w} {c0}->5x{ch}"
+                    f"->{cout}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                    f"(tol {CHAIN_TOL[dtype]:.0e}), sums rel err {srel:.3e} "
+                    f"(tol {stol:.0e})")
+            if dtype == torch.bfloat16:
+                del ref, ref_sums
+                ms = cuda_ms(lambda: pallas_osa_block.osa_block_fused(*args),
+                             iters=10)
+                plain_ms = cuda_ms(lambda: pallas_osa_block.plain_osa_block(
+                    *args), iters=3, warmup=1)
+                flops = 2.0 * n * h * w * (9 * (c0 * ch + 4 * ch * ch)
+                                           + sum(widths) * cout)
+                bound, kind = bound_ms(flops, dtype, nbytes(
+                    x, *w9s, *rws, *[t for a in affs for t in a], *raff,
+                    out, sums))
+                res["bound_by"] = kind
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["ms"] += per_req * ms
+                res["plain_ms"] += per_req * plain_ms
+                res["bound_ms"] += per_req * bound
+                line += (f"; kernel {ms:.3f} ms (6 device kernels), plain "
+                         f"{plain_ms:.3f} ms, bound {bound:.3f} ms by {kind}")
+            print(line + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"K5 {dtype} 6x{h}x{w} disagrees with "
+                                     f"its plain version: {rel}, sums {srel}")
+            del x, w9s, rws, out, sums, args
+    print(f"K5 per request on the bfloat16 path (16 calls): kernel "
+          f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+          f"{res['bound_ms']:.3f} ms (no single PyTorch call computes an OSA "
+          f"block)")
+    return res
+
+
+def phase_k6() -> dict:
+    """K6 at the 3 R101 stride-1 non-DCN bottleneck shapes; per request
+    of ``transcar_r101`` with ``block_impl=fused`` (6 calls)."""
+    from transcar_tpu_torch.ops import pallas_bottleneck
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    res = _kernel_result()
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, cin, cm, cout, ds, per_req in R101_K6:
+            n = 6
+            x = torch.randn(n, h, w, cin, device="cuda", generator=g).to(dtype)
+            k = lambda *sh: (torch.randn(*sh, device="cuda", generator=g)
+                             / math.sqrt(sh[0] * sh[1] * sh[2])).to(dtype)
+            ws = [k(1, 1, cin, cm), k(3, 3, cm, cm), k(1, 1, cm, cout)]
+            affs = [_affine(g, cm), _affine(g, cm), _affine(g, cout)]
+            kw = dict(wd=k(1, 1, cin, cout), affd=_affine(g, cout)) if ds else {}
+            args = (x, ws[0], affs[0], ws[1], affs[1], ws[2], affs[2])
+            out = pallas_bottleneck.bottleneck_fused(*args, **kw)
+            ref = pallas_bottleneck.plain_bottleneck(*args, **kw)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(out, ref)
+            ok = math.isfinite(rel) and rel <= CHAIN_TOL[dtype]
+            line = (f"K6 bottleneck {str(dtype)[6:]} 6x{h}x{w} {cin}->{cm}->"
+                    f"{cout}{' +downsample' if ds else ''}: max_abs_err "
+                    f"{err:.3e} max_rel_err {rel:.3e} (tol "
+                    f"{CHAIN_TOL[dtype]:.0e})")
+            if dtype == torch.bfloat16:
+                del ref
+                ms = cuda_ms(lambda: pallas_bottleneck.bottleneck_fused(
+                    *args, **kw))
+                plain_ms = cuda_ms(lambda: pallas_bottleneck.plain_bottleneck(
+                    *args, **kw), iters=5, warmup=1)
+                flops = 2.0 * n * h * w * (cin * cm + 9 * cm * cm + cm * cout
+                                           + (cin * cout if ds else 0))
+                extra = [kw["wd"], *kw["affd"]] if ds else []
+                bound, kind = bound_ms(flops, dtype, nbytes(
+                    x, *ws, *[t for a in affs for t in a], *extra, out))
+                res["bound_by"] = kind
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["ms"] += per_req * ms
+                res["plain_ms"] += per_req * plain_ms
+                res["bound_ms"] += per_req * bound
+                line += (f"; kernel {ms:.3f} ms (3 device kernels), plain "
+                         f"{plain_ms:.3f} ms, bound {bound:.3f} ms by {kind}")
+            print(line + (" ok" if ok else " FAIL"))
+            if not ok:
+                raise AssertionError(f"K6 {dtype} 6x{h}x{w} disagrees with "
+                                     f"its plain version: {rel}")
+            del x, ws, out, args, kw
+    print(f"K6 per request on the bfloat16 path (6 calls): kernel "
+          f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
+          f"{res['bound_ms']:.3f} ms (no single PyTorch call computes a "
+          f"bottleneck)")
+    return res
+
+
+def _zero_counts() -> None:
+    from transcar_tpu_torch.ops import (pallas_attention, pallas_bottleneck,
+                                        pallas_dcn, pallas_osa,
+                                        pallas_osa_block)
+
+    pallas_dcn.launches = pallas_dcn.backward_launches = 0
+    pallas_attention.launches = pallas_osa.launches = 0
+    pallas_osa_block.launches = pallas_bottleneck.launches = 0
+
+
+def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
+    """One float32 request with one decoder layer through the kernel path
+    and through the plain path; the largest |diff| / (1 + |plain|)."""
+    from transcar_tpu_torch.cli import benchmark
+
+    f32 = [preset, "--samples", "1", "--warmup", "0", "--cfg-options",
+           "model.backbone.compute_dtype=float32",
+           "model.head.num_decoder_layers=1"]
+    _, k32 = benchmark.run(f32 + list(kernel_opts))
+    _, p32 = benchmark.run(f32 + list(plain_opts))
+    worst = 0.0
+    for key in k32:
+        a, b = k32[key].double(), p32[key].double()
+        worst = max(worst, ((a - b).abs() / (1 + b.abs())).max().item())
+    return worst
+
+
+def _check_outputs(name: str, out, cfg) -> int:
+    """Finite head outputs of the expected shape and a finite decode;
+    returns the count of valid decoded boxes."""
+    from transcar_tpu_torch.eval.decode import nms_free_decode
+
+    layers = cfg.model.head.num_fusion_layers
+    for key, val in out.items():
+        if val.shape != (layers, 1, 900, 10) or not torch.isfinite(val).all():
+            raise AssertionError(f"{name} {key}: shape {tuple(val.shape)}, "
+                                 f"finite {bool(torch.isfinite(val).all())}")
+    dec = nms_free_decode(out, cfg.model.head)
+    if dec["boxes"].shape != (1, 300, 9) or not torch.isfinite(
+            dec["boxes"]).all():
+        raise AssertionError(f"{name} decode: bad boxes")
+    return int(dec["valid"].sum())
+
+
+def phase_vovnet_slice(smi: str) -> dict:
+    """``transcar_vovnet_trainval`` batch-1 inference at full width."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.models.vovnet import V99_SPEC
+
+    preset = "transcar_vovnet_trainval"
+    cfg = get_preset(preset)
+    per_req = {"osa_reduce": sum(V99_SPEC["block_per_stage"]),       # 16
+               "masked_attention": cfg.model.head.num_fusion_layers,   # 3
+               "dcn_forward": 0}
+    _zero_counts()
+    rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
+    got = {k: rec["kernel_launches"][k] for k in per_req}
+    want = {k: v * rec["requests"] for k, v in per_req.items()}
+    valid = _check_outputs("vovnet slice", out, cfg)
+    print(f"vovnet slice {preset} 6x928x1600 bs1 (V-99-eSE bf16 backbone, "
+          f"FPN from stage 2, fp32 head): {rec['requests']} requests, "
+          f"launches {got} (want {want}); outputs finite; decode {valid}/300 "
+          f"valid boxes; DCN audit {rec['dcn_taps_past_5px']} (no DCN); "
+          f"fusion keeps {rec['fusion_keep_share']:.3e} of (query, token) "
+          f"pairs")
+    if got != want or any(v for k, v in rec["kernel_launches"].items()
+                          if k not in per_req):
+        raise AssertionError(f"vovnet slice launches {rec['kernel_launches']}"
+                             f" != {want}")
+    plain = ["model.backbone.osa_reduce_impl=xla",
+             "model.head.use_pallas_attention=false"]
+    worst = _fp32_vs_plain(preset, [], plain)
+    print(f"vovnet slice fp32 (1 decoder layer) kernel path vs plain path: "
+          f"max |diff|/(1+|plain|) {worst:.3e} (tol {SLICE_TOL:.0e}) "
+          f"{'ok' if worst <= SLICE_TOL else 'FAIL'}")
+    if not worst <= SLICE_TOL:
+        raise AssertionError("fp32 vovnet slice: kernel path disagrees with "
+                             "plain")
+    plain_rec, _ = benchmark.run([preset, "--samples", "10", "--warmup", "3",
+                                  "--cfg-options", *plain])
+    for name, r in (("kernel", rec), ("plain", plain_rec)):
+        print(f"vovnet slice bf16 {name} path: {r['samples_per_sec']:.3f} "
+              f"samples/s ({r['ms_per_sample']:.2f} ms/sample), peak memory "
+              f"{r['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
+    return got
+
+
+def phase_k5_path(smi: str) -> int:
+    """The full-width VoVNet-99 backbone with K5 in every block against
+    the K4 default, on the four stage outputs."""
+    from transcar_tpu_torch.models.detector import init_weights
+    from transcar_tpu_torch.models.vovnet import VoVNet
+    from transcar_tpu_torch.ops import pallas_osa, pallas_osa_block
+
+    x = torch.randn(6, 3, 928, 1600, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    x = x.contiguous(memory_format=torch.channels_last)
+    k5 = 0
+    for dtype in ("float32", "bfloat16"):
+        nets = {}
+        for impl in ("pallas", "fused"):
+            net = VoVNet(compute_dtype=dtype, stage_impls=(impl,) * 4)
+            init_weights(net, torch.Generator().manual_seed(0))
+            nets[impl] = net.to(device="cuda",
+                                memory_format=torch.channels_last).eval()
+        with torch.inference_mode():
+            _zero_counts()
+            fused = nets["fused"](x)
+            torch.cuda.synchronize()
+            counts = (pallas_osa_block.launches, pallas_osa.launches)
+            default = nets["pallas"](x)
+            k4 = pallas_osa.launches - counts[1]
+            if counts != (16, 0) or k4 != 16:
+                raise AssertionError(f"K5 path launches K5/K4 {counts}, K4 "
+                                     f"path K4 {k4}; want (16, 0) and 16")
+            rels = [_rel_err(a, b)[1] for a, b in zip(fused, default)]
+            finite = all(bool(torch.isfinite(a).all()) for a in fused)
+            # timed in bfloat16 only: the K4 path's float32 chain convs
+            # take cuDNN's slow non-TF32 route (seconds per forward)
+            timing = "" if dtype == "float32" else (
+                f"; backbone K5 path "
+                f"{cuda_ms(lambda: nets['fused'](x), iters=5, warmup=1):.2f}"
+                f" ms, K4 path "
+                f"{cuda_ms(lambda: nets['pallas'](x), iters=5, warmup=1):.2f}"
+                f" ms on {smi}")
+        ok = finite and (dtype == "bfloat16" or max(rels) <= BACKBONE_TOL)
+        print(f"K5 path VoVNet-99 {dtype} 6x3x928x1600: 16 K5 launches; "
+              f"stage 2-5 max_rel_err vs the K4 path "
+              + " / ".join(f"{r:.3e}" for r in rels)
+              + (f" (tol {BACKBONE_TOL:.0e})" if dtype == "float32"
+                 else " (reported; bf16 rounds at other places)")
+              + f", finite {finite}{timing} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K5 path disagrees with the K4 path")
+        k5 = counts[0]
+        del nets, fused, default
+        torch.cuda.empty_cache()
+    return k5
+
+
+def phase_k6_path(smi: str) -> int:
+    """``transcar_r101`` with ``block_impl=fused``: launches, float32
+    against the plain path, samples/s beside the default path."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.core.config import get_preset
+
+    preset, fused = "transcar_r101", "model.backbone.block_impl=fused"
+    per_req = {"bottleneck": 6, "dcn_forward": 26, "masked_attention": 3}
+    _zero_counts()
+    rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3",
+                              "--cfg-options", fused])
+    got = {k: rec["kernel_launches"][k] for k in per_req}
+    want = {k: v * rec["requests"] for k, v in per_req.items()}
+    valid = _check_outputs("K6 path", out, get_preset(preset))
+    print(f"K6 path {preset} block_impl=fused 6x928x1600 bs1: launches {got}"
+          f" (want {want}); outputs finite; decode {valid}/300 valid boxes")
+    if got != want:
+        raise AssertionError(f"K6 path launches {got} != {want}")
+    plain = ["model.backbone.dcn_impl=exact",
+             "model.head.use_pallas_attention=false"]
+    worst = _fp32_vs_plain(preset, [fused], plain)
+    print(f"K6 path fp32 (1 decoder layer) kernel path vs plain path: max "
+          f"|diff|/(1+|plain|) {worst:.3e} (tol {SLICE_TOL:.0e}) "
+          f"{'ok' if worst <= SLICE_TOL else 'FAIL'}")
+    if not worst <= SLICE_TOL:
+        raise AssertionError("fp32 K6 path disagrees with plain")
+    default, _ = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
+    print(f"K6 path bf16: block_impl=fused {rec['samples_per_sec']:.3f} "
+          f"samples/s ({rec['ms_per_sample']:.2f} ms/sample), default "
+          f"{default['samples_per_sec']:.3f} samples/s "
+          f"({default['ms_per_sample']:.2f} ms/sample) on {smi}")
+    return got["bottleneck"]
+
+
+def phase_vovnet_train(smi: str) -> None:
+    """One ``transcar_vovnet_trainval --train`` run: fusion-only."""
+    from transcar_tpu_torch.cli import benchmark
+
+    preset = "transcar_vovnet_trainval"
+    start = _initial_params(preset)
+    _zero_counts()
+    rec, state = benchmark.run_train([preset, "--train", "--samples", "5",
+                                      "--warmup", "2"])
+    moved = _moved(state, start)
+    finite = all(math.isfinite(v) for r in (rec["loss_first"],
+                                            rec["loss_last"])
+                 for v in r.values())
+    camera = [n for n, p in state.model.named_parameters()
+              if n.startswith(("backbone.", "neck.", "head.decoder"))
+              and (p.requires_grad or not torch.equal(p.detach(), start[n]))]
+    print(f"train {preset} 6x928x1600 bs1 (fusion-only, camera forward "
+          f"without a graph, plain OSA tail): {rec['steps']} steps, "
+          f"launches {rec['kernel_launches']}; loss total first "
+          f"{rec['loss_first']['total']:.4f} last "
+          f"{rec['loss_last']['total']:.4f}, finite {finite}; trainable "
+          f"tensors moved {moved[0]}/{moved[1]} (unmoved: {moved[4]} zero "
+          f"with zero gradient), frozen moved {moved[2]}/{moved[3]}; peak "
+          f"memory {rec['peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"{rec['ms_per_step']:.2f} ms/step, {rec['steps_per_sec']:.3f} "
+          f"steps/s on {smi}")
+    if not (rec["fusion_only"] and finite) or camera:
+        raise AssertionError(f"vovnet train: fusion_only {rec['fusion_only']}"
+                             f", finite {finite}, camera trains {camera[:3]}")
+    if any(rec["kernel_launches"].values()):
+        raise AssertionError(f"vovnet train launched {rec['kernel_launches']}")
+    if moved[0] + moved[4] != moved[1] or moved[2] != 0 or moved[0] == 0:
+        raise AssertionError(f"vovnet train: moved {moved}")
+    del state, start
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -550,6 +995,13 @@ def main() -> None:
     train = phase_train(smi)
     phase_train_check()
     launches["dcn_backward"] = train["detr3d_r101"]["launches"][1]
+    k4 = phase_k4()
+    k5 = phase_k5()
+    k6 = phase_k6()
+    launches["osa_reduce"] = phase_vovnet_slice(smi)["osa_reduce"]
+    launches["osa_block"] = phase_k5_path(smi)
+    launches["bottleneck"] = phase_k6_path(smi)
+    phase_vovnet_train(smi)
     kernels = []
     for name, res, source, replaces in (
             ("dcn_forward", k1, "transcar_tpu_torch/csrc/dcn_forward.cu",
@@ -558,7 +1010,13 @@ def main() -> None:
              "transcar_tpu_torch/csrc/masked_attention.cu",
              "transcar_tpu/ops/pallas_attention.py:60"),
             ("dcn_backward", k3, "transcar_tpu_torch/csrc/dcn_backward.cu",
-             "transcar_tpu/ops/pallas_dcn.py:387")):
+             "transcar_tpu/ops/pallas_dcn.py:387"),
+            ("osa_reduce", k4, "transcar_tpu_torch/csrc/osa_reduce.cu",
+             "transcar_tpu/ops/pallas_osa.py:67"),
+            ("osa_block", k5, "transcar_tpu_torch/csrc/osa_block.cu",
+             "transcar_tpu/ops/pallas_osa_block.py:115"),
+            ("bottleneck", k6, "transcar_tpu_torch/csrc/bottleneck.cu",
+             "transcar_tpu/ops/pallas_bottleneck.py:118")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],

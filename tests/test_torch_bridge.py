@@ -35,7 +35,7 @@ def test_strict_load_of_the_flax_tree(preset):
     sd = from_jax_params(params)
     n_leaves = len(jax.tree_util.tree_leaves(params))
     assert len(sd) == n_leaves
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     result = model.load_state_dict(sd, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     # layout rules: conv [kh,kw,I,O] → [O,I,kh,kw]; Dense [I,O] → [O,I];

@@ -14,7 +14,9 @@ flagship shapes.
 import pytest
 import torch
 
-from transcar_tpu_torch.ops import dcn, pallas_attention, pallas_dcn
+from transcar_tpu_torch.models.common import disable_tf32
+from transcar_tpu_torch.ops import (dcn, pallas_attention, pallas_bottleneck,
+                                    pallas_dcn, pallas_osa, pallas_osa_block)
 from transcar_tpu_torch.ops.attention import attention_core
 
 pytestmark = pytest.mark.cuda
@@ -24,7 +26,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32()          # the plain versions' float32 GEMMs and convs
     return torch.device("cuda")
 
 
@@ -128,3 +130,101 @@ def test_masked_attention_kernel(dev, b, nq, nt):
     torch.testing.assert_close(out.transpose(1, 2)[gate],
                                ref.transpose(1, 2)[gate],
                                rtol=2e-4, atol=2e-4)
+
+
+# --- K4, K5, K6: ragged shapes ---------------------------------------------
+# Float32 differs from the plain version by summation order only; bfloat16
+# by that order before one output rounding (2⁻⁸), with margin; the K5 / K6
+# chains round each intermediate, where a value on a rounding boundary may
+# go either way and carry into the next conv.  The channel sums come from
+# the float32 values before the rounding and meet in atomics.
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+CHAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SUMS_TOL = 1e-4
+
+
+def _close(got, ref, tol):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= tol * ref.float().abs().max(), err.item()
+
+
+def _aff(g, c, dev):
+    return (torch.rand(c, device=dev, generator=g) + 0.5,
+            torch.randn(c, device=dev, generator=g) * 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,widths,cout,relu", [
+    (1, 7, 11, [32, 13, 16, 20], 72, True),     # odd H, W; C % 8 != 0
+    (2, 9, 9, [24, 8], 70, False),              # Cout % 8 != 0
+    (1, 20, 30, [64, 40, 40], 136, True),       # > one 64-pixel tile
+])
+def test_osa_reduce_kernel(dev, dtype, n, h, w, widths, cout, relu):
+    g = torch.Generator(device=dev).manual_seed(4)
+    pieces = [torch.randn(n, h, w, c, device=dev, generator=g).to(dtype)
+              for c in widths]
+    ws = [torch.randn(c, cout, device=dev, generator=g) / sum(widths) ** 0.5
+          for c in widths]
+    s, b = _aff(g, cout, dev)
+    before = pallas_osa.launches
+    out, sums = pallas_osa.osa_reduce(pieces, ws, s, b, relu=relu)
+    ref, ref_sums = pallas_osa.plain_osa_reduce(pieces, ws, s, b, relu=relu)
+    assert pallas_osa.launches == before + 1
+    _close(out, ref, CONV_TOL[dtype])
+    _close(sums, ref_sums, SUMS_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c0,ch,cr,k", [
+    (1, 9, 13, 20, 16, 40, 3),                  # C0 % 8 != 0
+    (2, 17, 25, 128, 128, 256, 5),              # a V-99 stage-2 block, small
+])
+def test_osa_block_kernel(dev, dtype, n, h, w, c0, ch, cr, k):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(n, h, w, c0, device=dev, generator=g).to(dtype)
+    w9s, affs, cin = [], [], c0
+    for _ in range(k):
+        w9s.append(torch.randn(3, 3, cin, ch, device=dev, generator=g)
+                   / (9 * cin) ** 0.5)
+        affs.append(_aff(g, ch, dev))
+        cin = ch
+    rws = [torch.randn(c, cr, device=dev, generator=g) / (c0 + k * ch) ** 0.5
+           for c in [c0] + [ch] * k]
+    raff = _aff(g, cr, dev)
+    before = pallas_osa_block.launches
+    out, sums = pallas_osa_block.osa_block_fused(x, w9s, affs, rws, raff)
+    ref, ref_sums = pallas_osa_block.plain_osa_block(x, w9s, affs, rws, raff)
+    assert pallas_osa_block.launches == before + 1
+    _close(out, ref, CHAIN_TOL[dtype])
+    _close(sums, ref_sums, SUMS_TOL if dtype == torch.float32
+           else CHAIN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cm,cout,ds", [
+    (1, 9, 13, 32, 8, 32, False),               # identity, Cm below a slice
+    (1, 7, 11, 12, 16, 40, True),               # downsample, Cin % 8 != 0
+    (2, 5, 7, 2048, 512, 2048, False),          # Cm = 512 (ResNet layer 4)
+])
+def test_bottleneck_kernel(dev, dtype, n, h, w, cin, cm, cout, ds):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(n, h, w, cin, device=dev, generator=g).to(dtype)
+    k = lambda *s: torch.randn(*s, device=dev, generator=g) / (
+        s[0] * s[1] * s[2]) ** 0.5
+    args = [k(1, 1, cin, cm), _aff(g, cm, dev), k(3, 3, cm, cm),
+            _aff(g, cm, dev), k(1, 1, cm, cout), _aff(g, cout, dev)]
+    kw = dict(wd=k(1, 1, cin, cout), affd=_aff(g, cout, dev)) if ds else {}
+    before = pallas_bottleneck.launches
+    out = pallas_bottleneck.bottleneck_fused(x, *args, **kw)
+    ref = pallas_bottleneck.plain_bottleneck(x, *args, **kw)
+    assert pallas_bottleneck.launches == before + 1
+    _close(out, ref, CHAIN_TOL[dtype])
+
+
+def test_conv_kernels_are_forward_only(dev):
+    x = torch.randn(1, 3, 5, 8, device=dev, requires_grad=True)
+    ones = torch.ones(8, device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        pallas_osa.osa_reduce([x], [torch.ones(8, 8, device=dev)], ones, ones)

@@ -225,15 +225,19 @@ def test_cli_benchmark_cpu(capsys, tmp_path):
     assert "aten::" in (tmp_path / "kernels.txt").read_text()
     assert (tmp_path / "trace.json").stat().st_size > 0
     # the wrappers took their plain versions on the CPU: no launches
-    assert rec["kernel_launches"] == {"dcn_forward": 0,
-                                      "masked_attention": 0}
+    assert rec["kernel_launches"] == dict.fromkeys(
+        ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
+         "osa_block", "bottleneck"), 0)
+    assert rec["peak_memory_bytes"] is None
+    assert 0 <= rec["dcn_taps_past_5px"] <= 1
 
 
 def test_cli_rejects_unported_presets():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         benchmark.run(["objdgcnn_pillar", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        benchmark.run(["transcar_vovnet_trainval", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="int8"):
+        benchmark.run(["transcar_vovnet_trainval", "--device", "cpu",
+                       "--cfg-options", "model.backbone.quantize=int8"])
 
 
 def _jax_package_uses(path):

@@ -13,10 +13,18 @@ Inference times batch requests after ``--warmup`` requests, with
 tools/analysis_tools/benchmark.py:64-91, which ``bench.py`` cites), on
 seeded random weights and the synthetic batch of ``data/synthetic.py``.
 It prints one JSON line: samples/s, ms/sample, the device's name, the
-kernel launches of the run, and two audits of the first warmup request:
-the share of DCN taps whose vertical offset exceeds 5 px (the TPU
-kernel's exact band; here every tap is exact) and the share of (query,
-radar token) pairs the fusion masks keep.
+launches of every kernel (K1-K6) in the run, the peak device memory, and
+two audits of the first warmup request: the share of DCN taps whose
+vertical offset exceeds 5 px (the TPU kernel's exact band; here every tap
+is exact; null for a backbone without DCN, as VoVNet-99) and the share of
+(query, radar token) pairs the fusion masks keep.
+
+Any camera or fusion preset runs, ``transcar_vovnet_trainval`` (VoVNet-99,
+K4 in every OSA block) included.  The kernel paths are the defaults; the
+plain layers are ``--cfg-options model.backbone.dcn_impl=exact
+model.backbone.osa_reduce_impl=xla model.head.use_pallas_attention=false``,
+and the opt-in kernels are ``model.backbone.block_impl=fused`` (K6, ResNet)
+and ``model.backbone.osa_reduce_impl=fused`` (K5, VoVNet).
 
 ``--train`` times ``--samples`` train steps (forward, loss with Hungarian
 targets, backward, clip, AdamW; ``train/step.py``) after ``--warmup``
@@ -29,7 +37,7 @@ Random weights would leave every DCN ``conv_offset`` at mmcv's zero init,
 so the deformable convs would sample only whole-pixel taps; the
 benchmark draws those weights too (:data:`OFFSET_PX`), so taps fall
 between pixels and past the TPU kernel's ±5 px band, as a trained
-checkpoint's offsets do.
+checkpoint's offsets do.  A backbone without DCN has nothing to draw.
 
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device
 cpu`` exists for the CPU tests.
@@ -51,7 +59,8 @@ from transcar_tpu_torch.core.config import get_preset, parse_overrides
 from transcar_tpu_torch.data.synthetic import fake_batch
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.resnet import DCNConv
-from transcar_tpu_torch.ops import pallas_attention, pallas_dcn
+from transcar_tpu_torch.ops import (pallas_attention, pallas_bottleneck,
+                                    pallas_dcn, pallas_osa, pallas_osa_block)
 from transcar_tpu_torch.train.step import init_state, train_step
 
 #: Scale of the random DCN offsets: conv_offset weights are drawn
@@ -87,6 +96,25 @@ def parse_args(argv=None):
     if args.samples < 1 or args.warmup < 0:
         ap.error("--samples must be ≥ 1 and --warmup ≥ 0")
     return args
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {"dcn_forward": pallas_dcn.launches,
+            "dcn_backward": pallas_dcn.backward_launches,
+            "masked_attention": pallas_attention.launches,
+            "osa_reduce": pallas_osa.launches,
+            "osa_block": pallas_osa_block.launches,
+            "bottleneck": pallas_bottleneck.launches}
+
+
+def _launches_since(start: dict) -> dict:
+    return {k: v - start[k] for k, v in kernel_counts().items()}
+
+
+def _peak_memory(dev):
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
 
 
 def randomize_offsets(model, generator: torch.Generator) -> None:
@@ -155,6 +183,9 @@ KERNEL_GROUPS = (
     ("K1 dcn_forward", ("dcn_forward_kernel",)),
     ("K3 dcn_backward", ("dcn_bwd_",)),
     ("K2 masked_attention", ("masked_attention",)),
+    ("K4 osa_reduce", ("conv_gemm_kernel<4,",)),
+    ("K5 osa_block", ("conv_gemm_kernel<5,",)),
+    ("K6 bottleneck", ("conv_gemm_kernel<6,",)),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),
@@ -239,7 +270,7 @@ def run_train(argv=None):
     steps = args.warmup + args.samples
     state = init_state(cfg, model, total_steps=steps)
     gen = torch.Generator().manual_seed(args.seed + 2)
-    counts0 = (pallas_dcn.launches, pallas_dcn.backward_launches)
+    counts0 = kernel_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses = []
@@ -254,8 +285,7 @@ def run_train(argv=None):
         dt = time.perf_counter() - t0
     trace = (None if args.trace_dir is None else
              _write_trace(prof, args.trace_dir, dev, dt, args.samples))
-    launches = {"dcn_forward": pallas_dcn.launches - counts0[0],
-                "dcn_backward": pallas_dcn.backward_launches - counts0[1]}
+    launches = _launches_since(counts0)
     record = {
         "preset": args.preset,
         "mode": "train",
@@ -267,8 +297,7 @@ def run_train(argv=None):
         "steps": steps,
         "kernel_launches": launches,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None),
+        "peak_memory_bytes": _peak_memory(dev),
         "loss_first": {k: float(v) for k, v in losses[0].items()},
         "loss_last": {k: float(v) for k, v in losses[-1].items()},
         "fusion_only": state.stop_camera_grad,
@@ -283,7 +312,9 @@ def run(argv=None):
     cfg, model, batch, dev = _setup(args, training=False)
     inputs = [batch["images"], batch["lidar2img"], batch.get("radar_tokens")]
 
-    counts0 = (pallas_dcn.launches, pallas_attention.launches)
+    counts0 = kernel_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     stats = dict.fromkeys(("dcn_taps", "dcn_past_5px", "fusion_pairs",
                            "fusion_kept"), 0)
     with torch.inference_mode():
@@ -309,15 +340,12 @@ def run(argv=None):
         "samples_per_sec": args.samples * args.batch / dt,
         "ms_per_sample": 1000.0 * dt / (args.samples * args.batch),
         "requests": args.warmup + args.samples,
-        "kernel_launches": {
-            "dcn_forward": pallas_dcn.launches - counts0[0],
-            "masked_attention": pallas_attention.launches - counts0[1],
-        },
+        "kernel_launches": _launches_since(counts0),
+        "peak_memory_bytes": _peak_memory(dev),
         "trace": trace,
+        "dcn_taps_past_5px": (float(stats["dcn_past_5px"] / stats["dcn_taps"])
+                              if stats["dcn_taps"] else None),
     }
-    if stats["dcn_taps"]:
-        record["dcn_taps_past_5px"] = float(stats["dcn_past_5px"]
-                                            / stats["dcn_taps"])
     if stats["fusion_pairs"]:
         record["fusion_keep_share"] = float(stats["fusion_kept"]
                                             / stats["fusion_pairs"])

@@ -10,8 +10,10 @@ defaults and override semantics are the JAX package's;
 ``tests/test_torch_config.py`` holds every preset equal, field by field,
 to the JAX ``get_preset``, so a drift between the two copies fails a test.
 The comments below are the JAX package's: TPU-only knobs are accepted by
-the port as no-ops (``models/detector.py::build_model``), and
-``remat="auto"`` resolves to off (``models/detector.py::resolve_remat``).
+the port as no-ops (``models/detector.py::build_model``), the kernel
+knobs ``dcn_impl``, ``osa_reduce_impl`` and ``block_impl`` resolve in
+``models/detector.py`` (``resolve_*``), and ``remat="auto"`` resolves to
+off (``models/detector.py::resolve_remat``).
 
 Presets (reference config file → preset name):
   detr3d_res101_gridmask.py                      → "transcar_r101"

@@ -109,6 +109,13 @@ class FFN(nn.Module):
         return x + F.dropout(self.linear2(y), self.dropout, self.training)
 
 
+def bn_affine(gamma, beta, mean, var, eps: float = 1e-5):
+    """Folded FrozenBN affine, y = x·scale + bias, in the statistics'
+    dtype (float32)."""
+    scale = gamma * torch.rsqrt(var + eps)
+    return scale, beta - mean * scale
+
+
 class FrozenBN(nn.Module):
     """BatchNorm with frozen statistics and affine params: a per-channel
     scale and bias, folded in float32 and cast to the activation dtype
@@ -122,9 +129,13 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def affine(self):
+        """The folded (scale, bias) the kernels take."""
+        return bn_affine(self.weight, self.bias, self.running_mean,
+                         self.running_var, self.eps)
+
     def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        bias = self.bias - self.running_mean * scale
+        scale, bias = self.affine()
         shape = (1, -1, 1, 1)
         return (x * scale.to(x.dtype).view(shape)
                 + bias.to(x.dtype).view(shape))

@@ -7,6 +7,9 @@ The backbone and FPN compute in ``BackboneConfig.compute_dtype``
 (bfloat16 on the flagship) on channels-last NCHW tensors; the FPN levels
 reach the head as NHWC in ``head_input_dtype`` (float32).
 
+:meth:`TransCARDetector.aug_forward` is the test-time augmentation entry:
+backbone and FPN features averaged over A augmented views, then one head.
+
 In training mode (``model.train()``) GridMask runs on the images when
 ``use_grid_mask`` and dropout runs in the head.  ``stop_camera_grad``
 (fusion-only training) runs the whole camera forward, backbone, FPN and
@@ -26,26 +29,35 @@ from transcar_tpu_torch.models.common import Conv2d, TorchMHA, disable_tf32
 from transcar_tpu_torch.models.fpn import FPN
 from transcar_tpu_torch.models.head import TransCARHead
 from transcar_tpu_torch.models.resnet import DCNConv, ResNet
+from transcar_tpu_torch.models.vovnet import VoVNet
 
 
 class TransCARDetector(nn.Module):
     def __init__(self, cfg, dcn_impl: str = "exact", remat: bool = False,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, osa_reduce_impl: str = "xla",
+                 block_impl: str = "xla"):
         """cfg: a ``ModelConfig``; dcn_impl: "exact" | "pallas" (resolved
         by :func:`build_model`, see :func:`resolve_dcn_impl`); remat:
         recompute backbone blocks in the backward; dropout: the head's
-        training dropout rate."""
+        training dropout rate; osa_reduce_impl: the VoVNet OSA tail,
+        "xla" | "pallas" | "fused"; block_impl: the ResNet stride-1
+        non-DCN bottlenecks, "xla" | "fused" (see :func:`build_model`)."""
         super().__init__()
         self.cfg = cfg
         bc = cfg.backbone
-        if bc.kind not in ("resnet101", "resnet50"):
-            raise NotImplementedError(
-                f"backbone {bc.kind!r} is not ported yet (ROADMAP.md "
-                "Queue 1 item 9: the VoVNet-99 preset)")
-        self.backbone = ResNet(depth=int(bc.kind[6:]), with_dcn=bc.with_dcn,
-                               compute_dtype=bc.compute_dtype,
-                               dcn_impl=dcn_impl,
-                               frozen_stages=bc.frozen_stages, remat=remat)
+        if bc.kind in ("resnet101", "resnet50"):
+            self.backbone = ResNet(
+                depth=int(bc.kind[6:]), with_dcn=bc.with_dcn,
+                compute_dtype=bc.compute_dtype, dcn_impl=dcn_impl,
+                frozen_stages=bc.frozen_stages, remat=remat,
+                block_impl=block_impl)
+        elif bc.kind == "vovnet99":
+            self.backbone = VoVNet(
+                compute_dtype=bc.compute_dtype, reduce_impl=osa_reduce_impl,
+                stem_impl=bc.stem_impl if bc.stem_impl != "auto" else "xla",
+                remat=remat, frozen_stages=bc.frozen_stages)
+        else:
+            raise ValueError(f"unknown backbone {bc.kind!r}")
         self.neck = FPN(in_channels=bc.fpn_in_channels,
                         out_channels=bc.fpn_out_channels,
                         start_level=bc.fpn_start_level,
@@ -72,13 +84,34 @@ class TransCARDetector(nn.Module):
             x = grid_mask(x, generator)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not stop_camera_grad):
-            feats = self.neck(self.backbone(x.permute(0, 3, 1, 2)))
-        head_dt = getattr(torch, self.cfg.backbone.head_input_dtype)
-        mlvl = [f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:],
-                                               f.shape[1]).to(head_dt)
-                for f in feats]
+            mlvl = self._features(x, b, n)
         return self.head(mlvl, lidar2img, (h, w), radar_tokens,
                          stop_camera_grad=stop_camera_grad)
+
+    def _features(self, x: torch.Tensor, b: int, n: int):
+        """Backbone + FPN of images [B·N, H, W, 3]: the levels as
+        [B, N, h, w, C] in ``head_input_dtype``."""
+        feats = self.neck(self.backbone(x.permute(0, 3, 1, 2)))
+        head_dt = getattr(torch, self.cfg.backbone.head_input_dtype)
+        return [f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:],
+                                              f.shape[1]).to(head_dt)
+                for f in feats]
+
+    def aug_forward(self, images_augs: torch.Tensor, lidar2img: torch.Tensor,
+                    radar_tokens: Optional[torch.Tensor] = None):
+        """Test-time augmentation: backbone + FPN features averaged over
+        the augmented copies, then the head once (the JAX method,
+        ``aug_test_pts`` of the reference).  images_augs: [A, B, N, H, W,
+        3], A augmented views of the batch."""
+        a, b, n, h, w, _ = images_augs.shape
+        total = None
+        for ai in range(a):
+            mlvl = self._features(images_augs[ai].reshape(b * n, h, w, 3),
+                                  b, n)
+            total = mlvl if total is None else [
+                acc + f for acc, f in zip(total, mlvl)]
+        return self.head([f / a for f in total], lidar2img, (h, w),
+                         radar_tokens)
 
 
 def resolve_dcn_impl(cfg) -> str:
@@ -111,18 +144,49 @@ def resolve_remat(cfg) -> bool:
     return remat == "on"
 
 
-def build_model(cfg, device="cpu", training: bool = False,
+def resolve_osa_reduce_impl(cfg, training: bool = False) -> str:
+    """``BackboneConfig.osa_reduce_impl``: "auto" takes the K4 wrapper
+    ("pallas") at inference and the plain layers ("xla") in training, as
+    the JAX ``build_model`` does (the kernel is forward-only); "pallas",
+    "xla" and "fused" (K5) as given."""
+    impl = cfg.model.backbone.osa_reduce_impl
+    if impl not in ("auto", "xla", "pallas", "fused"):
+        raise ValueError(f"unknown osa_reduce_impl {impl!r}")
+    if impl == "auto":
+        return "xla" if training else "pallas"
+    return impl
+
+
+def resolve_block_impl(cfg) -> str:
+    """``BackboneConfig.block_impl``: "auto" is the plain layers ("xla"),
+    as in the JAX ``build_model``; "fused" takes the K6 wrapper."""
+    impl = cfg.model.backbone.block_impl
+    if impl not in ("auto", "xla", "fused"):
+        raise ValueError(f"unknown block_impl {impl!r}")
+    return "xla" if impl == "auto" else impl
+
+
+def build_model(cfg, device="cuda", training: bool = False,
                 seed: int = 0, dropout: float = 0.1) -> TransCARDetector:
     """Camera/fusion presets → TransCARDetector on ``device`` with seeded
     random weights (load real ones with ``load_state_dict``), in train
     mode when ``training`` (GridMask, ``dropout`` in the head) and eval
-    mode otherwise.
+    mode otherwise.  The model goes to the card unless the caller passes
+    ``device="cpu"``; without CUDA that default raises.
 
-    TPU-only knobs change no math and are accepted as no-ops:
-    ``dcn_band_rows``, ``dcn_rows_per_step`` and ``dcn_variant`` (the
-    kernels are exact for any offset, so full-backbone training needs no
-    band widening), ``stem_impl``, ``block_impl`` and ``osa_reduce_impl``.
+    Kernel knobs: ``dcn_impl`` (:func:`resolve_dcn_impl`),
+    ``osa_reduce_impl`` (:func:`resolve_osa_reduce_impl`) and
+    ``block_impl`` (:func:`resolve_block_impl`).  TPU-only knobs change
+    no math and are accepted as no-ops: ``dcn_band_rows``,
+    ``dcn_rows_per_step`` and ``dcn_variant`` (the kernels are exact for
+    any offset, so full-backbone training needs no band widening) and
+    ``stem_impl``.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: device cuda, but "
+                           "torch.cuda.is_available() is False (pass "
+                           "device=\"cpu\" for a CPU model)")
     m = cfg.model
     if m.lidar_encoder:
         raise NotImplementedError(
@@ -135,7 +199,10 @@ def build_model(cfg, device="cpu", training: bool = False,
     disable_tf32()
     model = TransCARDetector(m, dcn_impl=resolve_dcn_impl(cfg),
                              remat=resolve_remat(cfg),
-                             dropout=dropout)
+                             dropout=dropout,
+                             osa_reduce_impl=resolve_osa_reduce_impl(
+                                 cfg, training),
+                             block_impl=resolve_block_impl(cfg))
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
     return model.train(training)
@@ -175,4 +242,5 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(mod, TorchMHA):
                 for p in (mod.wq, mod.wk, mod.wv, mod.wo):
                     xavier_(p, *p.shape)
-        normal_(model.head.query_embedding, 1.0)
+        if hasattr(model, "head"):            # also takes a bare backbone
+            normal_(model.head.query_embedding, 1.0)

@@ -4,8 +4,16 @@
 Caffe style puts the stride on each bottleneck's first 1×1 conv, so the
 3×3 (or DCN) conv is always stride 1.  Activations are NCHW tensors in
 channels-last memory; the DCN conv hands the kernel their free NHWC view.
-The JAX package's opt-in variants (int8, the phase stem, the fused
-bottleneck) are not ported.
+
+``block_impl="fused"`` (an opt-in, ``model.backbone.block_impl=fused``)
+runs every stride-1 non-DCN bottleneck through ``ops/pallas_bottleneck.py``
+(K6 on the GPU) with the folded affines of ``conv1/conv2/conv3/
+downsample``; the TPU's VMEM gate ``_pick_rows`` is dropped, since it only
+sent blocks back to XLA for want of VMEM.  On ``transcar_r101`` that is
+the 6 blocks ``layer1_0..2`` (232 × 400) and ``layer2_1..3`` (116 × 200);
+``layer2_0`` (stride 2) and the DCN stages keep the layers.  The phase
+stem (``stem_impl``) computes the same function and is not ported; int8
+is not ported.
 
 Training: the stem and the first ``frozen_stages`` stages get
 ``requires_grad=False`` (mmdet ``_freeze_stages``; frozen BN is buffers
@@ -23,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from transcar_tpu_torch.models.common import Conv2d, ConvBN, FrozenBN
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
+from transcar_tpu_torch.ops.pallas_bottleneck import bottleneck_fused
 from transcar_tpu_torch.ops.pallas_dcn import fused_deform_conv
 
 RESNET_DEPTHS = {
@@ -65,12 +74,17 @@ class DCNConv(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Caffe-style bottleneck: 1×1(stride) → 3×3 or DCN → 1×1, frozen BN."""
+    """Caffe-style bottleneck: 1×1(stride) → 3×3 or DCN → 1×1, frozen BN.
+    ``impl="fused"`` takes the K6 wrapper where the block is stride 1
+    without DCN (see the module docstring)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, with_dcn: bool = False,
-                 dcn_impl: str = "exact"):
+                 dcn_impl: str = "exact", impl: str = "xla"):
         super().__init__()
+        if impl not in ("xla", "fused"):
+            raise ValueError(f"unknown block impl {impl!r}")
+        self.fused = impl == "fused" and stride == 1 and not with_dcn
         self.conv1 = ConvBN(inplanes, planes, 1, stride=stride)
         if with_dcn:
             self.conv2 = DCNConv(planes, planes, impl=dcn_impl)
@@ -83,12 +97,27 @@ class Bottleneck(nn.Module):
                                      relu=False)
 
     def forward(self, x):
+        if self.fused:
+            return self._fused(x)
         out = self.conv2(self.conv1(x))
         if hasattr(self, "bn2"):
             out = F.relu(self.bn2(out))
         out = self.conv3(out)
         identity = self.downsample(x) if hasattr(self, "downsample") else x
         return F.relu(out + identity)
+
+    def _fused(self, x):
+        kw = {}
+        if hasattr(self, "downsample"):
+            kw = dict(wd=self.downsample.conv.weight[:, :, 0, 0].t(),
+                      affd=self.downsample.bn.affine())
+        out = bottleneck_fused(
+            x.permute(0, 2, 3, 1),
+            self.conv1.conv.weight[:, :, 0, 0].t(), self.conv1.bn.affine(),
+            self.conv2.conv.weight.permute(2, 3, 1, 0), self.conv2.bn.affine(),
+            self.conv3.conv.weight[:, :, 0, 0].t(), self.conv3.bn.affine(),
+            **kw)
+        return out.permute(0, 3, 1, 2)
 
 
 class ResNet(nn.Module):
@@ -98,7 +127,7 @@ class ResNet(nn.Module):
                  with_dcn: Tuple[bool, ...] = (False, False, True, True),
                  compute_dtype: Optional[str] = "bfloat16",
                  dcn_impl: str = "exact", frozen_stages: int = 1,
-                 remat: bool = False):
+                 remat: bool = False, block_impl: str = "xla"):
         super().__init__()
         self.remat = remat
         self.compute_dtype = (getattr(torch, compute_dtype)
@@ -114,7 +143,7 @@ class ResNet(nn.Module):
                     inplanes, planes,
                     stride=(1 if stage == 0 else 2) if b == 0 else 1,
                     downsample=(b == 0), with_dcn=with_dcn[stage],
-                    dcn_impl=dcn_impl))
+                    dcn_impl=dcn_impl, impl=block_impl))
                 names.append(name)
                 inplanes = planes * 4
             self.block_names.append(names)

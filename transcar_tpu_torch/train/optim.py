@@ -46,7 +46,8 @@ def make_labels(model: nn.Module, freeze_camera: bool,
     Fusion-only (``freeze_camera``): only ``head.fusion*``,
     ``head.final_cls*``, ``head.final_reg*`` and ``head.radar_*`` train.
     Full training: the stem and ``layer1_`` .. ``layer{frozen_stages}_``
-    are frozen (mmdet ``frozen_stages``), as are backbone BN affines under
+    (ResNet) or ``stage2_`` .. ``stage{frozen_stages + 1}_`` (VoVNet) are
+    frozen (mmdet ``frozen_stages``), as are backbone BN affines under
     ``norm_eval`` (here they are buffers), and the rest of the backbone
     trains at the backbone lr.
     """
@@ -63,7 +64,7 @@ def make_labels(model: nn.Module, freeze_camera: bool,
             return "frozen"
         if keys[1].startswith("stem") and frozen_stages >= 0:
             return "frozen"
-        if any(keys[1].startswith(f"layer{s}_")
+        if any(keys[1].startswith((f"layer{s}_", f"stage{s + 1}_"))
                for s in range(1, frozen_stages + 1)):
             return "frozen"
         return "backbone"
