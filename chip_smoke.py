@@ -46,7 +46,17 @@ non-zero):
      float32 against the plain path, samples/s beside the default path;
  12. one ``transcar_vovnet_trainval --train`` fusion-only run: finite
      loss, camera frozen, no kernel launches (training takes the plain
-     OSA tail, as in JAX), ms/step and peak memory.
+     OSA tail, as in JAX), ms/step and peak memory;
+ 13. K7 (multi-scale deformable attention) against its plain version at
+     the ObjDGCNN pillar shapes: one encoder call (87 040 queries over the
+     256² / 128² / 64² / 32² BEV levels) and one decoder call (300
+     queries), 8 heads of 32, 4 levels × 4 points, offsets up to ±48
+     cells (far past any TPU band, and off the map), softmaxed weights;
+ 14. the ObjDGCNN pillar slice through ``benchmark objdgcnn_pillar``:
+     300 000 points, 512² BEV, bfloat16 SECOND and FPN, float32 head, 300
+     queries; 8 K7 launches per request and no other kernel, finite
+     outputs and decode, samples/s and peak memory, then float32 with one
+     decoder layer, kernel path against plain path.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA the
@@ -117,6 +127,12 @@ BACKBONE_TOL = 1e-3
 # eps) may step either way: those stay within 2·lr
 STEP_TOL = 1e-4
 PARAM_TIGHT, PARAM_SHARE = 1e-2, 0.999
+# ObjDGCNN pillar BEV levels (512² canvas, SECOND strides 2/2/2, the
+# extra level pooled): S = 87 040 tokens; 8 heads of 32, 4 points
+BEV_LEVELS = ((256, 256), (128, 128), (64, 64), (32, 32))
+# K7 against its plain version, max|kernel − plain| over max|plain|: both
+# float32, differing by summation order over the 16 samples
+MSDEFORM_TOL = 1e-5
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -778,9 +794,12 @@ def _zero_counts() -> None:
                                         pallas_dcn, pallas_osa,
                                         pallas_osa_block)
 
+    from transcar_tpu_torch.ops import pallas_msdeform
+
     pallas_dcn.launches = pallas_dcn.backward_launches = 0
     pallas_attention.launches = pallas_osa.launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
+    pallas_msdeform.launches = 0
 
 
 def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
@@ -985,6 +1004,151 @@ def phase_vovnet_train(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def msdeform_case(g, q: int, encoder: bool):
+    """K7's inputs at the pillar slice's shapes: value [1, S, 8, 32];
+    reference points (the queries' own cell centres for the encoder,
+    random for the decoder) plus offsets over ±4 cells of each level for
+    three points and ±48 for the fourth, whose vertical taps fall far
+    outside any TPU band and, near the edges and on the small levels, off
+    the map; softmaxed weights."""
+    dev, heads, d, p = "cuda", 8, 32, 4
+    l = len(BEV_LEVELS)
+    s = sum(h * w for h, w in BEV_LEVELS)
+    value = torch.randn(1, s, heads, d, device=dev, generator=g)
+    if encoder:
+        ref = torch.cat([torch.stack(torch.meshgrid(
+            (torch.arange(w, device=dev) + 0.5) / w,
+            (torch.arange(h, device=dev) + 0.5) / h, indexing="xy"),
+            -1).reshape(-1, 2) for h, w in BEV_LEVELS])
+    else:
+        ref = torch.rand(q, 2, device=dev, generator=g)
+    norm = torch.tensor([[w, h] for h, w in BEV_LEVELS], device=dev,
+                        dtype=torch.float32)
+    # points 0-2 within ±4 cells, point 3 within ±48
+    reach = torch.tensor([4.0, 4.0, 4.0, 48.0], device=dev)[:, None]
+    off = (torch.rand(1, q, heads, l, p, 2, device=dev, generator=g) * 2
+           - 1) * reach
+    loc = ref[None, :, None, None, None, :] + off / norm[:, None, :]
+    wgt = torch.randn(1, q, heads, l * p, device=dev, generator=g)
+    wgt = wgt.softmax(-1).reshape(1, q, heads, l, p)
+    return value, loc, wgt
+
+
+def phase_k7() -> dict:
+    """K7 at one encoder and one decoder call of the pillar slice; per
+    request (2 encoder + 6 decoder launches)."""
+    from transcar_tpu_torch.ops import pallas_msdeform
+    from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    res = _kernel_result()
+    res["bound_by"] = "bytes"
+    s = sum(h * w for h, w in BEV_LEVELS)
+    for name, q, per_req, chunk in (("encoder", s, 2, 16384),
+                                    ("decoder", 300, 6, 0)):
+        value, loc, wgt = msdeform_case(g, q, name == "encoder")
+        off_map = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+        out = pallas_msdeform.ms_deform_attn(value, BEV_LEVELS, loc, wgt)
+        ref = ms_deform_attn_core(value, BEV_LEVELS, loc, wgt, chunk)
+        torch.cuda.synchronize()
+        err, rel = _rel_err(out, ref)
+        ok = math.isfinite(rel) and rel <= MSDEFORM_TOL
+        ms = cuda_ms(lambda: pallas_msdeform.ms_deform_attn(
+            value, BEV_LEVELS, loc, wgt))
+        plain_ms = cuda_ms(lambda: ms_deform_attn_core(
+            value, BEV_LEVELS, loc, wgt, chunk), iters=5, warmup=1)
+        # 4 taps (multiply-add each) and the weight (multiply-add) per
+        # (query, head, sample, channel)
+        bound, kind = bound_ms(10.0 * value.shape[3] * wgt.numel(),
+                               torch.float32,
+                               nbytes(value, loc, wgt, out))
+        print(f"K7 msdeform {name} Q={q} S={s} 8 heads x 32, 4 levels x 4 "
+              f"points: samples off the map {off_map:.3f}; max_abs_err "
+              f"{err:.3e} max_rel_err {rel:.3e} (tol {MSDEFORM_TOL:.0e} of "
+              f"max|plain|); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound:.4f} ms by {kind} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K7 {name} disagrees with its plain "
+                                 f"version: rel err {rel}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["ms"] += per_req * ms
+        res["plain_ms"] += per_req * plain_ms
+        res["bound_ms"] += per_req * bound
+        if kind == "operations":
+            res["bound_by"] = kind
+        del value, loc, wgt, out, ref
+    print(f"K7 per objdgcnn_pillar request (2 encoder + 6 decoder "
+          f"launches): kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
+          f" ms, bound {res['bound_ms']:.4f} ms (no single PyTorch call "
+          f"computes MSDeformAttn: F.grid_sample samples but does not reduce "
+          f"with the weights)")
+    return res
+
+
+def phase_pillar(smi: str) -> int:
+    """``objdgcnn_pillar`` batch-1 inference at full width."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.eval.decode import nms_free_decode
+    from transcar_tpu_torch.models.dgcnn import MSDeformAttention
+
+    preset = "objdgcnn_pillar"
+    cfg = get_preset(preset)
+    head = cfg.model.head
+    per_req = 2 + head.num_decoder_layers                              # 8
+    _zero_counts()
+    rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
+    want = {k: 0 for k in rec["kernel_launches"]}
+    want["msdeform_forward"] = per_req * rec["requests"]
+    shape = (head.num_decoder_layers, 1, head.num_query, 10)
+    finite = all(v.shape == shape and bool(torch.isfinite(v).all())
+                 for v in out.values())
+    dec = nms_free_decode(out, head)
+    finite_dec = (dec["boxes"].shape == (1, head.max_detections, 9)
+                  and bool(torch.isfinite(dec["boxes"]).all())
+                  and bool(torch.isfinite(dec["scores"]).all()))
+    print(f"pillar slice {preset} {rec['max_points']} points, 512x512 BEV bs1 "
+          f"(bf16 SECOND and FPN, fp32 head, 300 queries): {rec['requests']}"
+          f" requests, launches {rec['kernel_launches']} (want {want}); "
+          f"outputs {shape} finite {finite}; decode finite {finite_dec}, "
+          f"{int(dec['valid'].sum())}/{head.max_detections} valid boxes; "
+          f"pillars {rec['pillar_audit']}")
+    if rec["kernel_launches"] != want:
+        raise AssertionError(f"pillar slice launches {rec['kernel_launches']}"
+                             f" != {want}")
+    if not (finite and finite_dec):
+        raise AssertionError("pillar slice: non-finite outputs or decode")
+    print(f"pillar slice bf16 kernel path: {rec['samples_per_sec']:.3f} "
+          f"samples/s ({rec['ms_per_sample']:.2f} ms/sample), peak memory "
+          f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
+
+    # float32 BEV path and one decoder layer (the random-weight decoder
+    # amplifies any difference): K7 (3 launches) against the plain version
+    args = benchmark.parse_args([preset, "--cfg-options",
+                                 "model.lidar_compute_dtype=float32",
+                                 "model.head.num_decoder_layers=1"])
+    _, model, batch, _ = benchmark._setup(args, training=False)
+    outs = []
+    with torch.inference_mode():
+        for impl in ("pallas", "xla"):
+            for mod in model.modules():
+                if isinstance(mod, MSDeformAttention):
+                    mod.impl = impl
+            outs.append(model(batch["points"], batch["num_points"]))
+    worst = max(((outs[0][k].double() - outs[1][k].double()).abs()
+                 / (1 + outs[1][k].double().abs())).max().item()
+                for k in outs[1])
+    print(f"pillar slice fp32 (1 decoder layer) kernel path vs plain path: "
+          f"max |diff|/(1+|plain|) {worst:.3e} (tol {SLICE_TOL:.0e}) "
+          f"{'ok' if worst <= SLICE_TOL else 'FAIL'}")
+    if not worst <= SLICE_TOL:
+        raise AssertionError("fp32 pillar slice: kernel path disagrees with "
+                             "plain")
+    del model, outs
+    torch.cuda.empty_cache()
+    return rec["kernel_launches"]["msdeform_forward"]
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1002,6 +1166,8 @@ def main() -> None:
     launches["osa_block"] = phase_k5_path(smi)
     launches["bottleneck"] = phase_k6_path(smi)
     phase_vovnet_train(smi)
+    k7 = phase_k7()
+    launches["msdeform_forward"] = phase_pillar(smi)
     kernels = []
     for name, res, source, replaces in (
             ("dcn_forward", k1, "transcar_tpu_torch/csrc/dcn_forward.cu",
@@ -1016,7 +1182,10 @@ def main() -> None:
             ("osa_block", k5, "transcar_tpu_torch/csrc/osa_block.cu",
              "transcar_tpu/ops/pallas_osa_block.py:115"),
             ("bottleneck", k6, "transcar_tpu_torch/csrc/bottleneck.cu",
-             "transcar_tpu/ops/pallas_bottleneck.py:118")):
+             "transcar_tpu/ops/pallas_bottleneck.py:118"),
+            ("msdeform_forward", k7,
+             "transcar_tpu_torch/csrc/msdeform_forward.cu",
+             "transcar_tpu/ops/pallas_msdeform.py:453")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],

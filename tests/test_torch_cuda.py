@@ -16,8 +16,10 @@ import torch
 
 from transcar_tpu_torch.models.common import disable_tf32
 from transcar_tpu_torch.ops import (dcn, pallas_attention, pallas_bottleneck,
-                                    pallas_dcn, pallas_osa, pallas_osa_block)
+                                    pallas_dcn, pallas_msdeform, pallas_osa,
+                                    pallas_osa_block)
 from transcar_tpu_torch.ops.attention import attention_core
+from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +230,58 @@ def test_conv_kernels_are_forward_only(dev):
     ones = torch.ones(8, device=dev)
     with pytest.raises(RuntimeError, match="forward-only"):
         pallas_osa.osa_reduce([x], [torch.ones(8, 8, device=dev)], ones, ones)
+
+
+def _msdeform_case(dev, b, q, heads, d, shapes, p, lo=-0.25, hi=1.25):
+    """Value, locations over [lo, hi] (off the map past [0, 1]) and
+    softmaxed weights."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    s = sum(h * w for h, w in shapes)
+    value = torch.randn(b, s, heads, d, device=dev, generator=g)
+    loc = lo + (hi - lo) * torch.rand(b, q, heads, len(shapes), p, 2,
+                                      device=dev, generator=g)
+    wgt = torch.randn(b, q, heads, len(shapes) * p, device=dev, generator=g)
+    wgt = wgt.softmax(-1).reshape(b, q, heads, len(shapes), p)
+    return value, loc, wgt
+
+
+# K7 against its plain version, max|kernel − plain| over max|plain|: both
+# float32, differing by summation order over the L·P samples
+@pytest.mark.parametrize("b,q,heads,d,shapes,p", [
+    (1, 37, 6, 16, [(7, 9), (4, 5), (2, 3), (1, 1)], 4),   # Q off the warp
+    (2, 300, 8, 32, [(16, 16), (8, 8), (4, 4), (2, 2)], 4),
+    (1, 5, 3, 48, [(5, 3)], 3),                 # D past one warp's lanes
+    (1, 129, 8, 32, [(1, 1), (3, 70)], 2),                  # a 1 × 1 level
+])
+def test_msdeform_kernel(dev, b, q, heads, d, shapes, p):
+    value, loc, wgt = _msdeform_case(dev, b, q, heads, d, shapes, p)
+    before = pallas_msdeform.launches
+    out = pallas_msdeform.ms_deform_attn(value, shapes, loc, wgt)
+    ref = ms_deform_attn_core(value, shapes, loc, wgt)
+    torch.cuda.synchronize()
+    assert pallas_msdeform.launches == before + 1
+    assert out.shape == ref.shape == (b, q, heads * d)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_msdeform_kernel_far_and_non_finite_locations(dev):
+    shapes = [(6, 7), (3, 4)]
+    value, loc, wgt = _msdeform_case(dev, 1, 9, 4, 32, shapes, 2)
+    loc[0, 0, 0, 0, 0] = torch.tensor([0.5, 40.0])      # far below the map
+    loc[0, 1, 1, 1, 1] = torch.tensor([-1e20, 0.5])     # far left
+    loc[0, 2, 2, 0, 1, 0] = float("nan")
+    loc[0, 3, 3, 1, 0, 1] = float("inf")
+    out = pallas_msdeform.ms_deform_attn(value, shapes, loc, wgt)
+    ref = ms_deform_attn_core(value, shapes, loc, wgt)
+    assert torch.equal(out.isnan(), ref.isnan()) and ref.isnan().any()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+def test_msdeform_kernel_is_forward_only(dev):
+    value, loc, wgt = _msdeform_case(dev, 1, 3, 2, 32, [(4, 4)], 2)
+    value.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        pallas_msdeform.ms_deform_attn(value, [(4, 4)], loc, wgt)
+    with torch.no_grad():
+        assert pallas_msdeform.ms_deform_attn(
+            value, [(4, 4)], loc, wgt).shape == (1, 3, 64)

@@ -227,14 +227,17 @@ def test_cli_benchmark_cpu(capsys, tmp_path):
     # the wrappers took their plain versions on the CPU: no launches
     assert rec["kernel_launches"] == dict.fromkeys(
         ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
-         "osa_block", "bottleneck"), 0)
+         "osa_block", "bottleneck", "msdeform_forward"), 0)
     assert rec["peak_memory_bytes"] is None
     assert 0 <= rec["dcn_taps_past_5px"] <= 1
 
 
 def test_cli_rejects_unported_presets():
+    # ObjDGCNN serves with the pillar encoder only, and does not train yet
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        benchmark.run(["objdgcnn_pillar", "--device", "cpu"])
+        benchmark.run(["objdgcnn_voxel", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        benchmark.run_train(["objdgcnn_pillar", "--train", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="int8"):
         benchmark.run(["transcar_vovnet_trainval", "--device", "cpu",
                        "--cfg-options", "model.backbone.quantize=int8"])

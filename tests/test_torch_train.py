@@ -423,4 +423,4 @@ def test_cli_train_cpu(capsys):
         # the CPU takes the plain versions: no kernel launches
         assert rec["kernel_launches"] == dict.fromkeys(
             ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
-             "osa_block", "bottleneck"), 0)
+             "osa_block", "bottleneck", "msdeform_forward"), 0)

@@ -13,7 +13,7 @@ Inference times batch requests after ``--warmup`` requests, with
 tools/analysis_tools/benchmark.py:64-91, which ``bench.py`` cites), on
 seeded random weights and the synthetic batch of ``data/synthetic.py``.
 It prints one JSON line: samples/s, ms/sample, the device's name, the
-launches of every kernel (K1-K6) in the run, the peak device memory, and
+launches of every kernel (K1-K7) in the run, the peak device memory, and
 two audits of the first warmup request: the share of DCN taps whose
 vertical offset exceeds 5 px (the TPU kernel's exact band; here every tap
 is exact; null for a backbone without DCN, as VoVNet-99) and the share of
@@ -25,6 +25,17 @@ plain layers are ``--cfg-options model.backbone.dcn_impl=exact
 model.backbone.osa_reduce_impl=xla model.head.use_pallas_attention=false``,
 and the opt-in kernels are ``model.backbone.block_impl=fused`` (K6, ResNet)
 and ``model.backbone.osa_reduce_impl=fused`` (K5, VoVNet).
+
+The LiDAR preset ``objdgcnn_pillar`` (ObjDGCNN, 8 K7 launches per
+request: 2 encoder and 6 decoder deformable attentions) times batch-1
+inference on the synthetic point cloud of ``data/synthetic.py``
+(``data.max_points`` points, 90% real); its line holds ``max_points`` in
+place of ``img_hw`` and, from the first warmup request, the pillars kept
+and the BEV rows they reach.  Random weights would leave every
+MSDeformAttn ``sampling_offsets`` and ``attention_weights`` kernel at
+mmcv's zero init, so every query would sample the fixed circle pattern
+with uniform weights; the benchmark draws them (:data:`MSDEFORM_STD`).
+Its training (kernels K8 and K9) is not ported yet.
 
 ``--train`` times ``--samples`` train steps (forward, loss with Hungarian
 targets, backward, clip, AdamW; ``train/step.py``) after ``--warmup``
@@ -56,11 +67,14 @@ import numpy as np
 import torch
 
 from transcar_tpu_torch.core.config import get_preset, parse_overrides
-from transcar_tpu_torch.data.synthetic import fake_batch
+from transcar_tpu_torch.data.synthetic import fake_batch, fake_points
 from transcar_tpu_torch.models.detector import build_model
+from transcar_tpu_torch.models.dgcnn import MSDeformAttention
 from transcar_tpu_torch.models.resnet import DCNConv
 from transcar_tpu_torch.ops import (pallas_attention, pallas_bottleneck,
-                                    pallas_dcn, pallas_osa, pallas_osa_block)
+                                    pallas_dcn, pallas_msdeform, pallas_osa,
+                                    pallas_osa_block)
+from transcar_tpu_torch.ops.voxelize import hard_voxelize
 from transcar_tpu_torch.train.step import init_state, train_step
 
 #: Scale of the random DCN offsets: conv_offset weights are drawn
@@ -69,6 +83,14 @@ from transcar_tpu_torch.train.step import init_state, train_step
 #: to a quarter of a deep layer's taps lie past ±5 px (measured on the
 #: CPU at 256 × 448).
 OFFSET_PX = 1.5
+
+#: Scales of the random MSDeformAttn kernels: ``sampling_offsets`` and
+#: ``attention_weights`` weights are drawn N(0, (std / √fan_in)²).  The
+#: queries (LayerNorm output plus the sine and level embeddings) have an
+#: RMS of about 1.5, so the offsets spread about 1.5 cells on top of
+#: mmcv's circle of 1-4 cells, and the attention logits about 1.5, a
+#: softmax far from uniform.
+MSDEFORM_STD = {"sampling_offsets": 1.0, "attention_weights": 1.0}
 
 
 def parse_args(argv=None):
@@ -105,7 +127,8 @@ def kernel_counts() -> dict:
             "masked_attention": pallas_attention.launches,
             "osa_reduce": pallas_osa.launches,
             "osa_block": pallas_osa_block.launches,
-            "bottleneck": pallas_bottleneck.launches}
+            "bottleneck": pallas_bottleneck.launches,
+            "msdeform_forward": pallas_msdeform.launches}
 
 
 def _launches_since(start: dict) -> dict:
@@ -118,13 +141,19 @@ def _peak_memory(dev):
 
 
 def randomize_offsets(model, generator: torch.Generator) -> None:
-    """Draw every DCN conv_offset weight (see the module docstring)."""
+    """Draw every DCN conv_offset weight and every MSDeformAttn offset and
+    attention-weight kernel (see the module docstring)."""
+    def draw(w, scale):
+        std = scale / math.sqrt(w[0].numel())
+        w.copy_(torch.randn(w.shape, generator=generator).to(w.device) * std)
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, DCNConv):
-                w = mod.conv_offset.weight
-                std = OFFSET_PX / math.sqrt(w[0].numel())
-                w.copy_(torch.randn(w.shape, generator=generator) * std)
+                draw(mod.conv_offset.weight, OFFSET_PX)
+            elif isinstance(mod, MSDeformAttention):
+                for name, scale in MSDEFORM_STD.items():
+                    draw(getattr(mod, name).weight, scale)
 
 
 def _audit_hooks(model, stats):
@@ -186,6 +215,7 @@ KERNEL_GROUPS = (
     ("K4 osa_reduce", ("conv_gemm_kernel<4,",)),
     ("K5 osa_block", ("conv_gemm_kernel<5,",)),
     ("K6 bottleneck", ("conv_gemm_kernel<6,",)),
+    ("K7 msdeform_forward", ("msdeform_forward_kernel",)),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),
@@ -234,8 +264,8 @@ def trace_summary(trace_path: str, wall_s: float, count: int) -> dict:
 
 
 def _setup(args, training: bool):
-    """Config, model with randomized DCN offsets, and the synthetic batch
-    on the device."""
+    """Config, model with randomized offsets, and the synthetic batch (or
+    point cloud, for a LiDAR preset) on the device."""
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch.cuda.is_available() is "
@@ -245,13 +275,31 @@ def _setup(args, training: bool):
                         dropout=args.dropout)
     randomize_offsets(model, torch.Generator().manual_seed(args.seed + 1))
     head = cfg.model.head
-    batch = fake_batch(np.random.default_rng(args.seed), args.batch,
-                       head.num_cams, args.height, args.width,
-                       head.num_radar_tokens)
+    rng = np.random.default_rng(args.seed)
+    if cfg.model.lidar_encoder:
+        points, num = fake_points(rng, args.batch, cfg.data.max_points,
+                                  head.pc_range)
+        batch = {"points": points, "num_points": num}
+    else:
+        batch = fake_batch(rng, args.batch, head.num_cams, args.height,
+                           args.width, head.num_radar_tokens)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     if not head.with_radar_fusion:
-        batch.pop("radar_tokens")
+        batch.pop("radar_tokens", None)
     return cfg, model, batch, dev
+
+
+def pillar_audit(cfg, batch) -> dict:
+    """Pillars the voxelizer keeps and the BEV rows they reach, for the
+    first cloud of the batch."""
+    m = cfg.model
+    _, coords, _, nv = hard_voxelize(
+        batch["points"][:1], batch["num_points"][:1], m.voxel_size,
+        m.head.pc_range, m.max_points_per_voxel, m.max_voxels)
+    n = int(nv[0])
+    rows = int(coords[0, :n, 1].max()) + 1 if n else 0
+    return {"pillars": n, "max_pillars": m.max_voxels,
+            "bev_rows_reached": rows, "bev_rows": m.bev_hw[0]}
 
 
 def _device_name(dev) -> str:
@@ -310,7 +358,9 @@ def run(argv=None):
     """Build, warm up and time inference; returns (record, last outputs)."""
     args = parse_args(argv)
     cfg, model, batch, dev = _setup(args, training=False)
-    inputs = [batch["images"], batch["lidar2img"], batch.get("radar_tokens")]
+    lidar = bool(cfg.model.lidar_encoder)
+    inputs = ([batch["points"], batch["num_points"]] if lidar else
+              [batch["images"], batch["lidar2img"], batch.get("radar_tokens")])
 
     counts0 = kernel_counts()
     if dev.type == "cuda":
@@ -335,7 +385,8 @@ def run(argv=None):
     record = {
         "preset": args.preset,
         "batch": args.batch,
-        "img_hw": [args.height, args.width],
+        **({"max_points": cfg.data.max_points} if lidar else
+           {"img_hw": [args.height, args.width]}),
         "device": _device_name(dev),
         "samples_per_sec": args.samples * args.batch / dt,
         "ms_per_sample": 1000.0 * dt / (args.samples * args.batch),
@@ -346,6 +397,9 @@ def run(argv=None):
         "dcn_taps_past_5px": (float(stats["dcn_past_5px"] / stats["dcn_taps"])
                               if stats["dcn_taps"] else None),
     }
+    if lidar:
+        with torch.inference_mode():
+            record["pillar_audit"] = pillar_audit(cfg, batch)
     if stats["fusion_pairs"]:
         record["fusion_keep_share"] = float(stats["fusion_kept"]
                                             / stats["fusion_pairs"])

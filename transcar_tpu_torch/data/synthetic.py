@@ -1,4 +1,5 @@
-"""Synthetic flagship batches, made with numpy from a seed.
+"""Synthetic flagship batches and LiDAR point clouds, made with numpy from
+a seed.
 
 The port's copy of the JAX driver's fake batch on the ``fp32`` wire
 (pre-normalized float images): 6 camera images, an outward-looking
@@ -8,10 +9,13 @@ features), radar tokens whose padding rows hold the 500.0 sentinel, and
 padded ground truth ``gt_boxes`` / ``gt_labels`` / ``num_gt`` for the
 training loss.  The same seed gives the same arrays as the JAX driver's
 ``_fake_batch(np.random.default_rng(seed), ...)``.
+
+:func:`fake_points` is the port's copy of the point cloud that the JAX
+benchmark CLI and ``bench.py`` draw for the LiDAR presets.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -48,3 +52,18 @@ def fake_batch(rng: np.random.Generator, b: int, n: int, h: int, w: int,
     num_gt = np.full((b,), 7, np.int32)
     return {"images": images, "lidar2img": l2i, "radar_tokens": radar,
             "gt_boxes": gt_boxes, "gt_labels": gt_labels, "num_gt": num_gt}
+
+
+def fake_points(rng: np.random.Generator, b: int, n_max: int,
+                pc_range: Sequence[float]) -> Tuple[np.ndarray, np.ndarray]:
+    """points [b, n_max, 5] float32 (xyz uniform over ``pc_range``,
+    intensity in [0, 255), time lag in [0, 0.45)) and num_points [b]
+    int32, 90% of ``n_max`` real."""
+    pc = pc_range
+    pts = np.zeros((b, n_max, 5), np.float32)
+    pts[:, :, 0] = rng.uniform(pc[0], pc[3], (b, n_max))
+    pts[:, :, 1] = rng.uniform(pc[1], pc[4], (b, n_max))
+    pts[:, :, 2] = rng.uniform(pc[2], pc[5], (b, n_max))
+    pts[:, :, 3] = rng.uniform(0, 255, (b, n_max))
+    pts[:, :, 4] = rng.uniform(0, 0.45, (b, n_max))
+    return pts, np.full((b,), int(n_max * 0.9), np.int32)

@@ -141,6 +141,39 @@ class FrozenBN(nn.Module):
                 + bias.to(x.dtype).view(shape))
 
 
+class BatchNorm(nn.Module):
+    """Trainable BatchNorm at inference (the JAX package's ``train_bn``,
+    ``MaskedBN`` and ``ConvBN(norm="batch")``, the LiDAR track's
+    ``norm_cfg=dict(type='BN')``): the running statistics normalize, in
+    float32, ``(x − mean) · (rsqrt(var + eps) · weight) + bias``, and the
+    result is cast back to the input dtype, as flax's ``BatchNorm`` and
+    ``MaskedBN`` do.  ``channel_dim`` is the channel axis (1 for NCHW, −1
+    for channels last).  Training statistics come with ObjDGCNN
+    training (ROADMAP.md Queue 1 item 10): in train mode it raises."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 channel_dim: int = 1):
+        super().__init__()
+        self.eps = eps
+        self.channel_dim = channel_dim
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm batch statistics come with ObjDGCNN training "
+                "(ROADMAP.md Queue 1 item 10)")
+        shape = [1] * x.ndim
+        shape[self.channel_dim] = -1
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
+             + self.bias.view(shape))
+        return y.to(x.dtype)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in the input's dtype (weights are cast)."""
 
@@ -150,14 +183,19 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) + frozen BN (+ ReLU), NCHW; names ``conv`` / ``bn``."""
+    """Conv (no bias) + BN (+ ReLU), NCHW; names ``conv`` / ``bn``.
+    ``norm="frozen"`` is the camera trunk's :class:`FrozenBN` (bf16
+    arithmetic in a bf16 backbone), ``norm="batch"`` the LiDAR track's
+    trainable :class:`BatchNorm` (float32 arithmetic)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 0, relu: bool = True):
+                 padding: int = 0, relu: bool = True, norm: str = "frozen"):
         super().__init__()
         self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding,
                            bias=False)
-        self.bn = FrozenBN(cout)
+        if norm not in ("frozen", "batch"):
+            raise ValueError(f"unknown norm {norm!r}")
+        self.bn = FrozenBN(cout) if norm == "frozen" else BatchNorm(cout)
         self.relu = relu
 
     def forward(self, x):

@@ -1,5 +1,6 @@
 """Top-level detector: 6-camera batch → backbone → FPN → TransCAR head
-(``transcar_tpu/models/detector.py``).
+(``transcar_tpu/models/detector.py``); :func:`build_model` also builds the
+LiDAR presets' ObjDGCNN (``models/dgcnn.py``).
 
 The public layout is the JAX package's: images [B, N, H, W, 3] (NHWC,
 normalized float32), lidar2img [B, N, 4, 4], radar tokens [B, T, 36].
@@ -26,6 +27,7 @@ from torch import nn
 
 from transcar_tpu_torch.data.gridmask import grid_mask
 from transcar_tpu_torch.models.common import Conv2d, TorchMHA, disable_tf32
+from transcar_tpu_torch.models.dgcnn import MSDeformAttention, ObjDGCNN
 from transcar_tpu_torch.models.fpn import FPN
 from transcar_tpu_torch.models.head import TransCARHead
 from transcar_tpu_torch.models.resnet import DCNConv, ResNet
@@ -166,21 +168,39 @@ def resolve_block_impl(cfg) -> str:
     return "xla" if impl == "auto" else impl
 
 
+def resolve_encoder_band(cfg) -> None:
+    """``ModelConfig.encoder_band_rows`` is the TPU encoder kernel's row
+    band: a no-op here, since K7 is exact for any offset, but a value the
+    JAX ``build_model`` refuses is refused here too, so presets and
+    overrides stay shared."""
+    m = cfg.model
+    band = m.encoder_band_rows
+    if band > 0:
+        h_min = m.bev_hw[0] >> (m.head.num_levels - 1)
+        if band % 2 or band < 4 or band > h_min:
+            raise ValueError(
+                f"model.encoder_band_rows={band} must be an even value in "
+                f"[4, {h_min}] (smallest encoder level's rows, "
+                f"bev_hw[0]={m.bev_hw[0]} over {m.head.num_levels} levels)")
+
+
 def build_model(cfg, device="cuda", training: bool = False,
-                seed: int = 0, dropout: float = 0.1) -> TransCARDetector:
-    """Camera/fusion presets → TransCARDetector on ``device`` with seeded
-    random weights (load real ones with ``load_state_dict``), in train
-    mode when ``training`` (GridMask, ``dropout`` in the head) and eval
-    mode otherwise.  The model goes to the card unless the caller passes
+                seed: int = 0, dropout: float = 0.1) -> nn.Module:
+    """Camera/fusion presets → TransCARDetector, ``lidar_encoder`` presets
+    (``objdgcnn_pillar``) → ObjDGCNN, on ``device`` with seeded random
+    weights (load real ones with ``load_state_dict``), in train mode when
+    ``training`` (GridMask, ``dropout`` in the head) and eval mode
+    otherwise.  The model goes to the card unless the caller passes
     ``device="cpu"``; without CUDA that default raises.
 
     Kernel knobs: ``dcn_impl`` (:func:`resolve_dcn_impl`),
     ``osa_reduce_impl`` (:func:`resolve_osa_reduce_impl`) and
-    ``block_impl`` (:func:`resolve_block_impl`).  TPU-only knobs change
-    no math and are accepted as no-ops: ``dcn_band_rows``,
-    ``dcn_rows_per_step`` and ``dcn_variant`` (the kernels are exact for
-    any offset, so full-backbone training needs no band widening) and
-    ``stem_impl``.
+    ``block_impl`` (:func:`resolve_block_impl`); ObjDGCNN's deformable
+    attention always takes the K7 wrapper.  TPU-only knobs change no math
+    and are accepted as no-ops: ``dcn_band_rows``, ``dcn_rows_per_step``
+    and ``dcn_variant`` (the kernels are exact for any offset, so
+    full-backbone training needs no band widening), ``stem_impl`` and
+    ``encoder_band_rows`` (validated as in JAX, :func:`resolve_encoder_band`).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -189,9 +209,20 @@ def build_model(cfg, device="cuda", training: bool = False,
                            "device=\"cpu\" for a CPU model)")
     m = cfg.model
     if m.lidar_encoder:
-        raise NotImplementedError(
-            f"LiDAR preset {cfg.name!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 10: ObjDGCNN)")
+        if training:
+            raise NotImplementedError(
+                f"training {cfg.name!r} waits for ObjDGCNN training with "
+                "kernels K8 and K9 (ROADMAP.md Queue 1 item 10)")
+        resolve_encoder_band(cfg)
+        disable_tf32()
+        model = ObjDGCNN(m.head, encoder=m.lidar_encoder,
+                         voxel_size=m.voxel_size,
+                         max_points=m.max_points_per_voxel,
+                         max_voxels=m.max_voxels, bev_hw=m.bev_hw,
+                         compute_dtype=m.lidar_compute_dtype)
+        init_weights(model, torch.Generator().manual_seed(seed))
+        return model.to(device=device,
+                        memory_format=torch.channels_last).eval()
     if m.backbone.quantize != "none" and not training:
         raise NotImplementedError(
             f"quantize={m.backbone.quantize!r} changes the numbers and "
@@ -213,7 +244,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     lecun-normal convs and linears with zero biases, he-normal DCN
     weights, zero DCN offset convs (mmcv) and cross-attention weights,
     xavier-uniform attention and reference-point projections, N(0, 1)
-    query embeddings; norms keep their identity construction."""
+    query and level embeddings, and for MSDeformAttn mmcv's zero
+    ``sampling_offsets`` kernel with the circle bias; norms keep their
+    identity construction."""
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
@@ -238,9 +271,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     xavier_(mod.weight, mod.in_features, mod.out_features)
                 else:
                     normal_(mod.weight, math.sqrt(1.0 / mod.in_features))
-                nn.init.zeros_(mod.bias)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
             elif isinstance(mod, TorchMHA):
                 for p in (mod.wq, mod.wk, mod.wv, mod.wo):
                     xavier_(p, *p.shape)
+        for mod in model.modules():
+            if isinstance(mod, MSDeformAttention):
+                nn.init.zeros_(mod.sampling_offsets.weight)
+                mod.sampling_offsets.bias.copy_(mod.offset_bias())
         if hasattr(model, "head"):            # also takes a bare backbone
             normal_(model.head.query_embedding, 1.0)
+            if hasattr(model.head, "level_embeds"):
+                normal_(model.head.level_embeds, 1.0)

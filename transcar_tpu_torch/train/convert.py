@@ -14,6 +14,12 @@ renames:
   * everything else passes unchanged (biases, ``query_embedding``, and
     the attention ``wq … bo``, which keep the JAX [in, out] layout).
 
+Flax variables with BatchNorm statistics (``{"params", "batch_stats"}``,
+the ObjDGCNN track's trainable BN and MaskedBN keep ``scale``/``bias`` in
+``params`` and ``mean``/``var`` in ``batch_stats``) are merged by path
+first, so the same renames give ``weight``, ``bias``, ``running_mean``
+and ``running_var``.
+
 Published reference ``.pth`` checkpoints reach the port through
 ``transcar_tpu.train.convert.convert_detr3d_checkpoint`` and then this
 function.
@@ -29,11 +35,27 @@ _RENAME = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
            "var": "running_var"}
 
 
+def _merge(a: Mapping, b: Mapping) -> dict:
+    """Two trees merged by path (the leaves' paths must not collide)."""
+    out = dict(a)
+    for key, val in b.items():
+        if key in out and isinstance(val, Mapping):
+            out[key] = _merge(out[key], val)
+        elif key in out:
+            raise ValueError(f"leaf {key!r} is in both trees")
+        else:
+            out[key] = val
+    return out
+
+
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params (nested mappings of arrays, with or without the
-    top-level ``"params"``) → ``state_dict`` for ``load_state_dict``:
-    float32, or float64 where a leaf is float64."""
-    if set(params) == {"params"}:
+    top-level ``"params"``, or flax variables ``{"params",
+    "batch_stats"}``) → ``state_dict`` for ``load_state_dict``: float32,
+    or float64 where a leaf is float64."""
+    if set(params) == {"params", "batch_stats"}:
+        params = _merge(params["params"], params["batch_stats"])
+    elif set(params) == {"params"}:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
 
