@@ -1058,10 +1058,14 @@ def phase_k7() -> dict:
         plain_ms = cuda_ms(lambda: ms_deform_attn_core(
             value, BEV_LEVELS, loc, wgt, chunk), iters=5, warmup=1)
         # 4 taps (multiply-add each) and the weight (multiply-add) per
-        # (query, head, sample, channel)
+        # (query, head, sample, channel); of the value, no more than the
+        # whole of it and no more than the 4 taps of every sample, which
+        # is far less at a decoder call
+        taps = wgt.numel() * 4 * value.shape[3] * value.element_size()
         bound, kind = bound_ms(10.0 * value.shape[3] * wgt.numel(),
                                torch.float32,
-                               nbytes(value, loc, wgt, out))
+                               nbytes(loc, wgt, out)
+                               + min(nbytes(value), taps))
         print(f"K7 msdeform {name} Q={q} S={s} 8 heads x 32, 4 levels x 4 "
               f"points: samples off the map {off_map:.3f}; max_abs_err "
               f"{err:.3e} max_rel_err {rel:.3e} (tol {MSDEFORM_TOL:.0e} of "

@@ -84,13 +84,13 @@ from transcar_tpu_torch.train.step import init_state, train_step
 #: CPU at 256 × 448).
 OFFSET_PX = 1.5
 
-#: Scales of the random MSDeformAttn kernels: ``sampling_offsets`` and
-#: ``attention_weights`` weights are drawn N(0, (std / √fan_in)²).  The
-#: queries (LayerNorm output plus the sine and level embeddings) have an
-#: RMS of about 1.5, so the offsets spread about 1.5 cells on top of
+#: Scale of the random MSDeformAttn kernels: ``sampling_offsets`` and
+#: ``attention_weights`` weights are drawn N(0, (MSDEFORM_STD / √fan_in)²).
+#: The queries (LayerNorm output plus the sine and level embeddings) have
+#: an RMS of about 1.5, so the offsets spread about 1.5 cells on top of
 #: mmcv's circle of 1-4 cells, and the attention logits about 1.5, a
 #: softmax far from uniform.
-MSDEFORM_STD = {"sampling_offsets": 1.0, "attention_weights": 1.0}
+MSDEFORM_STD = 1.0
 
 
 def parse_args(argv=None):
@@ -152,8 +152,8 @@ def randomize_offsets(model, generator: torch.Generator) -> None:
             if isinstance(mod, DCNConv):
                 draw(mod.conv_offset.weight, OFFSET_PX)
             elif isinstance(mod, MSDeformAttention):
-                for name, scale in MSDEFORM_STD.items():
-                    draw(getattr(mod, name).weight, scale)
+                draw(mod.sampling_offsets.weight, MSDEFORM_STD)
+                draw(mod.attention_weights.weight, MSDEFORM_STD)
 
 
 def _audit_hooks(model, stats):
