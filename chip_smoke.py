@@ -56,7 +56,18 @@ non-zero):
      300 000 points, 512² BEV, bfloat16 SECOND and FPN, float32 head, 300
      queries; 8 K7 launches per request and no other kernel, finite
      outputs and decode, samples/s and peak memory, then float32 with one
-     decoder layer, kernel path against plain path.
+     decoder layer, kernel path against plain path;
+ 15. K8 (d_attn, d_loc) and K9 (d_value), the MSDeformAttn backward,
+     against the plain backward (autograd of K7's plain version, chunked)
+     at one encoder and one decoder call of the pillar shapes, with K7's
+     inputs and a random output gradient;
+ 16. ``objdgcnn_pillar`` training through ``benchmark --train`` at the
+     same width (dropout 0.1, batch statistics, clip 35, AdamW with the
+     VFE and SECOND at lr × 0.1): 8 K7 + 8 K8 + 8 K9 launches per step
+     and no other kernel, finite losses, trainable elements and BN running
+     statistics moved, ms/step and peak memory; then one float32 step
+     with one decoder layer and dropout 0, kernel path against plain path
+     (gradients per leaf).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA the
@@ -133,6 +144,18 @@ BEV_LEVELS = ((256, 256), (128, 128), (64, 64), (32, 32))
 # K7 against its plain version, max|kernel − plain| over max|plain|: both
 # float32, differing by summation order over the 16 samples
 MSDEFORM_TOL = 1e-5
+# K8 / K9 against the plain backward, max|kernel − plain| over max|plain|
+# per gradient: both float32, differing by summation order over the head's
+# channels (d_attn, d_loc) and over the samples that reach one value cell
+# (d_value, whose atomics add in an order that changes from run to run)
+MSDEFORM_BWD_TOL = 1e-5
+# the float32 pillar step, kernel path against plain path, per leaf
+# max|Δ grad| over max|plain grad|: the kernels and the plain version
+# differ by summation order (~1e-7 relative) in each deformable attention;
+# the next layer's sampling locations move by that much, and a sample
+# that crosses a cell edge switches its bilinear derivative, so a few of
+# the millions of samples carry other d_loc terms into the gradients
+PILLAR_GRAD_TOL = 1e-3
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -439,15 +462,16 @@ def phase_slice(smi: str) -> dict:
     return {k: rec["kernel_launches"][k] for k in per_req}
 
 
-def _initial_params(preset: str, cfg_options=()) -> dict:
-    """The parameters ``benchmark --train`` starts from (same seed, same
-    randomized DCN offsets), on the card."""
+def _initial_state(preset: str, cfg_options=()) -> tuple:
+    """The parameters and buffers ``benchmark --train`` starts from (same
+    seed, same randomized DCN and MSDeformAttn offsets), on the card."""
     from transcar_tpu_torch.cli import benchmark
 
     args = benchmark.parse_args([preset, "--train", "--cfg-options",
                                  *cfg_options])
     _, model, _, _ = benchmark._setup(args, training=True)
-    return {n: p.detach() for n, p in model.named_parameters()}
+    return ({n: p.detach() for n, p in model.named_parameters()},
+            {n: b.detach().clone() for n, b in model.named_buffers()})
 
 
 def _moved(state, start: dict):
@@ -484,7 +508,7 @@ def phase_train(smi: str) -> dict:
         depths = RESNET_DEPTHS[int(cfg.model.backbone.kind[6:])]
         n_dcn = sum(d for d, dcn in zip(depths, cfg.model.backbone.with_dcn)
                     if dcn)                                           # 26
-        start = _initial_params(preset)
+        start, _ = _initial_state(preset)
         # this recipe's path, counts at 0 just before and read just after
         _zero_counts()
         rec, state = benchmark.run_train([preset, "--train", "--samples",
@@ -552,7 +576,7 @@ def phase_train_check() -> None:
     for preset in ("detr3d_r101", "transcar_r101"):
         runs = []
         for extra in ([], plain):
-            start = _initial_params(preset, opts + extra)
+            start, _ = _initial_state(preset, opts + extra)
             rec, state = benchmark.run_train(
                 [preset, "--train", "--samples", "1", "--warmup", "0",
                  "--dropout", "0", "--cfg-options", *opts, *extra])
@@ -800,6 +824,8 @@ def _zero_counts() -> None:
     pallas_attention.launches = pallas_osa.launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
     pallas_msdeform.launches = 0
+    pallas_msdeform.backward_taps_launches = 0
+    pallas_msdeform.backward_value_launches = 0
 
 
 def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
@@ -972,7 +998,7 @@ def phase_vovnet_train(smi: str) -> None:
     from transcar_tpu_torch.cli import benchmark
 
     preset = "transcar_vovnet_trainval"
-    start = _initial_params(preset)
+    start, _ = _initial_state(preset)
     _zero_counts()
     rec, state = benchmark.run_train([preset, "--train", "--samples", "5",
                                       "--warmup", "2"])
@@ -1153,6 +1179,219 @@ def phase_pillar(smi: str) -> int:
     return rec["kernel_launches"]["msdeform_forward"]
 
 
+def phase_k8_k9() -> tuple:
+    """K8 and K9 at one encoder and one decoder call of the pillar slice,
+    against the plain backward; per step (2 encoder + 6 decoder launches
+    of each)."""
+    from transcar_tpu_torch.ops import pallas_msdeform
+    from transcar_tpu_torch.ops.msdeform import ms_deform_attn_backward
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    res = {"taps": _kernel_result(), "value": _kernel_result()}
+    for r in res.values():
+        r["bound_by"] = "bytes"
+    s = sum(h * w for h, w in BEV_LEVELS)
+    for name, q, per_step, chunk in (("encoder", s, 2, 16384),
+                                     ("decoder", 300, 6, 0)):
+        value, loc, wgt = msdeform_case(g, q, name == "encoder")
+        d_out = torch.randn(1, q, value.shape[2] * value.shape[3],
+                            device="cuda", generator=g)
+
+        def taps():
+            return pallas_msdeform.backward_taps_kernel(value, BEV_LEVELS,
+                                                        loc, wgt, d_out)
+
+        def dvalue():
+            return pallas_msdeform.backward_value_kernel(value, BEV_LEVELS,
+                                                         loc, wgt, d_out)
+
+        def plain():
+            return ms_deform_attn_backward(value, BEV_LEVELS, loc, wgt,
+                                           d_out, chunk)
+
+        d_loc, d_attn = taps()
+        d_value = dvalue()
+        ref_value, ref_loc, ref_attn = plain()
+        torch.cuda.synchronize()
+        errs = {k: _rel_err(a, b) for k, (a, b) in {
+            "d_attn": (d_attn, ref_attn), "d_loc": (d_loc, ref_loc),
+            "d_value": (d_value, ref_value)}.items()}
+        ok = all(math.isfinite(rel) and rel <= MSDEFORM_BWD_TOL
+                 for _, rel in errs.values())
+        ms_taps, ms_value = cuda_ms(taps), cuda_ms(dvalue)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        # K8: the value (no more than the taps of every sample), the
+        # locations, the weights and the gradient in, d_loc and d_attn out;
+        # per (sample, channel) 7 operations for the sample, 5 for each of
+        # its two derivatives and 3 multiply-adds.  K9: the locations, the
+        # weights and the gradient in, d_value written once (at a decoder
+        # call the zero-fill is that write: few cells meet a sample); per
+        # (sample, channel) one product and 4 corner multiply-adds
+        d = value.shape[3]
+        taps_bytes = wgt.numel() * 4 * d * value.element_size()
+        b_taps, k_taps = bound_ms(
+            23.0 * d * wgt.numel(), torch.float32,
+            nbytes(loc, wgt, d_out, d_loc, d_attn)
+            + min(nbytes(value), taps_bytes))
+        b_value, k_value = bound_ms(
+            9.0 * d * wgt.numel(), torch.float32,
+            nbytes(loc, wgt, d_out, d_value))
+        print(f"K8/K9 msdeform backward {name} Q={q} S={s} 8 heads x 32, 4 "
+              f"levels x 4 points: "
+              + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}"
+                          for k, (e, r) in errs.items())
+              + f" (tol {MSDEFORM_BWD_TOL:.0e} of max|plain|); K8 "
+              f"{ms_taps:.4f} ms (bound {b_taps:.4f} ms by {k_taps}), K9 "
+              f"{ms_value:.4f} ms (bound {b_value:.4f} ms by {k_value}), "
+              f"plain backward (all three gradients) {plain_ms:.3f} ms "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K8/K9 {name} disagree with the plain "
+                                 f"backward: {errs}")
+        for key, ms, bound, kind, err in (
+                ("taps", ms_taps, b_taps, k_taps,
+                 max(errs["d_attn"][0], errs["d_loc"][0])),
+                ("value", ms_value, b_value, k_value, errs["d_value"][0])):
+            r = res[key]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["ms"] += per_step * ms
+            r["plain_ms"] += per_step * plain_ms
+            r["bound_ms"] += per_step * bound
+            if kind == "operations":
+                r["bound_by"] = kind
+        del value, loc, wgt, d_out, d_loc, d_attn, d_value
+        del ref_value, ref_loc, ref_attn
+        torch.cuda.empty_cache()
+    print(f"K8 / K9 per objdgcnn_pillar train step (2 encoder + 6 decoder "
+          f"launches each): K8 {res['taps']['ms']:.3f} ms (bound "
+          f"{res['taps']['bound_ms']:.4f} ms), K9 {res['value']['ms']:.3f} "
+          f"ms (bound {res['value']['bound_ms']:.4f} ms); the plain backward"
+          f" computes all three gradients in one pass, "
+          f"{res['taps']['plain_ms']:.3f} ms, and stands in both rows (no "
+          f"single PyTorch call computes the MSDeformAttn backward)")
+    return res["taps"], res["value"]
+
+
+def phase_pillar_train(smi: str) -> dict:
+    """``objdgcnn_pillar`` training at full width through ``benchmark
+    --train``."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.ops import pallas_msdeform
+
+    preset = "objdgcnn_pillar"
+    per_step = 2 + get_preset(preset).model.head.num_decoder_layers     # 8
+    params0, buffers0 = _initial_state(preset)
+    _zero_counts()
+    rec, state = benchmark.run_train([preset, "--train", "--samples", "5",
+                                      "--warmup", "2"])
+    counts = (pallas_msdeform.launches,
+              pallas_msdeform.backward_taps_launches,
+              pallas_msdeform.backward_value_launches)
+    steps = rec["steps"]
+    want = {k: 0 for k in rec["kernel_launches"]}
+    for k in ("msdeform_forward", "msdeform_backward_taps",
+              "msdeform_backward_value"):
+        want[k] = per_step * steps
+    moved = total = 0
+    for name, p in state.model.named_parameters():
+        moved += int((p.detach() != params0[name]).sum())
+        total += p.numel()
+    bufs_moved = sum(int(not torch.equal(b, buffers0[n]))
+                     for n, b in state.model.named_buffers())
+    n_bufs = len(buffers0)
+    finite = all(math.isfinite(v) for r in (rec["loss_first"],
+                                            rec["loss_last"])
+                 for v in r.values())
+    print(f"pillar train {preset} {rec['max_points']} points, 512x512 BEV "
+          f"bs1 (bf16 SECOND and FPN, fp32 head, dropout 0.1, batch "
+          f"statistics): {steps} steps, launches {rec['kernel_launches']} "
+          f"(want {want}: K7, K8, K9 {per_step} per step); loss total first "
+          f"{rec['loss_first']['total']:.4f} last "
+          f"{rec['loss_last']['total']:.4f}, finite {finite}; trainable "
+          f"elements moved {moved}/{total} ({moved / total:.4f}); BN "
+          f"running statistics moved {bufs_moved}/{n_bufs}; peak memory "
+          f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"{rec['ms_per_step']:.2f} ms/step, {rec['steps_per_sec']:.3f} "
+          f"steps/s on {smi}")
+    if rec["kernel_launches"] != want or counts != (per_step * steps,) * 3:
+        raise AssertionError(f"pillar train launches {rec['kernel_launches']}"
+                             f" / {counts} != {want}")
+    if not finite:
+        raise AssertionError("pillar train: non-finite loss")
+    if moved <= 0.9 * total or bufs_moved != n_bufs:
+        raise AssertionError(f"pillar train: moved {moved}/{total} elements,"
+                             f" {bufs_moved}/{n_bufs} BN statistics")
+    launches = rec["kernel_launches"]
+    del state, params0, buffers0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pillar_train_check() -> None:
+    """One float32 step of ``objdgcnn_pillar`` (float32 BEV, one decoder
+    layer, dropout 0, batch statistics), the kernel path (K7, K8, K9)
+    against the plain path (``impl = "xla"`` on every MSDeformAttention),
+    from the same weights and batch, with cuDNN held deterministic so
+    that the BEV backward is the same on both."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.models.dgcnn import MSDeformAttention
+    from transcar_tpu_torch.ops import pallas_msdeform
+    from transcar_tpu_torch.train.step import compute_losses, init_state
+
+    args = benchmark.parse_args([
+        "objdgcnn_pillar", "--train", "--dropout", "0", "--cfg-options",
+        "model.lidar_compute_dtype=float32",
+        "model.head.num_decoder_layers=1"])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for impl in ("pallas", "xla"):
+            cfg, model, batch, _ = benchmark._setup(args, training=True)
+            for mod in model.modules():
+                if isinstance(mod, MSDeformAttention):
+                    mod.impl = impl
+            state = init_state(cfg, model, total_steps=1)
+            _zero_counts()
+            losses = compute_losses(state, batch)
+            losses["total"].backward()
+            torch.cuda.synchronize()
+            counts = (pallas_msdeform.launches,
+                      pallas_msdeform.backward_taps_launches,
+                      pallas_msdeform.backward_value_launches)
+            runs.append(({k: v.item() for k, v in losses.items()},
+                         {n: p.grad.detach().clone() for n, p in
+                          model.named_parameters() if p.grad is not None},
+                         {n: b.detach().clone() for n, b in
+                          model.named_buffers()}, counts))
+            del state, model, losses
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (lk, gk, bk, ck), (lp, gp, bp, cp) = runs
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp)
+    worst_name, worst = "", 0.0
+    for name, ref in gp.items():
+        err = ((gk[name] - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-30)).item()
+        if not err <= worst:
+            worst_name, worst = name, err
+    stats = max(((bk[n] - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                .item() for n, b in bp.items())
+    ok = (gk.keys() == gp.keys() and loss_err <= STEP_TOL
+          and worst <= PILLAR_GRAD_TOL and ck == (3, 3, 3) and cp == (0,) * 3)
+    print(f"pillar train check fp32 (1 decoder layer, dropout 0), kernel vs "
+          f"plain, one step: launches kernel {ck} plain {cp}; loss rel err "
+          f"{loss_err:.3e} (tol {STEP_TOL:.0e}); gradients of {len(gp)} "
+          f"leaves, worst max|diff|/max|plain| {worst:.3e} at {worst_name} "
+          f"(tol {PILLAR_GRAD_TOL:.0e}); BN running statistics rel diff "
+          f"{stats:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("pillar train check: kernel path disagrees "
+                             "with the plain path")
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1172,6 +1411,11 @@ def main() -> None:
     phase_vovnet_train(smi)
     k7 = phase_k7()
     launches["msdeform_forward"] = phase_pillar(smi)
+    k8, k9 = phase_k8_k9()
+    train_launches = phase_pillar_train(smi)
+    phase_pillar_train_check()
+    for name in ("msdeform_backward_taps", "msdeform_backward_value"):
+        launches[name] = train_launches[name]
     kernels = []
     for name, res, source, replaces in (
             ("dcn_forward", k1, "transcar_tpu_torch/csrc/dcn_forward.cu",
@@ -1189,7 +1433,13 @@ def main() -> None:
              "transcar_tpu/ops/pallas_bottleneck.py:118"),
             ("msdeform_forward", k7,
              "transcar_tpu_torch/csrc/msdeform_forward.cu",
-             "transcar_tpu/ops/pallas_msdeform.py:453")):
+             "transcar_tpu/ops/pallas_msdeform.py:453"),
+            ("msdeform_backward_taps", k8,
+             "transcar_tpu_torch/csrc/msdeform_backward.cu",
+             "transcar_tpu/ops/pallas_msdeform.py:529"),
+            ("msdeform_backward_value", k9,
+             "transcar_tpu_torch/csrc/msdeform_backward.cu",
+             "transcar_tpu/ops/pallas_msdeform.py:592")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],

@@ -19,7 +19,8 @@ from transcar_tpu_torch.ops import (dcn, pallas_attention, pallas_bottleneck,
                                     pallas_dcn, pallas_msdeform, pallas_osa,
                                     pallas_osa_block)
 from transcar_tpu_torch.ops.attention import attention_core
-from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
+from transcar_tpu_torch.ops.msdeform import (ms_deform_attn_backward,
+                                             ms_deform_attn_core)
 
 pytestmark = pytest.mark.cuda
 
@@ -277,11 +278,68 @@ def test_msdeform_kernel_far_and_non_finite_locations(dev):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
+def _counts():
+    return (pallas_msdeform.launches, pallas_msdeform.backward_taps_launches,
+            pallas_msdeform.backward_value_launches)
+
+
 def test_msdeform_kernel_is_forward_only(dev):
-    value, loc, wgt = _msdeform_case(dev, 1, 3, 2, 32, [(4, 4)], 2)
-    value.requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        pallas_msdeform.ms_deform_attn(value, [(4, 4)], loc, wgt)
+    """The name is kept from when K7 refused autograd: on CUDA tensors the
+    wrapper now differentiates through ``MSDeformAttnFunction``, one K7,
+    K8 and K9 launch with the plain backward's gradients; K8 runs only for
+    d_loc / d_attn and K9 only for d_value; under no_grad only K7."""
+    shapes = [(4, 4)]
+    value, loc, wgt = _msdeform_case(dev, 1, 3, 2, 32, shapes, 2)
+    args = [x.clone().requires_grad_() for x in (value, loc, wgt)]
+    before = _counts()
+    out = pallas_msdeform.ms_deform_attn(args[0], shapes, *args[1:])
+    d_out = torch.randn_like(out)
+    got = torch.autograd.grad(out, args, d_out)
+    assert _counts() == tuple(c + 1 for c in before)
+    want = ms_deform_attn_backward(value, shapes, loc, wgt, d_out)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    before = _counts()
+    v = value.clone().requires_grad_()
+    pallas_msdeform.ms_deform_attn(v, shapes, loc, wgt).backward(d_out)
+    assert _counts() == (before[0] + 1, before[1], before[2] + 1)
     with torch.no_grad():
         assert pallas_msdeform.ms_deform_attn(
-            value, [(4, 4)], loc, wgt).shape == (1, 3, 64)
+            v, shapes, loc, wgt).shape == (1, 3, 64)
+    assert _counts() == (before[0] + 2, before[1], before[2] + 1)
+
+
+# K8 and K9 against the plain backward, max|kernel − plain| over
+# max|plain| per gradient: both float32, differing by summation order (and
+# d_value's atomics add in an order that changes from run to run)
+@pytest.mark.parametrize("b,q,heads,d,shapes,p", [
+    (1, 37, 6, 16, [(7, 9), (4, 5), (2, 3), (1, 1)], 4),   # Q off the warp
+    (2, 129, 6, 48, [(16, 16), (8, 8), (4, 4), (1, 1)], 4),  # D past 32
+    (1, 129, 8, 32, [(1, 1), (3, 70)], 2),
+])
+def test_msdeform_backward_kernels(dev, b, q, heads, d, shapes, p):
+    value, loc, wgt = _msdeform_case(dev, b, q, heads, d, shapes, p)
+    # whole-number coordinates on level 0, far-off samples at ±1e20
+    hl, wl = shapes[0]
+    g = torch.Generator(device=dev).manual_seed(8)
+    loc[:, ::2, :, 0, 0, 0] = (torch.randint(-1, wl + 1, (b, (q + 1) // 2,
+                               heads), device=dev, generator=g) + 0.5) / wl
+    loc[:, ::2, :, 0, 0, 1] = (torch.randint(-1, hl + 1, (b, (q + 1) // 2,
+                               heads), device=dev, generator=g) + 0.5) / hl
+    loc[0, 1, 1, 0, 1] = torch.tensor([1e20, 0.5])
+    loc[0, 2, 2, -1, 0] = torch.tensor([0.5, -1e20])
+    d_out = torch.randn(b, q, heads * d, device=dev, generator=g)
+    before = _counts()
+    d_loc, d_attn = pallas_msdeform.backward_taps_kernel(value, shapes, loc,
+                                                         wgt, d_out)
+    d_value = pallas_msdeform.backward_value_kernel(value, shapes, loc, wgt,
+                                                    d_out)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2] + 1)
+    want = ms_deform_attn_backward(value, shapes, loc, wgt, d_out)
+    for got, ref, name in zip((d_value, d_loc, d_attn), want,
+                              ("d_value", "d_loc", "d_attn")):
+        assert got.shape == ref.shape, name
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), (name, err)
+    assert not d_loc[0, 1, 1, 0, 1].any() and not d_attn[0, 2, 2, -1, 0]

@@ -32,10 +32,12 @@ from transcar_tpu_torch.core.config import HeadConfig, get_preset
 from transcar_tpu_torch.data.synthetic import fake_points
 from transcar_tpu_torch.eval.decode import nms_free_decode
 from transcar_tpu_torch.models import dgcnn
+from transcar_tpu_torch.models.common import FFN
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.second import BNFPN, SECOND
 from transcar_tpu_torch.ops import pallas_msdeform
-from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
+from transcar_tpu_torch.ops.msdeform import (ms_deform_attn_backward,
+                                             ms_deform_attn_core)
 from transcar_tpu_torch.ops.voxelize import hard_voxelize, pillar_scatter
 from transcar_tpu_torch.train.convert import from_jax_params
 
@@ -139,14 +141,25 @@ def test_ms_deform_attn_core_matches_jax(heads, d):
 
 
 def test_wrapper_is_forward_only():
+    """The name is kept from when the wrapper refused autograd: it now
+    differentiates on the CPU (the plain version under autograd), with the
+    gradients of ``ms_deform_attn_backward``, K8 and K9's plain version."""
     rng = np.random.default_rng(0)
-    value, loc, wgt = _msdeform_inputs(rng, RAGGED, 1, 3, 2, 4, 2)
-    v = t(value).requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        pallas_msdeform.ms_deform_attn(v, RAGGED, t(loc), t(wgt))
-    with torch.no_grad():
-        assert pallas_msdeform.ms_deform_attn(
-            v, RAGGED, t(loc), t(wgt)).shape == (1, 3, 8)
+    value, loc, wgt = _msdeform_inputs(rng, RAGGED, 1, 7, 6, 16, 2)
+    d_out = rng.normal(size=(1, 7, 96)).astype(np.float32)
+    args = [t(a).requires_grad_() for a in (value, loc, wgt)]
+    before = (pallas_msdeform.launches, pallas_msdeform.backward_taps_launches,
+              pallas_msdeform.backward_value_launches)
+    out = pallas_msdeform.ms_deform_attn(args[0], RAGGED, *args[1:],
+                                         query_chunk=3)
+    got = torch.autograd.grad(out, args, t(d_out))
+    assert (pallas_msdeform.launches, pallas_msdeform.backward_taps_launches,
+            pallas_msdeform.backward_value_launches) == before
+    d_value, d_loc, d_attn = ms_deform_attn_backward(
+        t(value), RAGGED, t(loc), t(wgt), t(d_out))
+    for g, want in zip(got, (d_value, d_loc, d_attn)):
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6 * want.abs().max().item())
 
 
 def test_plain_version_matches_the_tpu_kernel_in_band():
@@ -380,8 +393,13 @@ def test_build_model_objdgcnn_pillar():
                         device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         build_model(get_preset("objdgcnn_voxel"), device="cpu")
-    with pytest.raises(NotImplementedError, match="K8 and K9"):
-        build_model(cfg, device="cpu", training=True)
+    # training builds a train-mode model with the dropout rate at every
+    # site: after each MSDeformAttention and DGCNNAttn, twice in each FFN
+    model = build_model(cfg, device="cpu", training=True, dropout=0.25)
+    assert model.training and all(m.training for m in model.modules())
+    sites = [m for m in model.modules() if isinstance(
+        m, (dgcnn.MSDeformAttention, dgcnn.DGCNNAttn, FFN))]
+    assert len(sites) == 8 + 6 + 8 and all(m.dropout == 0.25 for m in sites)
 
 
 def test_benchmark_cli_objdgcnn_pillar_on_cpu(capsys):

@@ -211,14 +211,38 @@ def test_grid_mask_one_mask_for_the_stack():
 
 # --- optimizer labels: trainable set and lr group per parameter -------------
 
-@pytest.mark.parametrize("preset", ["detr3d_r101", "transcar_r101"])
+PILLAR_TINY = ["model.bev_hw=[32,32]", "model.voxel_size=[3.2,3.2,8.0]",
+               "model.max_voxels=64", "model.head.num_query=16",
+               "model.head.num_decoder_layers=1"]
+
+
+def _pillar_label_case():
+    """objdgcnn_pillar at tiny shapes: the JAX variables' shapes (params,
+    and BN statistics in batch_stats) and the port's model."""
+    over = parse_overrides(PILLAR_TINY)
+    cfg = jcfg.get_preset("objdgcnn_pillar", over)
+    pts, num = np.zeros((1, 64, 5), np.float32), np.array([50], np.int32)
+    variables = jax.eval_shape(lambda k: jbuild_model(cfg, training=True)
+                               .init(k, pts, num), jax.random.PRNGKey(0))
+    model = build_model(pcfg.get_preset("objdgcnn_pillar", over),
+                        device="cpu", training=True)
+    return cfg, variables, model
+
+
+@pytest.mark.parametrize("preset", ["detr3d_r101", "transcar_r101",
+                                    "objdgcnn_pillar"])
 def test_labels_match_jax_make_labels(preset):
-    cfg, params, _ = tiny_case(preset)
     freeze = preset == "transcar_r101"
-    jlabels = from_jax_labels(jmake_labels(params["params"], freeze, 0.1))
-    model = build_model(tiny_cfg(pcfg, preset), device="cpu",
-                        training=True)
-    ours = make_labels(model, freeze)
+    if preset == "objdgcnn_pillar":
+        cfg, params, model = _pillar_label_case()
+    else:
+        cfg, params, _ = tiny_case(preset)
+        model = build_model(tiny_cfg(pcfg, preset), device="cpu",
+                            training=True)
+    norm_eval = cfg.model.backbone.norm_eval
+    jlabels = from_jax_labels(jmake_labels(params["params"], freeze, 0.1,
+                                           norm_eval=norm_eval))
+    ours = make_labels(model, freeze, norm_eval=norm_eval)
     buffers = dict(model.named_buffers())
     assert set(ours) | (set(jlabels) & set(buffers)) == set(jlabels)
     for name, lab in jlabels.items():
@@ -226,6 +250,17 @@ def test_labels_match_jax_make_labels(preset):
             assert lab == "frozen", name
         else:
             assert ours[name] == lab, name
+    # the BN statistics (JAX batch_stats, flax MaskedBN and BatchNorm) are
+    # the port's buffers, which no optimizer group holds
+    stats = set(from_jax_labels(params.get("batch_stats", {})))
+    assert stats <= set(buffers) and not stats & set(ours)
+    if preset == "objdgcnn_pillar":
+        assert stats and {n for n in ours if n.startswith("vfe.")} == {
+            "vfe.pfn0.weight", "vfe.pfn0_bn.weight", "vfe.pfn0_bn.bias"}
+        assert all(lab == "backbone" for n, lab in ours.items()
+                   if n.startswith(("vfe.", "backbone.")))
+        assert set(ours.values()) == {"main", "backbone"}
+        return
     assert {"main", "frozen"} <= set(ours.values())
     assert ("backbone" in ours.values()) == (not freeze)
 
@@ -423,4 +458,5 @@ def test_cli_train_cpu(capsys):
         # the CPU takes the plain versions: no kernel launches
         assert rec["kernel_launches"] == dict.fromkeys(
             ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
-             "osa_block", "bottleneck", "msdeform_forward"), 0)
+             "osa_block", "bottleneck", "msdeform_forward",
+             "msdeform_backward_taps", "msdeform_backward_value"), 0)

@@ -13,7 +13,7 @@ Inference times batch requests after ``--warmup`` requests, with
 tools/analysis_tools/benchmark.py:64-91, which ``bench.py`` cites), on
 seeded random weights and the synthetic batch of ``data/synthetic.py``.
 It prints one JSON line: samples/s, ms/sample, the device's name, the
-launches of every kernel (K1-K7) in the run, the peak device memory, and
+launches of every kernel (K1-K9) in the run, the peak device memory, and
 two audits of the first warmup request: the share of DCN taps whose
 vertical offset exceeds 5 px (the TPU kernel's exact band; here every tap
 is exact; null for a backbone without DCN, as VoVNet-99) and the share of
@@ -35,7 +35,10 @@ and the BEV rows they reach.  Random weights would leave every
 MSDeformAttn ``sampling_offsets`` and ``attention_weights`` kernel at
 mmcv's zero init, so every query would sample the fixed circle pattern
 with uniform weights; the benchmark draws them (:data:`MSDEFORM_STD`).
-Its training (kernels K8 and K9) is not ported yet.
+``objdgcnn_pillar --train`` times its train steps on the same cloud with
+ground-truth boxes (``data/synthetic.fake_lidar_batch``): 8 K7 launches
+in the forward and 8 K8 + 8 K9 in the backward of every step, its line
+holding ``max_points`` in place of ``img_hw``.
 
 ``--train`` times ``--samples`` train steps (forward, loss with Hungarian
 targets, backward, clip, AdamW; ``train/step.py``) after ``--warmup``
@@ -67,7 +70,7 @@ import numpy as np
 import torch
 
 from transcar_tpu_torch.core.config import get_preset, parse_overrides
-from transcar_tpu_torch.data.synthetic import fake_batch, fake_points
+from transcar_tpu_torch.data.synthetic import fake_batch, fake_lidar_batch
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.dgcnn import MSDeformAttention
 from transcar_tpu_torch.models.resnet import DCNConv
@@ -128,7 +131,10 @@ def kernel_counts() -> dict:
             "osa_reduce": pallas_osa.launches,
             "osa_block": pallas_osa_block.launches,
             "bottleneck": pallas_bottleneck.launches,
-            "msdeform_forward": pallas_msdeform.launches}
+            "msdeform_forward": pallas_msdeform.launches,
+            "msdeform_backward_taps": pallas_msdeform.backward_taps_launches,
+            "msdeform_backward_value":
+                pallas_msdeform.backward_value_launches}
 
 
 def _launches_since(start: dict) -> dict:
@@ -216,6 +222,8 @@ KERNEL_GROUPS = (
     ("K5 osa_block", ("conv_gemm_kernel<5,",)),
     ("K6 bottleneck", ("conv_gemm_kernel<6,",)),
     ("K7 msdeform_forward", ("msdeform_forward_kernel",)),
+    ("K8 msdeform_backward_taps", ("msdeform_backward_taps_kernel",)),
+    ("K9 msdeform_backward_value", ("msdeform_backward_value_kernel",)),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),
@@ -277,9 +285,8 @@ def _setup(args, training: bool):
     head = cfg.model.head
     rng = np.random.default_rng(args.seed)
     if cfg.model.lidar_encoder:
-        points, num = fake_points(rng, args.batch, cfg.data.max_points,
-                                  head.pc_range)
-        batch = {"points": points, "num_points": num}
+        batch = fake_lidar_batch(rng, args.batch, cfg.data.max_points,
+                                 head.pc_range)
     else:
         batch = fake_batch(rng, args.batch, head.num_cams, args.height,
                            args.width, head.num_radar_tokens)
@@ -338,7 +345,8 @@ def run_train(argv=None):
         "preset": args.preset,
         "mode": "train",
         "batch": args.batch,
-        "img_hw": [args.height, args.width],
+        **({"max_points": cfg.data.max_points} if cfg.model.lidar_encoder
+           else {"img_hw": [args.height, args.width]}),
         "device": _device_name(dev),
         "steps_per_sec": args.samples / dt,
         "ms_per_step": 1000.0 * dt / args.samples,

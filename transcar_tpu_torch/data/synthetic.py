@@ -11,7 +11,8 @@ training loss.  The same seed gives the same arrays as the JAX driver's
 ``_fake_batch(np.random.default_rng(seed), ...)``.
 
 :func:`fake_points` is the port's copy of the point cloud that the JAX
-benchmark CLI and ``bench.py`` draw for the LiDAR presets.
+benchmark CLI and ``bench.py`` draw for the LiDAR presets, and
+:func:`fake_lidar_batch` adds the ground truth a LiDAR train step needs.
 """
 from __future__ import annotations
 
@@ -67,3 +68,22 @@ def fake_points(rng: np.random.Generator, b: int, n_max: int,
     pts[:, :, 3] = rng.uniform(0, 255, (b, n_max))
     pts[:, :, 4] = rng.uniform(0, 0.45, (b, n_max))
     return pts, np.full((b,), int(n_max * 0.9), np.int32)
+
+
+def fake_lidar_batch(rng: np.random.Generator, b: int, n_max: int,
+                     pc_range: Sequence[float], max_gt: int = 32
+                     ) -> Dict[str, np.ndarray]:
+    """A LiDAR train batch: ``points`` and ``num_points`` from
+    :func:`fake_points`, then ``gt_boxes`` [b, max_gt, 9], ``gt_labels``
+    and ``num_gt`` (7) as :func:`fake_batch` draws them, with the box
+    centres inside ``pc_range``."""
+    pc = pc_range
+    points, num = fake_points(rng, b, n_max, pc)
+    gt_boxes = np.ones((b, max_gt, 9), np.float32)
+    for i in range(3):
+        gt_boxes[:, :, i] = rng.uniform(pc[i], pc[i + 3], (b, max_gt))
+    gt_boxes[:, :, 3:6] = rng.uniform(0.5, 6, (b, max_gt, 3))
+    gt_labels = rng.integers(0, 10, (b, max_gt)).astype(np.int32)
+    num_gt = np.full((b,), min(7, max_gt), np.int32)
+    return {"points": points, "num_points": num, "gt_boxes": gt_boxes,
+            "gt_labels": gt_labels, "num_gt": num_gt}

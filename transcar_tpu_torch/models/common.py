@@ -24,6 +24,9 @@ from transcar_tpu_torch.ops.attention import multihead_attention
 from transcar_tpu_torch.ops.pallas_attention import masked_mha
 
 LN_EPS = 1e-5
+#: Share of the old running statistics a BatchNorm train step keeps (flax
+#: momentum 0.9, the JAX ``train_bn`` and ``MaskedBN``; torch momentum 0.1).
+BN_MOMENTUM = 0.9
 
 
 def disable_tf32() -> None:
@@ -142,14 +145,25 @@ class FrozenBN(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Trainable BatchNorm at inference (the JAX package's ``train_bn``,
-    ``MaskedBN`` and ``ConvBN(norm="batch")``, the LiDAR track's
-    ``norm_cfg=dict(type='BN')``): the running statistics normalize, in
-    float32, ``(x − mean) · (rsqrt(var + eps) · weight) + bias``, and the
-    result is cast back to the input dtype, as flax's ``BatchNorm`` and
-    ``MaskedBN`` do.  ``channel_dim`` is the channel axis (1 for NCHW, −1
-    for channels last).  Training statistics come with ObjDGCNN
-    training (ROADMAP.md Queue 1 item 10): in train mode it raises."""
+    """Trainable BatchNorm (the JAX package's ``train_bn``, ``MaskedBN``
+    and ``ConvBN(norm="batch")``, the LiDAR track's
+    ``norm_cfg=dict(type='BN')``); ``channel_dim`` is the channel axis (1
+    for NCHW, −1 for channels last).
+
+    In eval mode the running statistics normalize.  In train mode the
+    batch's do, taken in at least float32 over every axis but the
+    channel's, as flax's ``BatchNorm`` takes them: the mean and the
+    *biased* variance E[x²] − E[x]² clamped at 0 (flax's
+    ``use_fast_variance``; ``F.batch_norm`` would store the unbiased
+    variance), and the running statistics keep :data:`BN_MOMENTUM` of
+    their value and take the rest from the batch's, in place.  With a
+    ``mask`` (the VFE's ``MaskedBN``: True where a row counts,
+    broadcastable to ``x`` without its channel axis) the statistics are
+    the two-pass masked mean and variance over n = max(rows counted, 1).
+    Either way ``(x − mean) · (rsqrt(var + eps) · weight) + bias`` is
+    computed in at least float32 and cast back to the input dtype.
+    (``MaskedBN`` casts its input to float32 outright: the same for the
+    float32 points the VFE takes.)"""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  channel_dim: int = 1):
@@ -161,17 +175,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics come with ObjDGCNN training "
-                "(ROADMAP.md Queue 1 item 10)")
+    def forward(self, x, mask=None):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shape = [1] * x.ndim
         shape[self.channel_dim] = -1
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
-             + self.bias.view(shape))
+        if self.training:
+            mean, var = self._batch_stats(xf, mask, shape)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+    def _batch_stats(self, xf, mask, shape):
+        dims = [d for d in range(xf.ndim) if d != self.channel_dim % xf.ndim]
+        if mask is None:
+            mean = xf.mean(dims)
+            return mean, ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        m = mask.to(xf.dtype).unsqueeze(self.channel_dim).expand_as(xf)
+        n = (m.sum() / xf.shape[self.channel_dim]).clamp(min=1.0)
+        mean = (xf * m).sum(dims) / n
+        return mean, (m * (xf - mean.view(shape)) ** 2).sum(dims) / n
 
 
 class Conv2d(nn.Conv2d):

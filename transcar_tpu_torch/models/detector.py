@@ -189,18 +189,20 @@ def build_model(cfg, device="cuda", training: bool = False,
     """Camera/fusion presets → TransCARDetector, ``lidar_encoder`` presets
     (``objdgcnn_pillar``) → ObjDGCNN, on ``device`` with seeded random
     weights (load real ones with ``load_state_dict``), in train mode when
-    ``training`` (GridMask, ``dropout`` in the head) and eval mode
-    otherwise.  The model goes to the card unless the caller passes
-    ``device="cpu"``; without CUDA that default raises.
+    ``training`` (GridMask, ``dropout`` in the head; for ObjDGCNN, batch
+    statistics in every BatchNorm) and eval mode otherwise.  The model
+    goes to the card unless the caller passes ``device="cpu"``; without
+    CUDA that default raises.
 
     Kernel knobs: ``dcn_impl`` (:func:`resolve_dcn_impl`),
     ``osa_reduce_impl`` (:func:`resolve_osa_reduce_impl`) and
     ``block_impl`` (:func:`resolve_block_impl`); ObjDGCNN's deformable
-    attention always takes the K7 wrapper.  TPU-only knobs change no math
-    and are accepted as no-ops: ``dcn_band_rows``, ``dcn_rows_per_step``
-    and ``dcn_variant`` (the kernels are exact for any offset, so
-    full-backbone training needs no band widening), ``stem_impl`` and
-    ``encoder_band_rows`` (validated as in JAX, :func:`resolve_encoder_band`).
+    attention always takes the kernel wrapper (K7, and K8 / K9 in the
+    backward).  TPU-only knobs change no math and are accepted as no-ops:
+    ``dcn_band_rows``, ``dcn_rows_per_step`` and ``dcn_variant`` (the
+    kernels are exact for any offset, so full-backbone training needs no
+    band widening), ``stem_impl`` and ``encoder_band_rows`` (validated as
+    in JAX, :func:`resolve_encoder_band`).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -209,20 +211,17 @@ def build_model(cfg, device="cuda", training: bool = False,
                            "device=\"cpu\" for a CPU model)")
     m = cfg.model
     if m.lidar_encoder:
-        if training:
-            raise NotImplementedError(
-                f"training {cfg.name!r} waits for ObjDGCNN training with "
-                "kernels K8 and K9 (ROADMAP.md Queue 1 item 10)")
         resolve_encoder_band(cfg)
         disable_tf32()
         model = ObjDGCNN(m.head, encoder=m.lidar_encoder,
                          voxel_size=m.voxel_size,
                          max_points=m.max_points_per_voxel,
                          max_voxels=m.max_voxels, bev_hw=m.bev_hw,
-                         compute_dtype=m.lidar_compute_dtype)
+                         compute_dtype=m.lidar_compute_dtype,
+                         dropout=dropout)
         init_weights(model, torch.Generator().manual_seed(seed))
-        return model.to(device=device,
-                        memory_format=torch.channels_last).eval()
+        model = model.to(device=device, memory_format=torch.channels_last)
+        return model.train(training)
     if m.backbone.quantize != "none" and not training:
         raise NotImplementedError(
             f"quantize={m.backbone.quantize!r} changes the numbers and "

@@ -18,9 +18,13 @@ Parity targets, as in the JAX package:
 
 The head runs in float32 with no TF32 (``common.disable_tf32``); every
 deformable attention, the encoder's 2 and the decoder's 6, goes through
-the K7 wrapper (``ops/pallas_msdeform.py``) unless its ``impl`` is set to
-"xla", the plain version on any device.  Only the pillar encoder is
-ported; the voxel encoder waits (ROADMAP.md Queue 1 item 10).
+the kernel wrapper (``ops/pallas_msdeform.py``: K7 forward, K8 and K9
+backward) unless its ``impl`` is set to "xla", the plain version on any
+device.  In train mode every BatchNorm takes batch statistics (the VFE's
+masked to real pillars) and ``dropout`` applies where the JAX modules
+place it: after each MSDeformAttention and DGCNNAttn, and twice in each
+FFN.  Only the pillar encoder is ported; the voxel encoder waits
+(ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -44,17 +48,21 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 128,
                              temperature: float = 10000.0,
                              offset: float = -0.5,
                              scale: float = 2 * math.pi,
-                             device=None) -> torch.Tensor:
+                             device=None,
+                             dtype=torch.float32) -> torch.Tensor:
     """mmdet SinePositionalEncoding(normalize=True, offset=-0.5) over an
-    all-valid mask → [H, W, 2·num_feats]."""
+    all-valid mask → [H, W, 2·num_feats] in ``dtype``: the normalized
+    coordinates in float32 and the frequencies and sines in ``dtype``, as
+    the JAX function computes them (float64 only under ``jax_enable_x64``,
+    which the CPU parity tests use)."""
     eps = 1e-6
     ones = torch.ones(h, w, device=device)
     y = torch.cumsum(ones, 0)
     x = torch.cumsum(ones, 1)
     y = (y + offset) / (y[-1:, :] + eps) * scale
     x = (x + offset) / (x[:, -1:] + eps) * scale
-    dim_t = temperature ** (2 * (torch.arange(num_feats, device=device) // 2)
-                            / num_feats)
+    exps = (2 * (torch.arange(num_feats, device=device) // 2)).to(dtype)
+    dim_t = temperature ** (exps / num_feats)
     px = x[..., None] / dim_t
     py = y[..., None] / dim_t
     px = torch.stack([px[..., 0::2].sin(), px[..., 1::2].cos()],
@@ -67,10 +75,11 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 128,
 class MSDeformAttention(nn.Module):
     """mmcv MultiScaleDeformableAttention: its parameter layout
     (``sampling_offsets``, ``attention_weights``, ``value_proj``,
-    ``output_proj``) and math.  ``impl``: "pallas" takes the K7 wrapper
-    (the kernel on the card, the plain version on the CPU), "xla" the
-    plain version anywhere; ``query_chunk`` bounds the plain version's
-    intermediates and does not reach the kernel."""
+    ``output_proj``) and math.  ``impl``: "pallas" takes the kernel
+    wrapper (K7 forward and K8 / K9 backward on the card, the plain
+    version on the CPU), "xla" the plain version anywhere;
+    ``query_chunk`` bounds the plain version's intermediates and does not
+    reach the kernels."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
@@ -178,8 +187,8 @@ class PillarFeatureNet(nn.Module):
         super().__init__()
         self.voxel_size, self.pc_range = voxel_size, pc_range
         self.pfn0 = nn.Linear(in_channels + 5, feat_channels, bias=False)
-        # eps 1e-3 as the VFE's MaskedBN; its batch statistics exclude
-        # padding rows, which only training reads
+        # eps 1e-3 as the VFE's MaskedBN, whose batch statistics exclude
+        # padding pillars (zero-padded points of real pillars count)
         self.pfn0_bn = BatchNorm(feat_channels, eps=1e-3, channel_dim=-1)
 
     def forward(self, voxels, coords, counts):
@@ -196,7 +205,7 @@ class PillarFeatureNet(nn.Module):
         mask = (torch.arange(m, device=voxels.device)[None, :]
                 < counts[:, None])[..., None]
         feats = feats * mask.to(feats.dtype)
-        x = F.relu(self.pfn0_bn(self.pfn0(feats)))
+        x = F.relu(self.pfn0_bn(self.pfn0(feats), (counts > 0)[:, None]))
         x = torch.where(mask, x, float("-inf")).amax(1)
         return torch.where(counts[:, None] > 0, x, 0.0)
 
@@ -205,10 +214,12 @@ class DGCNN3DHead(nn.Module):
     """Deformable-DETR head over BEV features."""
 
     def __init__(self, cfg, num_encoder_layers: int = 2,
-                 num_points: int = 4, encoder_query_chunk: int = 16384):
+                 num_points: int = 4, encoder_query_chunk: int = 16384,
+                 dropout: float = 0.1):
         """cfg: a ``HeadConfig``; encoder_query_chunk bounds the plain
         version's intermediates at the encoder's token-count Q (0 = one
-        pass; the kernel takes every query in one launch)."""
+        pass; the kernel takes every query in one launch); dropout: the
+        rate of every dropout site in training."""
         super().__init__()
         self.cfg = cfg
         e, l = cfg.embed_dims, cfg.num_levels
@@ -216,20 +227,21 @@ class DGCNN3DHead(nn.Module):
         self.level_embeds = nn.Parameter(torch.zeros(l, e))
         for i in range(num_encoder_layers):
             setattr(self, f"encoder{i}_attn", MSDeformAttention(
-                e, cfg.num_heads, l, num_points,
+                e, cfg.num_heads, l, num_points, dropout=dropout,
                 query_chunk=encoder_query_chunk))
             setattr(self, f"encoder{i}_norm1", nn.LayerNorm(e, eps=LN_EPS))
-            setattr(self, f"encoder{i}_ffn", FFN(e, cfg.ffn_dims))
+            setattr(self, f"encoder{i}_ffn", FFN(e, cfg.ffn_dims, dropout))
             setattr(self, f"encoder{i}_norm2", nn.LayerNorm(e, eps=LN_EPS))
         self.query_embedding = nn.Parameter(torch.zeros(cfg.num_query, 2 * e))
         self.reference_points = nn.Linear(e, 2)
         for i in range(cfg.num_decoder_layers):
-            setattr(self, f"decoder{i}_self_attn", DGCNNAttn(e))
+            setattr(self, f"decoder{i}_self_attn",
+                    DGCNNAttn(e, dropout=dropout))
             setattr(self, f"decoder{i}_norm1", nn.LayerNorm(e, eps=LN_EPS))
             setattr(self, f"decoder{i}_cross_attn", MSDeformAttention(
-                e, cfg.num_heads, l, num_points))
+                e, cfg.num_heads, l, num_points, dropout=dropout))
             setattr(self, f"decoder{i}_norm2", nn.LayerNorm(e, eps=LN_EPS))
-            setattr(self, f"decoder{i}_ffn", FFN(e, cfg.ffn_dims))
+            setattr(self, f"decoder{i}_ffn", FFN(e, cfg.ffn_dims, dropout))
             setattr(self, f"decoder{i}_norm3", nn.LayerNorm(e, eps=LN_EPS))
             setattr(self, f"cls_branch{i}", MLP(e, (e, e, cfg.num_classes),
                                                 layer_norm=True))
@@ -251,7 +263,8 @@ class DGCNN3DHead(nn.Module):
         tokens, pos, refs = [], [], []
         for li, (f, (hl, wl)) in enumerate(zip(mlvl_feats, shapes)):
             tokens.append(f.reshape(b, hl * wl, e))
-            pe = sine_positional_encoding(hl, wl, e // 2, device=dev)
+            pe = sine_positional_encoding(hl, wl, e // 2, device=dev,
+                                          dtype=self.level_embeds.dtype)
             pos.append((pe.reshape(1, -1, e) + self.level_embeds[li])
                        .expand(b, -1, -1))
             # encoder reference points: the level's normalized cell centres
@@ -301,14 +314,16 @@ class ObjDGCNN(nn.Module):
 
     ``encoder="pillar"``: PillarFeatureNet + scatter (the pillar config).
     The BEV convolutions run in ``compute_dtype`` (bfloat16 on the preset;
-    None = float32) and the head in float32.
+    None = float32) and the head in float32; ``dropout`` is the head's
+    rate in training.
     """
 
     def __init__(self, cfg, encoder: str = "pillar",
                  voxel_size: Tuple[float, float, float] = (0.2, 0.2, 8.0),
                  max_points: int = 20, max_voxels: int = 30000,
                  bev_hw: Tuple[int, int] = (512, 512),
-                 compute_dtype: Optional[str] = "bfloat16"):
+                 compute_dtype: Optional[str] = "bfloat16",
+                 dropout: float = 0.1):
         """cfg: a ``HeadConfig``."""
         super().__init__()
         if encoder != "pillar":
@@ -323,11 +338,13 @@ class ObjDGCNN(nn.Module):
         self.vfe = PillarFeatureNet(5, 64, voxel_size[:2], cfg.pc_range)
         self.backbone = SECOND(64)
         self.neck = BNFPN((64, 128, 256), cfg.embed_dims, cfg.num_levels)
-        self.head = DGCNN3DHead(cfg)
+        self.head = DGCNN3DHead(cfg, dropout=dropout)
 
     def bev_features(self, points, num_points):
         """Voxelize, encode and scatter: the FPN levels as float32
-        [B, H_l, W_l, E]."""
+        [B, H_l, W_l, E] (rounded to float32 as in JAX, then in the head's
+        dtype: a float64 model, as the CPU parity tests build, promotes
+        them as flax's ``Dense`` does)."""
         b = points.shape[0]
         voxels, coords, counts, nv = hard_voxelize(
             points, num_points, self.voxel_size, self.cfg.pc_range,
@@ -340,7 +357,8 @@ class ObjDGCNN(nn.Module):
         dt = getattr(torch, self.compute_dtype or "float32")
         x = canvas.to(dt).permute(0, 3, 1, 2)          # NCHW, channels last
         feats = self.neck(self.backbone(x))
-        return [f.permute(0, 2, 3, 1).float() for f in feats]
+        head_dt = self.head.level_embeds.dtype
+        return [f.permute(0, 2, 3, 1).float().to(head_dt) for f in feats]
 
     def forward(self, points, num_points):
         """points: [B, N_max, 5]; num_points: [B] → the head's dict."""

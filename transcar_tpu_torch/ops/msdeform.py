@@ -8,8 +8,9 @@ padding, through :func:`~transcar_tpu_torch.ops.sampling.bilinear_sample_nhwc`)
 and the samples are reduced with the softmaxed attention weights.
 
 This is the CPU path and the plain version of kernel K7
-(``ops/pallas_msdeform.py``); nothing on the main path runs it when a
-card is present.
+(``ops/pallas_msdeform.py``), and :func:`ms_deform_attn_backward` that of
+the backward kernels K8 and K9; nothing on the main path runs either when
+a card is present.
 """
 from __future__ import annotations
 
@@ -68,3 +69,35 @@ def ms_deform_attn_core(value: torch.Tensor,
         out = out + torch.einsum("bhqpd,bhqp->bqhd", sampled,
                                  wgt.to(sampled.dtype))
     return out.reshape(b, q, h * d)
+
+
+def ms_deform_attn_backward(value: torch.Tensor,
+                            spatial_shapes: Sequence[Tuple[int, int]],
+                            sampling_locations: torch.Tensor,
+                            attention_weights: torch.Tensor,
+                            d_out: torch.Tensor, query_chunk: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(d_value, d_loc, d_attn) of :func:`ms_deform_attn_core` for the
+    output gradient ``d_out`` [B, Q, H·D]: autograd of the plain version,
+    one chunk of ``query_chunk`` queries at a time (0: one pass), with
+    d_value accumulated over the chunks, so that at the encoder's
+    Q = 87 040 it holds one chunk's intermediates."""
+    q = sampling_locations.shape[1]
+    step = query_chunk if 0 < query_chunk < q else max(q, 1)
+    d_value = torch.zeros_like(value)
+    d_loc, d_attn = [], []
+    with torch.enable_grad():
+        v = value.detach().requires_grad_()
+        for s0 in range(0, q, step):
+            loc = sampling_locations[:, s0:s0 + step].detach()
+            wgt = attention_weights[:, s0:s0 + step].detach()
+            loc.requires_grad_()
+            wgt.requires_grad_()
+            out = ms_deform_attn_core(v, spatial_shapes, loc, wgt)
+            dv, dl, da = torch.autograd.grad(out, (v, loc, wgt),
+                                             d_out[:, s0:s0 + step])
+            d_value += dv
+            d_loc.append(dl)
+            d_attn.append(da)
+    return d_value, torch.cat(d_loc, 1), torch.cat(d_attn, 1)

@@ -1,5 +1,6 @@
-"""Multi-scale deformable attention kernel for Hopper
-(``csrc/msdeform_forward.cu``, K7).
+"""Multi-scale deformable attention kernels for Hopper: the forward
+(``csrc/msdeform_forward.cu``, K7) and the backward
+(``csrc/msdeform_backward.cu``, K8 and K9).
 
 Replaces ``transcar_tpu/ops/pallas_msdeform.py::_enc_pair`` (the Pallas
 TPU ``_enc_kernel``, reached through ``pallas_msdeform_encoder`` and
@@ -38,9 +39,48 @@ version's (one multiply, one subtract, no contraction), far-off
 locations contribute zero without forming an index, and a non-finite
 location gives NaN, as in the plain version.
 
-The kernel is forward-only (the backward kernels, K8 and K9, come with
-ObjDGCNN training): the wrapper refuses a call that autograd would have
-to differentiate.
+The backward is two kernels of ``csrc/msdeform_backward.cu``, one for
+each TPU kernel it replaces:
+
+  * K8 replaces ``_bwd_taps_pair`` (the Pallas ``_bwd_taps_kernel``):
+    d_attn and d_loc of every sample;
+  * K9 replaces ``_bwd_value_pair`` (the Pallas ``_bwd_value_kernel``):
+    d_value.
+
+Together they are the exact VJP of ``ms_deform_attn_core`` (its plain
+version is :func:`~transcar_tpu_torch.ops.msdeform.ms_deform_attn_backward`),
+for any offset, head count, head dim, query count and level shapes, as K7
+is.  The TPU ran them per (query level, value level) pair on a banded
+bfloat16 value window, with d_value as a one-hot matmul and the queries
+required to be the token grid, so it only ever differentiated the
+encoder; here one launch of each serves the encoder and the decoder.
+
+What bounds them on the H100: at an encoder call K8 must read the value,
+the locations, the weights and the output gradient (~312 MB) and write
+d_loc and d_attn (~134 MB), about 0.133 ms at 3.35 TB/s, against ~8.2
+GFLOP (0.122 ms at the float32 peak); K9 must read the locations, the
+weights and the gradient (~223 MB) and write d_value (89 MB), about 0.093
+ms.  Both are bound by bytes.  At a decoder call (300 queries) the taps
+are few and K9's bound is the 89 MB d_value alone, which the wrapper's
+zero-fill writes.  What they really meet is the gather (K8 reads the
+same ~5.7 GB of taps through L2 as K7) and the scatter: K9 makes
+87 040 × 8 × 16 × 4 × 32 ≈ 1.4 G float atomic adds through L2 per
+encoder call.
+
+What the design does about it: K7's layout, one warp per (batch, query,
+head) with lanes over the head's channels, so that each tap is one
+coalesced 128-byte read (K8) or one coalesced 128-byte atomic add (K9).
+K8 keeps three per-lane sums per sample (g·s, g·∂s/∂x, g·∂s/∂y), reduces
+them across the warp and writes d_attn and d_loc from one lane; K9 adds
+a·w_corner·g into d_value, which the wrapper zeroes.  The corner weights
+round as K7 and the plain version round them.  The atomics add in an
+order that changes from run to run, so d_value differs from the plain
+version by summation order only.
+
+:func:`ms_deform_attn` on a CUDA tensor always goes through
+:class:`MSDeformAttnFunction` (K7 forward, K8 and K9 backward), with or
+without autograd; on a CPU tensor it takes the plain version, which
+autograd differentiates.
 """
 from __future__ import annotations
 
@@ -51,10 +91,13 @@ import torch
 
 from transcar_tpu_torch.ops import kernel_lib
 from transcar_tpu_torch.ops.msdeform import level_starts, ms_deform_attn_core
-from transcar_tpu_torch.ops.pallas_osa import check_forward_only
 
 #: K7 launches since the count was last set to 0.
 launches = 0
+#: K8 (d_attn, d_loc) launches since the count was last set to 0.
+backward_taps_launches = 0
+#: K9 (d_value) launches since the count was last set to 0.
+backward_value_launches = 0
 
 MAX_LEVELS = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -67,32 +110,63 @@ def ms_deform_attn(value: torch.Tensor,
                    query_chunk: int = 0) -> torch.Tensor:
     """MSDeformAttn: value [B, S, H, D], sampling_locations
     [B, Q, H, L, P, 2] (x, y in [0, 1] per level), attention_weights
-    [B, Q, H, L, P] → [B, Q, H·D].
+    [B, Q, H, L, P] → [B, Q, H·D], differentiable in all three.
 
     A CPU tensor takes the plain version
     (:func:`~transcar_tpu_torch.ops.msdeform.ms_deform_attn_core`, whose
-    ``query_chunk`` bounds its intermediates); a CUDA tensor launches K7
-    or raises.
+    ``query_chunk`` bounds its intermediates) under autograd; a CUDA tensor
+    launches K7, and K8 and K9 in the backward, or raises.
     """
-    check_forward_only("ms_deform_attn", value, sampling_locations,
-                       attention_weights)
     if value.device.type == "cpu":
         return ms_deform_attn_core(value, spatial_shapes, sampling_locations,
                                    attention_weights, query_chunk)
-    return kernel(value, spatial_shapes, sampling_locations,
-                  attention_weights)
+    return MSDeformAttnFunction.apply(value, tuple(spatial_shapes),
+                                      sampling_locations, attention_weights)
 
 
-def kernel(value, spatial_shapes, sampling_locations, attention_weights):
-    """K7 on CUDA tensors (see :func:`ms_deform_attn`)."""
-    global launches
+class MSDeformAttnFunction(torch.autograd.Function):
+    """K7 forward; K8 (d_attn, d_loc) and K9 (d_value) backward, the
+    counterpart of the JAX package's custom VJP
+    ``pallas_msdeform_encoder_ad``.  Saves the value, the locations and the
+    weights, not the output."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        value, sampling_locations, attention_weights = (
+            t.contiguous() for t in (value, sampling_locations,
+                                     attention_weights))
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return kernel(value, spatial_shapes, sampling_locations,
+                      attention_weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        value, loc, wgt = ctx.saved_tensors
+        need_value, _, need_loc, need_wgt = ctx.needs_input_grad
+        d_value = d_loc = d_wgt = None
+        if need_loc or need_wgt:
+            d_loc, d_wgt = backward_taps_kernel(value, ctx.spatial_shapes,
+                                                loc, wgt, d_out)
+        if need_value:
+            d_value = backward_value_kernel(value, ctx.spatial_shapes, loc,
+                                            wgt, d_out)
+        return (d_value, None, d_loc if need_loc else None,
+                d_wgt if need_wgt else None)
+
+
+def _check(value, spatial_shapes, sampling_locations, attention_weights,
+           *more) -> None:
+    """Raise on what the kernels do not take."""
     b, s, h, d = value.shape
     q = sampling_locations.shape[1]
     l, p = len(spatial_shapes), sampling_locations.shape[4]
-    if not all(t.dtype == torch.float32 for t in
-               (value, sampling_locations, attention_weights)):
-        raise TypeError("ms_deform_attn kernel takes float32 value, "
-                        "locations and weights")
+    tensors = (value, sampling_locations, attention_weights, *more)
+    if not all(t.dtype == torch.float32 for t in tensors):
+        raise TypeError("ms_deform_attn kernels take float32 value, "
+                        "locations, weights and gradients")
     if sampling_locations.shape != (b, q, h, l, p, 2) or \
             attention_weights.shape != (b, q, h, l, p):
         raise ValueError(f"ms_deform_attn kernel: locations "
@@ -103,24 +177,90 @@ def kernel(value, spatial_shapes, sampling_locations, attention_weights):
                                              spatial_shapes):
         raise ValueError(f"ms_deform_attn kernel: {l} levels {spatial_shapes}"
                          f" (1..{MAX_LEVELS}) must tile S = {s} tokens")
-    if not all(t.is_cuda and t.device == value.device for t in
-               (value, sampling_locations, attention_weights)):
+    if any(t.shape != (b, q, h * d) for t in more):
+        raise ValueError(f"ms_deform_attn backward: d_out "
+                         f"{[tuple(t.shape) for t in more]} must be "
+                         f"[{b}, {q}, {h * d}]")
+    if not all(t.is_cuda and t.device == value.device for t in tensors):
         raise ValueError("ms_deform_attn kernel: all tensors must be on one "
                          "CUDA device")
-    value = value.contiguous()
-    sampling_locations = sampling_locations.contiguous()
-    attention_weights = attention_weights.contiguous()
+
+
+def _levels(spatial_shapes):
+    """The level table the C entry points take: heights, widths, starts."""
+    ints = _I * len(spatial_shapes)
+    return (ints(*[hl for hl, _ in spatial_shapes]),
+            ints(*[wl for _, wl in spatial_shapes]),
+            ints(*level_starts(spatial_shapes)))
+
+
+def _launch(name, argtypes, *args, device):
+    fn = kernel_lib.function(name, *argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    kernel_lib.check(rc, name)
+
+
+_SHAPE_ARGS = (_I,) * 7 + (_P,) * 4     # B S Q H D L P, 3 level tables, stream
+
+
+def kernel(value, spatial_shapes, sampling_locations, attention_weights):
+    """K7 on CUDA tensors (see :func:`ms_deform_attn`)."""
+    global launches
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, h, d = value.shape
+    q, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    value, loc, wgt = (t.contiguous() for t in
+                       (value, sampling_locations, attention_weights))
     out = torch.empty((b, q, h * d), dtype=torch.float32, device=value.device)
-    ints = _I * l
-    fn = kernel_lib.function("msdeform_forward_f32", _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _P, _P, _P, _P)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-                attention_weights.data_ptr(), out.data_ptr(), b, s, q, h, d,
-                l, p, ints(*[hl for hl, _ in spatial_shapes]),
-                ints(*[wl for _, wl in spatial_shapes]),
-                ints(*level_starts(spatial_shapes)), stream)
-    kernel_lib.check(rc, "msdeform_forward_f32")
+    _launch("msdeform_forward_f32", (_P,) * 4 + _SHAPE_ARGS,
+            value.data_ptr(), loc.data_ptr(), wgt.data_ptr(), out.data_ptr(),
+            b, s, q, h, d, len(spatial_shapes), p, *_levels(spatial_shapes),
+            device=value.device)
     launches += 1
     return out
+
+
+def backward_taps_kernel(value, spatial_shapes, sampling_locations,
+                         attention_weights, d_out):
+    """K8 on CUDA tensors: (d_loc [B, Q, H, L, P, 2], d_attn [B, Q, H, L,
+    P]) of :func:`ms_deform_attn` for the output gradient ``d_out`` [B, Q,
+    H·D], float32."""
+    global backward_taps_launches
+    _check(value, spatial_shapes, sampling_locations, attention_weights,
+           d_out)
+    b, s, h, d = value.shape
+    q, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    value, loc, wgt, d_out = (t.contiguous() for t in (
+        value, sampling_locations, attention_weights, d_out))
+    d_loc = torch.empty_like(loc)
+    d_attn = torch.empty_like(wgt)
+    _launch("msdeform_backward_taps_f32", (_P,) * 6 + _SHAPE_ARGS,
+            value.data_ptr(), loc.data_ptr(), wgt.data_ptr(),
+            d_out.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
+            b, s, q, h, d, len(spatial_shapes), p, *_levels(spatial_shapes),
+            device=value.device)
+    backward_taps_launches += 1
+    return d_loc, d_attn
+
+
+def backward_value_kernel(value, spatial_shapes, sampling_locations,
+                          attention_weights, d_out):
+    """K9 on CUDA tensors: d_value [B, S, H, D] of :func:`ms_deform_attn`
+    for the output gradient ``d_out`` [B, Q, H·D], float32 (``value``
+    gives the shape and device; its numbers are not read)."""
+    global backward_value_launches
+    _check(value, spatial_shapes, sampling_locations, attention_weights,
+           d_out)
+    b, s, h, d = value.shape
+    q, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    loc, wgt, d_out = (t.contiguous() for t in (
+        sampling_locations, attention_weights, d_out))
+    d_value = torch.zeros((b, s, h, d), dtype=torch.float32,
+                          device=value.device)
+    _launch("msdeform_backward_value_f32", (_P,) * 4 + _SHAPE_ARGS,
+            loc.data_ptr(), wgt.data_ptr(), d_out.data_ptr(),
+            d_value.data_ptr(), b, s, q, h, d, len(spatial_shapes), p,
+            *_levels(spatial_shapes), device=value.device)
+    backward_value_launches += 1
+    return d_value

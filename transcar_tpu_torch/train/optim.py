@@ -49,7 +49,9 @@ def make_labels(model: nn.Module, freeze_camera: bool,
     (ResNet) or ``stage2_`` .. ``stage{frozen_stages + 1}_`` (VoVNet) are
     frozen (mmdet ``frozen_stages``), as are backbone BN affines under
     ``norm_eval`` (here they are buffers), and the rest of the backbone
-    trains at the backbone lr.
+    trains at the backbone lr.  ObjDGCNN's pillar encoder (``vfe``) trains
+    at the backbone lr too; SECOND's ``block{s}_conv{i}`` names meet no
+    freeze rule.
     """
     def label(name: str) -> str:
         keys = name.split(".")
@@ -58,6 +60,10 @@ def make_labels(model: nn.Module, freeze_camera: bool,
             if top == "head" and keys[1].startswith(_FUSION_PREFIXES):
                 return "main"
             return "frozen"
+        if top == "vfe":
+            # ObjDGCNN: the pillar encoder shares the SECOND lr × 0.1
+            # group (pillar.py:286-291 custom_keys)
+            return "backbone"
         if top != "backbone":
             return "main"
         if norm_eval and any(k.startswith("bn") for k in keys[1:]):

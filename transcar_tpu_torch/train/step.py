@@ -50,8 +50,16 @@ def init_state(cfg, model: nn.Module, total_steps: int) -> TrainState:
 def compute_losses(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
-    """Forward and ``detr3d_loss`` of one batch (images [B, N, H, W, 3]
-    float32, lidar2img, radar_tokens, gt_boxes, gt_labels, num_gt)."""
+    """Forward and ``detr3d_loss`` of one batch: a camera batch (images
+    [B, N, H, W, 3] float32, lidar2img, radar_tokens) or, dispatched on
+    ``"points"`` as the JAX ``apply_model`` does, a LiDAR batch (points
+    [B, N_max, 5], num_points [B]); both with gt_boxes, gt_labels and
+    num_gt.  A LiDAR model in train mode updates its BatchNorm running
+    statistics in place (the JAX step returns them as ``new_stats``)."""
+    if "points" in batch:
+        preds = state.model(batch["points"], batch["num_points"])
+        return detr3d_loss(preds, batch["gt_boxes"], batch["gt_labels"],
+                           batch["num_gt"], state.cfg.model.head)
     if batch["images"].dtype == torch.uint8:
         raise NotImplementedError("the uint8 wire and photometric "
                                   "augmentation are not ported yet (the "
