@@ -4,6 +4,11 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+``--parent-csrc DIR`` also builds an earlier commit's kernel sources (for
+example ``git archive <commit> transcar_tpu_torch/csrc`` unpacked under
+the git-ignored ``transcar_tpu_torch/build/``) and times its K3 and K4 in
+turns with these (parent, kernel, kernel, parent) in phases 4 and 8.
+
 Phases, one line each (a failing phase raises and the script exits
 non-zero):
 
@@ -13,7 +18,8 @@ non-zero):
      shapes, bfloat16 and float32, offsets drawn over ±8 px;
   4. K3 (DCNv2 backward) against autograd of its plain version at both
      flagship DCN shapes, bfloat16 and float32, offsets over ±8 px, zero
-     and whole-pixel;
+     and whole-pixel, and in bfloat16 at the model's offset scale; its two
+     device kernels, (a) d_x + d_om and (b) d_W, timed apart;
   5. K2 (masked attention core) against its plain version at 900 × 1500,
      8 heads of 32, beside ``F.scaled_dot_product_attention``;
   6. the flagship slice through ``transcar_tpu_torch.cli.benchmark``:
@@ -32,9 +38,12 @@ non-zero):
      bottleneck) against their plain versions at every distinct flagship
      shape (the 7 VoVNet-99 block shapes, the 3 R101 stride-1 non-DCN
      bottleneck shapes), bfloat16 and float32; K4 beside a cuDNN 1×1
-     ``F.conv2d`` over the concatenation built beforehand;
+     ``F.conv2d`` over the concatenation built beforehand, every bfloat16
+     call on the Hopper (wgmma) tile and every float32 one on the wmma
+     tile of ``conv_tile.cuh``;
   9. the VoVNet-99 slice through ``benchmark transcar_vovnet_trainval``:
-     16 K4 + 3 K2 + 0 K1 launches per request, finite outputs and decode,
+     16 K4 + 3 K2 + 0 K1 launches per request, every K4 launch on the
+     wgmma tile, finite outputs and decode,
      float32 kernel path against plain path (one decoder layer),
      samples/s and peak memory of the kernel and the plain path in
      bfloat16;
@@ -67,7 +76,12 @@ non-zero):
      and no other kernel, finite losses, trainable elements and BN running
      statistics moved, ms/step and peak memory; then one float32 step
      with one decoder layer and dropout 0, kernel path against plain path
-     (gradients per leaf).
+     (gradients per leaf);
+ 17. no host sync: one warm batch-1 serving request of ``transcar_r101``
+     and of ``transcar_vovnet_trainval`` under
+     ``torch.cuda.set_sync_debug_mode("error")``, after a positive control
+     (a pageable host-to-device copy must raise), and the same reported
+     for ``objdgcnn_pillar``.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA the
@@ -75,8 +89,11 @@ script raises.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import pathlib
+import re
 import subprocess
 import time
 
@@ -95,6 +112,8 @@ DCN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # (a few bf16 ulps); in float32 the two differ by summation order, and
 # the d_x / d_W atomics change that order from run to run
 DCN_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the spread of the "model" K3 offsets, px (see dcn_backward_case)
+MODEL_OFFSET_PX = 2.0
 # Published dense peaks of one H100 SXM at 700 W (FLOP/s) and its memory
 # rate (bytes/s), for the bound of each kernel's work
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -224,12 +243,65 @@ def phase_build() -> None:
     so = kernel_lib.build()
     kernel_lib.library()
     dt = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
     print(f"build: {so.relative_to(kernel_lib.PACKAGE.parent)} from "
-          f"{sorted(p.name for p in kernel_lib.CSRC.glob('*.cu'))} in "
-          f"{dt:.1f} s ({'compiled' if fresh else 'cached'}); ptxas: "
-          + " | ".join(ptxas))
+          f"{sorted(p.name for p in kernel_lib.CSRC.glob('*.cu*'))} in "
+          f"{dt:.1f} s ({'compiled' if fresh else 'cached'}); ptxas -v: "
+          + " | ".join(ptxas_lines(so.with_suffix(".log").read_text())))
+
+
+def _mangled_names(mangled: str) -> list:
+    """The length-prefixed identifiers of an Itanium-mangled name."""
+    names, i = [], 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            i += 1
+            continue
+        n, i = int(m.group()), i + m.end()
+        names.append(mangled[i:i + n])
+        i += n
+    return names
+
+
+def ptxas_lines(log: str) -> list:
+    """One entry per kernel of ``nvcc -Xptxas -v`` output: its name (with
+    its integer template arguments), registers, shared memory and
+    spills."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            base = [seg for seg in _mangled_names(mangled)
+                    if seg.endswith("kernel")]
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            kind = ("bf16" if "bfloat16" in mangled else
+                    "f32" if re.search(r"[IE]f[LE]", mangled) else "")
+            name = ((base[-1] if base else mangled)
+                    + (f"<{','.join(args + ([kind] if kind else []))}>"
+                       if args or kind else ""))
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            used = ln.split("Used", 1)[1].split(", ")
+            keep = [u.strip() for u in used if "cmem" not in u]
+            out.append(f"{name}: {', '.join(keep)}; {spill}")
+    return out
+
+
+def parent_library(csrc: str):
+    """The kernel library built from an earlier commit's ``csrc`` (for
+    example ``git archive <parent> transcar_tpu_torch/csrc`` unpacked
+    under the git-ignored ``transcar_tpu_torch/build/``), to time its
+    kernels beside these in the same run."""
+    from transcar_tpu_torch.ops import kernel_lib
+
+    t0 = time.perf_counter()
+    so = kernel_lib.build(pathlib.Path(csrc).resolve(),
+                          kernel_lib.BUILD_DIR / "parent")
+    print(f"build parent: {so.name} from {csrc} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ctypes.CDLL(str(so))
 
 
 def phase_k1() -> dict:
@@ -286,7 +358,9 @@ def dcn_backward_case(g, n, h, w, cin, cout, dtype, offsets: str):
     weight parameter and d_out.  ``offsets``: "pm8" draws Δy, Δx over
     ±8 px, "zero" puts every tap on its integer grid position (the mmcv
     init; border taps then sit at py = -1 and py = H), "integer" draws
-    whole-pixel offsets in [-3, 3]."""
+    whole-pixel offsets in [-3, 3], "model" draws N(0, MODEL_OFFSET_PX²),
+    the scale of the benchmark's random DCN offsets (mean |offset| 0.7-3
+    px, ``cli/benchmark.py``)."""
     dev = "cuda"
     x = torch.randn(n, h, w, cin, device=dev, generator=g).to(dtype)
     om = torch.randn(n, h, w, 27, device=dev, generator=g)
@@ -294,6 +368,9 @@ def dcn_backward_case(g, n, h, w, cin, cout, dtype, offsets: str):
         om[..., :18] = torch.rand(n, h, w, 18, device=dev, generator=g) * 16 - 8
     elif offsets == "zero":
         om[..., :18] = 0.0
+    elif offsets == "model":
+        om[..., :18] = torch.randn(n, h, w, 18, device=dev,
+                                   generator=g) * MODEL_OFFSET_PX
     else:
         om[..., :18] = torch.randint(-3, 4, (n, h, w, 18), device=dev,
                                      generator=g).float()
@@ -322,15 +399,63 @@ def dcn_backward_errors(x, om, wt, d_out):
     return rels, worst
 
 
-def phase_k3() -> dict:
+def k3_parts_ms(x, om, wt, d_out) -> tuple:
+    """Device ms of K3's two kernels apart: (a) d_x and d_om, (b) d_W,
+    each with the zero-fill of its float32 output."""
+    from transcar_tpu_torch.ops import pallas_dcn
+
+    n, h, w, cin = x.shape
+    w_t = wt.to(x.dtype).contiguous()
+    d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device="cuda")
+    d_om = torch.empty_like(om)
+    d_w = torch.zeros((9 * cin, wt.shape[-1]), dtype=torch.float32,
+                      device="cuda")
+
+    def data():
+        d_x.zero_()
+        pallas_dcn.backward_data(x, om, w_t, d_out, d_x, d_om)
+
+    def weight():
+        d_w.zero_()
+        pallas_dcn.backward_weight(x, om, d_out, d_w)
+    return cuda_ms(data), cuda_ms(weight)
+
+
+def parent_dcn_backward(lib, x, om, wt, d_out):
+    """The parent commit's K3 (one C entry for both kernels), with its
+    wrapper's preparation: ``lib.dcn_backward_bf16``."""
+    n, h, w, cin = x.shape
+    cout = wt.shape[-1]
+    w_t = wt.to(x.dtype).contiguous()
+    d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device="cuda")
+    d_om = torch.empty_like(om)
+    d_w = torch.zeros((9 * cin, cout), dtype=torch.float32, device="cuda")
+    fn = lib.dcn_backward_bf16
+    rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (x, om, w_t, d_out,
+                                                       d_x, d_om, d_w)),
+            n, h, w, cin, cout,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"parent dcn_backward_bf16: CUDA error {rc}")
+    return d_x.to(x.dtype), d_om, d_w.reshape(3, 3, cin, cout)
+
+
+def phase_k3(parent=None) -> dict:
+    """K3 against its plain version; per detr3d_r101 step (23 + 3
+    launches) in bfloat16, with its two kernels timed apart, and beside
+    the parent commit's K3 (``parent``: its kernel library) when given."""
     from transcar_tpu_torch.ops import pallas_dcn
 
     g = torch.Generator(device="cuda").manual_seed(3)
     result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "bound_by": "operations", "library_ms": None}
+    per_step = {"data": 0.0, "weight": 0.0, "model": 0.0, "parent": 0.0,
+                "parent_model": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for n, h, w, cin, cout, per_step in FLAGSHIP_DCN:
-            for offsets in ("pm8", "zero", "integer"):
+        for n, h, w, cin, cout, launches in FLAGSHIP_DCN:
+            cases = ("pm8", "zero", "integer") + (
+                ("model",) if dtype == torch.bfloat16 else ())
+            for offsets in cases:
                 x, om, wt, d_out = dcn_backward_case(g, n, h, w, cin, cout,
                                                      dtype, offsets)
                 rels, err = dcn_backward_errors(x, om, wt, d_out)
@@ -341,27 +466,55 @@ def phase_k3() -> dict:
                         f"max_rel_err {rels[0]:.3e} / {rels[1]:.3e} / "
                         f"{rels[2]:.3e} (tol {DCN_BWD_TOL[dtype]:.0e} of "
                         f"max|plain|)")
-                if offsets == "pm8":
-                    ms = cuda_ms(lambda: pallas_dcn.backward_kernel(
-                        x, om, wt, d_out))
-                    plain_ms = cuda_ms(lambda: pallas_dcn.plain_backward(
-                        x, om, wt, d_out), iters=5, warmup=1)
-                    line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                timed = offsets == "pm8" or offsets == "model"
+                if timed:
+                    kern = lambda: pallas_dcn.backward_kernel(x, om, wt, d_out)
+                    old = (lambda: parent_dcn_backward(parent, x, om, wt,
+                                                       d_out))
+                    if parent is not None and dtype == torch.bfloat16:
+                        # in turns: parent, kernel, kernel, parent
+                        turns = [cuda_ms(f) for f in (old, kern, kern, old)]
+                        ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
+                        line += (f"; parent K3 {turns[0]:.3f} / "
+                                 f"{turns[3]:.3f} ms, kernel {turns[1]:.3f}"
+                                 f" / {turns[2]:.3f} ms")
+                    else:
+                        ms, old_ms = cuda_ms(kern), 0.0
+                        line += f"; kernel {ms:.3f} ms"
+                    if offsets == "pm8":
+                        plain_ms = cuda_ms(lambda: pallas_dcn.plain_backward(
+                            x, om, wt, d_out), iters=5, warmup=1)
+                        line += f", plain {plain_ms:.3f} ms"
                     if dtype == torch.bfloat16:
+                        a_ms, b_ms = k3_parts_ms(x, om, wt, d_out)
+                        line += (f"; (a) d_x + d_om {a_ms:.3f} ms, (b) d_W "
+                                 f"{b_ms:.3f} ms")
+                    if dtype == torch.bfloat16 and offsets == "pm8":
                         result["max_abs_err"] = max(result["max_abs_err"], err)
-                        result["ms"] += per_step * ms
-                        result["plain_ms"] += per_step * plain_ms
-                        result["bound_ms"] += per_step * dcn_bound_ms(
+                        result["ms"] += launches * ms
+                        result["plain_ms"] += launches * plain_ms
+                        result["bound_ms"] += launches * dcn_bound_ms(
                             x, om, wt, d_out, backward=True)
+                        per_step["data"] += launches * a_ms
+                        per_step["weight"] += launches * b_ms
+                        per_step["parent"] += launches * old_ms
+                    elif dtype == torch.bfloat16:
+                        per_step["model"] += launches * ms
+                        per_step["parent_model"] += launches * old_ms
                 print(line + (" ok" if ok else " FAIL"))
                 if not ok:
                     raise AssertionError(f"K3 {dtype} {offsets} disagrees "
                                          f"with its plain version: {rels}")
                 del x, om, wt, d_out
     print(f"K3 per detr3d_r101 train step on the bfloat16 path (23 + 3 "
-          f"launches): kernel {result['ms']:.3f} ms, plain "
-          f"{result['plain_ms']:.3f} ms, bound {result['bound_ms']:.3f} ms "
-          f"(no single PyTorch call computes the DCNv2 backward)")
+          f"launches), offsets pm8: kernel {result['ms']:.3f} ms ((a) "
+          f"{per_step['data']:.3f} + (b) {per_step['weight']:.3f}), plain "
+          f"{result['plain_ms']:.3f} ms, bound {result['bound_ms']:.3f} ms"
+          + (f", parent K3 {per_step['parent']:.3f} ms (kernel / parent "
+             f"{result['ms'] / per_step['parent']:.3f})" if parent else "")
+          + f"; offsets at the model's scale: kernel {per_step['model']:.3f}"
+          + (f" ms, parent {per_step['parent_model']:.3f}" if parent else "")
+          + " ms (no single PyTorch call computes the DCNv2 backward)")
     return result
 
 
@@ -460,6 +613,64 @@ def phase_slice(smi: str) -> dict:
     print(f"slice bf16 plain path: {plain_rec['samples_per_sec']:.3f} "
           f"samples/s ({plain_rec['ms_per_sample']:.2f} ms/sample) on {smi}")
     return {k: rec["kernel_launches"][k] for k in per_req}
+
+
+def _sync_check_armed() -> None:
+    """Positive control of the sync check: in PyTorch's sync debug mode
+    "error", a pageable host-to-device copy must raise on this card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.tensor([1.0], device="cuda")
+    except RuntimeError:
+        return
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    raise AssertionError("torch.cuda.set_sync_debug_mode('error') did not "
+                         "flag a pageable host-to-device copy")
+
+
+def warm_request_syncs(preset: str) -> list:
+    """One warm batch-1 serving request of ``preset`` at full width under
+    ``torch.cuda.set_sync_debug_mode("error")``; the host synchronization
+    it made, if any."""
+    from transcar_tpu_torch.cli import benchmark
+
+    args = benchmark.parse_args([preset])
+    _, model, batch, _ = benchmark._setup(args, training=False)
+    inputs = ([batch["points"], batch["num_points"]] if "points" in batch
+              else [batch["images"], batch["lidar2img"],
+                    batch.get("radar_tokens")])
+    found = []
+    with torch.inference_mode():
+        model(*inputs)                                   # warmup
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model(*inputs)
+        except RuntimeError as e:
+            found.append(str(e).splitlines()[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    del model, batch, inputs
+    torch.cuda.empty_cache()
+    return found
+
+
+def phase_sync() -> None:
+    """No host sync in a warm camera serving request (``transcar_r101``,
+    ``transcar_vovnet_trainval``); ``objdgcnn_pillar`` is reported."""
+    _sync_check_armed()
+    for preset in ("transcar_r101", "transcar_vovnet_trainval",
+                   "objdgcnn_pillar"):
+        found = warm_request_syncs(preset)
+        print(f"sync check (set_sync_debug_mode, armed) {preset} warm bs1 "
+              f"request: "
+              + ("no host sync ok" if not found else f"host syncs {found}")
+              + (" (reported only)" if preset == "objdgcnn_pillar" else ""))
+        if found and preset != "objdgcnn_pillar":
+            raise AssertionError(f"{preset}: a serving request synchronized "
+                                 f"with the host: {found}")
 
 
 def _initial_state(preset: str, cfg_options=()) -> tuple:
@@ -629,43 +840,86 @@ def _kernel_result() -> dict:
             "bound_by": "operations", "library_ms": None}
 
 
-def phase_k4() -> dict:
+def parent_osa_reduce(lib, pieces, ws, s, b):
+    """The parent commit's K4 (its wmma tile) with its wrapper's
+    preparation: ``lib.osa_reduce_bf16`` on contiguous [Cᵢ, Cout]
+    weights."""
+    n, h, w, _ = pieces[0].shape
+    cout, k = ws[0].shape[-1], len(pieces)
+    ws = [wi.contiguous() for wi in ws]
+    out = torch.empty((n, h, w, cout), dtype=pieces[0].dtype, device="cuda")
+    sums = torch.zeros((n, cout), dtype=torch.float32, device="cuda")
+    ptrs = ctypes.c_void_p * k
+    rc = lib.osa_reduce_bf16(
+        k, ptrs(*[p.data_ptr() for p in pieces]),
+        ptrs(*[wi.data_ptr() for wi in ws]),
+        (ctypes.c_int * k)(*[p.shape[-1] for p in pieces]),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (s, b, out, sums)),
+        n, h, w, cout, 1,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"parent osa_reduce_bf16: CUDA error {rc}")
+    return out, sums
+
+
+def phase_k4(parent=None) -> dict:
     """K4 at the 7 VoVNet-99 block shapes; per request (16 launches) in
-    bfloat16 beside one cuDNN 1×1 convolution over the concatenation."""
+    bfloat16 beside one cuDNN 1×1 convolution over the concatenation, and
+    beside the parent commit's K4 (``parent``: its kernel library) when
+    given.  The bfloat16 weights are the K-major views the model caches
+    (``pallas_osa.kmajor_weights``)."""
     from transcar_tpu_torch.ops import pallas_osa
 
     g = torch.Generator(device="cuda").manual_seed(4)
     res = _kernel_result()
     res["library_ms"] = 0.0
+    parent_ms = 0.0
     bound_kinds = set()
     for dtype in (torch.bfloat16, torch.float32):
         for h, w, c0, ch, cout, per_req in VOV_BLOCKS:
             n, widths = 6, [c0] + [ch] * 5
             pieces = [torch.randn(n, h, w, c, device="cuda", generator=g)
                       .to(dtype) for c in widths]
-            ws = [(torch.randn(c, cout, device="cuda", generator=g)
-                   / math.sqrt(sum(widths))).to(dtype) for c in widths]
+            w_all = (torch.randn(cout, sum(widths), device="cuda",
+                                 generator=g) / math.sqrt(sum(widths)))
+            ws = pallas_osa.kmajor_weights(w_all, widths, dtype)
             s, b = _affine(g, cout)
+            before = pallas_osa.wgmma_launches
             out, sums = pallas_osa.osa_reduce(pieces, ws, s, b)
+            took = pallas_osa.wgmma_launches - before
             ref, ref_sums = pallas_osa.plain_osa_reduce(pieces, ws, s, b)
             torch.cuda.synchronize()
             err, rel = _rel_err(out, ref)
             _, srel = _rel_err(sums, ref_sums)
+            want_tile = int(dtype == torch.bfloat16)
             ok = (math.isfinite(rel) and rel <= CONV_TOL[dtype]
-                  and srel <= SUMS_TOL)
+                  and srel <= SUMS_TOL and took == want_tile)
             line = (f"K4 osa_reduce {str(dtype)[6:]} 6x{h}x{w} "
-                    f"sum(C)={sum(widths)}->{cout}: max_abs_err {err:.3e} "
-                    f"max_rel_err {rel:.3e} (tol {CONV_TOL[dtype]:.0e}), "
-                    f"sums rel err {srel:.3e} (tol {SUMS_TOL:.0e})")
+                    f"sum(C)={sum(widths)}->{cout} "
+                    f"({'wgmma tile' if took else 'wmma tile'}): "
+                    f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
+                    f"{CONV_TOL[dtype]:.0e}), sums rel err {srel:.3e} (tol "
+                    f"{SUMS_TOL:.0e})")
             if dtype == torch.bfloat16:         # the main path's dtype
                 del ref, ref_sums
-                ms = cuda_ms(lambda: pallas_osa.osa_reduce(pieces, ws, s, b))
+                kern = lambda: pallas_osa.osa_reduce(pieces, ws, s, b)
+                if parent is not None:
+                    wc = [wi.contiguous() for wi in ws]
+                    old = lambda: parent_osa_reduce(parent, pieces, wc, s, b)
+                    turns = [cuda_ms(f) for f in (old, kern, kern, old)]
+                    ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
+                    parent_ms += per_req * old_ms
+                    line += (f"; parent K4 {turns[0]:.3f} / {turns[3]:.3f} "
+                             f"ms, kernel {turns[1]:.3f} / {turns[2]:.3f} ms")
+                else:
+                    ms = cuda_ms(kern)
+                    line += f"; kernel {ms:.3f} ms"
                 plain_ms = cuda_ms(lambda: pallas_osa.plain_osa_reduce(
                     pieces, ws, s, b), iters=5, warmup=1)
                 # the library yardstick: one cuDNN 1×1 conv over the
                 # concatenation, built beforehand and not timed
                 xcat = torch.cat(pieces, -1).permute(0, 3, 1, 2)
-                wcat = torch.cat(ws, 0).t()[:, :, None, None].contiguous(
+                wcat = w_all.to(dtype)[:, :, None, None].contiguous(
                     memory_format=torch.channels_last)
                 lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xcat,
                                                                     wcat))
@@ -679,18 +933,24 @@ def phase_k4() -> dict:
                 res["plain_ms"] += per_req * plain_ms
                 res["library_ms"] += per_req * lib_ms
                 res["bound_ms"] += per_req * bound
-                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                         f"cuDNN 1x1 conv over the concatenation "
-                         f"{lib_ms:.3f} ms, bound {bound:.3f} ms by {kind}")
+                line += (f", plain {plain_ms:.3f} ms, cuDNN 1x1 conv over "
+                         f"the concatenation {lib_ms:.3f} ms, bound "
+                         f"{bound:.3f} ms by {kind} (kernel at "
+                         f"{bound / ms:.0%} of it)")
             print(line + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"K4 {dtype} 6x{h}x{w} disagrees with "
-                                     f"its plain version: {rel}, sums {srel}")
+                                     f"its plain version ({rel}, sums {srel})"
+                                     f" or took the wrong tile ({took})")
             del pieces, ws, out, sums
     res["bound_by"] = "operations" if "operations" in bound_kinds else "bytes"
     print(f"K4 per request on the bfloat16 path (16 launches): kernel "
           f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, cuDNN 1x1 "
-          f"conv {res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms")
+          f"conv {res['library_ms']:.3f} ms (kernel / cuDNN "
+          f"{res['ms'] / res['library_ms']:.3f}), bound {res['bound_ms']:.3f}"
+          f" ms ({res['bound_ms'] / res['ms']:.0%} of it)"
+          + (f", parent K4 {parent_ms:.3f} ms (kernel / parent "
+             f"{res['ms'] / parent_ms:.3f})" if parent is not None else ""))
     return res
 
 
@@ -822,6 +1082,7 @@ def _zero_counts() -> None:
 
     pallas_dcn.launches = pallas_dcn.backward_launches = 0
     pallas_attention.launches = pallas_osa.launches = 0
+    pallas_osa.wgmma_launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
     pallas_msdeform.launches = 0
     pallas_msdeform.backward_taps_launches = 0
@@ -873,14 +1134,18 @@ def phase_vovnet_slice(smi: str) -> dict:
     per_req = {"osa_reduce": sum(V99_SPEC["block_per_stage"]),       # 16
                "masked_attention": cfg.model.head.num_fusion_layers,   # 3
                "dcn_forward": 0}
+    from transcar_tpu_torch.ops import pallas_osa
+
     _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
     got = {k: rec["kernel_launches"][k] for k in per_req}
     want = {k: v * rec["requests"] for k, v in per_req.items()}
+    wgmma = pallas_osa.wgmma_launches
     valid = _check_outputs("vovnet slice", out, cfg)
     print(f"vovnet slice {preset} 6x928x1600 bs1 (V-99-eSE bf16 backbone, "
           f"FPN from stage 2, fp32 head): {rec['requests']} requests, "
-          f"launches {got} (want {want}); outputs finite; decode {valid}/300 "
+          f"launches {got} (want {want}), K4 on the wgmma tile {wgmma} of "
+          f"{got['osa_reduce']}; outputs finite; decode {valid}/300 "
           f"valid boxes; DCN audit {rec['dcn_taps_past_5px']} (no DCN); "
           f"fusion keeps {rec['fusion_keep_share']:.3e} of (query, token) "
           f"pairs")
@@ -888,6 +1153,9 @@ def phase_vovnet_slice(smi: str) -> dict:
                           if k not in per_req):
         raise AssertionError(f"vovnet slice launches {rec['kernel_launches']}"
                              f" != {want}")
+    if wgmma != got["osa_reduce"]:
+        raise AssertionError(f"vovnet slice: {got['osa_reduce'] - wgmma} K4 "
+                             "launches missed the wgmma tile")
     plain = ["model.backbone.osa_reduce_impl=xla",
              "model.head.use_pallas_attention=false"]
     worst = _fp32_vs_plain(preset, [], plain)
@@ -1392,17 +1660,26 @@ def phase_pillar_train_check() -> None:
                              "with the plain path")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", default=None,
+                    help="an earlier commit's transcar_tpu_torch/csrc: build "
+                         "it too and time its K3 and K4 in turns with "
+                         "these (phases K3, K4)")
+    args = ap.parse_args(argv)
     smi = phase_device()
     phase_build()
+    parent = parent_library(args.parent_csrc) if args.parent_csrc else None
     k1 = phase_k1()
-    k3 = phase_k3()
+    k3 = phase_k3(parent)
     k2 = phase_k2()
     launches = phase_slice(smi)
     train = phase_train(smi)
     phase_train_check()
     launches["dcn_backward"] = train["detr3d_r101"]["launches"][1]
-    k4 = phase_k4()
+    k4 = phase_k4(parent)
     k5 = phase_k5()
     k6 = phase_k6()
     launches["osa_reduce"] = phase_vovnet_slice(smi)["osa_reduce"]
@@ -1414,6 +1691,7 @@ def main() -> None:
     k8, k9 = phase_k8_k9()
     train_launches = phase_pillar_train(smi)
     phase_pillar_train_check()
+    phase_sync()
     for name in ("msdeform_backward_taps", "msdeform_backward_value"):
         launches[name] = train_launches[name]
     kernels = []

@@ -96,6 +96,23 @@ def test_dcn_backward_kernel(dev, dtype, tol, cin, cout, offsets):
         assert err <= tol * b.float().abs().max(), (name, err.item())
 
 
+# the bfloat16 Hopper kernels at a flagship width: Cin = Cout = 256 on a
+# small map (several 128-pixel bands, the last one ragged); "zero" keeps
+# every corner within a pixel of its tap, "pm8" sends them up to 9 px away
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("offsets", ["zero", "pm8"])
+def test_dcn_backward_kernel_flagship_width(dev, dtype, tol, offsets):
+    x, om, wt, d_out = _dcn_bwd_case(dev, 2, 9, 17, 256, 256, dtype, offsets)
+    got = pallas_dcn.backward_kernel(x, om, wt, d_out)
+    ref = pallas_dcn.plain_backward(x, om, wt, d_out)
+    for name, a, b in zip(("d_x", "d_om", "d_w"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max()
+        assert err <= tol * b.float().abs().max(), (name, err.item())
+
+
 def test_dcn_autograd_function(dev):
     # the wrapper's autograd: K1 forward and K3 backward, the float32
     # weight's gradient in float32, d_x in the NHWC view's layout
@@ -176,6 +193,48 @@ def test_osa_reduce_kernel(dev, dtype, n, h, w, widths, cout, relu):
     ref, ref_sums = pallas_osa.plain_osa_reduce(pieces, ws, s, b, relu=relu)
     assert pallas_osa.launches == before + 1
     _close(out, ref, CONV_TOL[dtype])
+    _close(sums, ref_sums, SUMS_TOL)
+
+
+# VoVNet widths on small maps: several 128-pixel tiles per image with the
+# image edge inside the last one, 160- and 224-wide pieces (no multiple of
+# the 64-wide K slice), Cout of one and of two 256-wide tiles; bfloat16
+# takes the wgmma tile, with the model's K-major weights or contiguous ones
+@pytest.mark.parametrize("n,h,w,widths,cout", [
+    (2, 13, 21, [128, 160, 160, 160], 256),
+    (1, 17, 19, [256, 224, 224], 512),
+    (3, 9, 10, [64, 40, 40], 136),
+])
+@pytest.mark.parametrize("kmajor", [True, False])
+def test_osa_reduce_wgmma_tile(dev, n, h, w, widths, cout, kmajor):
+    g = torch.Generator(device=dev).manual_seed(5)
+    pieces = [torch.randn(n, h, w, c, device=dev, generator=g)
+              .to(torch.bfloat16) for c in widths]
+    w_all = torch.randn(cout, sum(widths), device=dev,
+                        generator=g) / sum(widths) ** 0.5
+    ws = (pallas_osa.kmajor_weights(w_all, widths, torch.bfloat16) if kmajor
+          else list(torch.split(w_all.t().contiguous(), widths, 0)))
+    s, b = _aff(g, cout, dev)
+    before = (pallas_osa.launches, pallas_osa.wgmma_launches)
+    out, sums = pallas_osa.osa_reduce(pieces, ws, s, b)
+    ref, ref_sums = pallas_osa.plain_osa_reduce(pieces, ws, s, b)
+    assert (pallas_osa.launches, pallas_osa.wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(out, ref, CONV_TOL[torch.bfloat16])
+    _close(sums, ref_sums, SUMS_TOL)
+
+
+def test_osa_reduce_odd_widths_take_the_wmma_tile(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    pieces = [torch.randn(1, 7, 11, c, device=dev, generator=g)
+              .to(torch.bfloat16) for c in (32, 13)]
+    ws = [torch.randn(c, 72, device=dev, generator=g) for c in (32, 13)]
+    s, b = _aff(g, 72, dev)
+    before = pallas_osa.wgmma_launches
+    out, sums = pallas_osa.osa_reduce(pieces, ws, s, b)
+    ref, ref_sums = pallas_osa.plain_osa_reduce(pieces, ws, s, b)
+    assert pallas_osa.wgmma_launches == before
+    _close(out, ref, CONV_TOL[torch.bfloat16])
     _close(sums, ref_sums, SUMS_TOL)
 
 

@@ -218,7 +218,7 @@ KERNEL_GROUPS = (
     ("K1 dcn_forward", ("dcn_forward_kernel",)),
     ("K3 dcn_backward", ("dcn_bwd_",)),
     ("K2 masked_attention", ("masked_attention",)),
-    ("K4 osa_reduce", ("conv_gemm_kernel<4,",)),
+    ("K4 osa_reduce", ("osa_reduce_wgmma", "conv_gemm_kernel<4,")),
     ("K5 osa_block", ("conv_gemm_kernel<5,",)),
     ("K6 bottleneck", ("conv_gemm_kernel<6,",)),
     ("K7 msdeform_forward", ("msdeform_forward_kernel",)),

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from transcar_tpu_torch.core.device import const
+
 
 def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
     """Encode ``(cx, cy, cz, w, l, h, yaw[, vx, vy])`` into the regression
@@ -39,8 +41,6 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def denorm_points(points01: torch.Tensor, pc_range) -> torch.Tensor:
     """Map [0, 1]-normalized xyz into metric ``pc_range`` space."""
-    lo = torch.tensor(pc_range[:3], dtype=points01.dtype,
-                      device=points01.device)
-    hi = torch.tensor(pc_range[3:], dtype=points01.dtype,
-                      device=points01.device)
+    lo = const(pc_range[:3], points01.device, points01.dtype)
+    hi = const(pc_range[3:], points01.device, points01.dtype)
     return points01 * (hi - lo) + lo

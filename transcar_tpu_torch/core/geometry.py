@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from transcar_tpu_torch.core.device import const
+
 
 def project_points_to_cams(points_m: torch.Tensor, lidar2img: torch.Tensor,
                            img_hw, eps: float = 1e-5):
@@ -25,7 +27,7 @@ def project_points_to_cams(points_m: torch.Tensor, lidar2img: torch.Tensor,
     depth = cam_pts[..., 2:3]
     mask = depth[..., 0] > eps
     uv = cam_pts[..., 0:2] / depth.clamp(min=eps)
-    uv01 = uv / torch.tensor([w, h], dtype=uv.dtype, device=uv.device)
+    uv01 = uv / const([w, h], uv.device, uv.dtype)
     grid = (uv01 - 0.5) * 2.0
     inside = ((grid[..., 0] > -1.0) & (grid[..., 0] < 1.0)
               & (grid[..., 1] > -1.0) & (grid[..., 1] < 1.0))

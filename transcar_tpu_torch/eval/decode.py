@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 
 from transcar_tpu_torch.core.boxes import denormalize_bbox
+from transcar_tpu_torch.core.device import const
 
 
 def nms_free_decode(preds: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
@@ -30,8 +31,7 @@ def nms_free_decode(preds: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tens
         bbox_preds, 1, (idx // nc)[..., None].expand(-1, -1,
                                                      bbox_preds.shape[-1]))
     boxes = denormalize_bbox(box_codes)                # gravity-center z
-    pcr = torch.tensor(cfg.post_center_range, dtype=boxes.dtype,
-                       device=boxes.device)
+    pcr = const(cfg.post_center_range, boxes.device, boxes.dtype)
     centers = boxes[..., :3]
     valid = (centers >= pcr[:3]).all(-1) & (centers <= pcr[3:]).all(-1)
     if cfg.score_threshold is not None:

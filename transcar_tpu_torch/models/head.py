@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transcar_tpu_torch.core.boxes import inverse_sigmoid
+from transcar_tpu_torch.core.device import const
 from transcar_tpu_torch.models.common import LN_EPS, MLP, TorchMHA
 from transcar_tpu_torch.models.detr3d import Detr3DDecoderLayer
 
@@ -62,9 +63,8 @@ class TransCARHead(nn.Module):
                 setattr(self, f"final_reg{i}", MLP(e, (e, e, c.code_size)))
 
     def _range(self, device):
-        lo = torch.tensor(self.cfg.pc_range[:3], device=device)
-        hi = torch.tensor(self.cfg.pc_range[3:], device=device)
-        return lo, hi
+        return (const(self.cfg.pc_range[:3], device),
+                const(self.cfg.pc_range[3:], device))
 
     def forward(self, mlvl_feats, lidar2img, img_hw, radar_tokens=None,
                 stop_camera_grad: bool = False):

@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from transcar_tpu_torch.models.common import Conv2d, ConvBN
-from transcar_tpu_torch.ops.pallas_osa import osa_reduce
+from transcar_tpu_torch.ops.pallas_osa import kmajor_weights, osa_reduce
 from transcar_tpu_torch.ops.pallas_osa_block import osa_block_fused
 
 V99_SPEC = dict(
@@ -95,6 +95,20 @@ class OSABlock(nn.Module):
             cin = stage_ch
         self.concat = ConvBN(sum(self.widths), concat_ch, 1)
         self.ese = (eSE if reduce_impl == "xla" else _eSEGate)(concat_ch)
+        self._kmajor_key, self._kmajor = None, None
+
+    def _reduce_kmajor(self, dtype) -> list:
+        """K4's weights: K-major [Cᵢ, Cout] views in ``dtype``
+        (:func:`kmajor_weights`), cached and rebuilt when the parameter
+        changes (in place, which bumps its ``_version``, or moved or
+        replaced)."""
+        w = self.concat.conv.weight
+        key = (id(w), w._version, w.data_ptr(), w.device, dtype)
+        if self._kmajor_key != key:
+            with torch.no_grad():
+                self._kmajor = kmajor_weights(w, self.widths, dtype)
+            self._kmajor_key = key
+        return self._kmajor
 
     def _reduce_splits(self, dtype) -> list:
         """The 1×1 reduce kernel as [Cᵢ, Cout] row blocks, one per piece."""
@@ -117,7 +131,7 @@ class OSABlock(nn.Module):
                 x = self.ese(self.concat(torch.cat(outputs, 1)))
                 return x + identity if self.identity else x
             out, sums = osa_reduce([_nhwc(o) for o in outputs],
-                                   self._reduce_splits(x.dtype),
+                                   self._reduce_kmajor(x.dtype),
                                    *self.concat.bn.affine(), relu=True)
         n, h, w, c = out.shape
         gap = (sums / float(h * w)).to(out.dtype).reshape(n, c, 1, 1)

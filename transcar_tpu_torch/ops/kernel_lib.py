@@ -41,30 +41,34 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(csrc: pathlib.Path = CSRC,
+                 build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
+    """Where the library for the sources in ``csrc`` lives (built or not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted(csrc.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libtranscar_kernels_{digest.hexdigest()[:16]}.so"
+    return build_dir / f"libtranscar_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
+def build(csrc: pathlib.Path = CSRC,
+          build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
     """Compile ``csrc/*.cu`` unless a library for these sources exists.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory and
     spills of each kernel) is kept beside the library as ``<name>.log``.
+    Another ``csrc`` (an earlier commit's sources, to time its kernels
+    beside these) builds the same way into its own ``build_dir``.
     """
-    so = library_path()
+    so = library_path(csrc, build_dir)
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = _nvcc()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+    for src in sorted(csrc.glob("*.cu")):
+        obj = build_dir / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

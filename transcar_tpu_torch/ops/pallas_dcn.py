@@ -33,18 +33,29 @@ two GEMMs as large as the forward's, d_samp = d_out × W9ᵀ and
 d_W = sampledᵀ × d_out (2 × 41 GFLOP per layer-3 launch), so it is
 tensor-core bound; its compulsory traffic (x, offset_mask, W, d_out in,
 d_x, d_offset_mask, d_W out) is about 60 MB per layer-3 launch in bf16.
-What the design does about it: two kernels.  (a) A block owns 64 pixels;
-per tap and 128-channel slice it forms d_samp on the tensor cores, then
-one lane per 4 channels rebuilds the pixel's four bilinear corners,
-scatters σ(mask)·weight·d_samp into a float32 d_x with 16-byte vector
-atomics and reduces the offset and mask terms over the channels with warp
-shuffles (one-sided floor-convention derivatives, so an integer sample
-position differentiates as ``ops/dcn.py`` under autograd does).  (b) An
-implicit GEMM over the pixels that regathers the modulated sample tile,
-rounded to the working type as the forward rounds it, against d_out;
-pixel splits add their float32 partial tiles with atomics.  The summation
-order of the atomics varies from run to run.  The band, one-hot matmuls
-and ``rows_per_step`` of the TPU kernel are gone: exact for any offset.
+What the design does about it: two kernels, each a ``wgmma`` tile on
+``csrc/hopper_tile.cuh`` in bfloat16 (the path ``detr3d_r101`` trains).
+(a) d_samp = d_out × W9ᵀ with its scatter: a block owns a band of 128
+pixels (64 where Cout > 256) and a group of taps; its d_out band arrives
+once by TMA and stays in shared memory while the W9 slices [64 channels,
+64 Cout] stream through a 4-stage ring.  Consumer warpgroups form each
+[band, 64-channel] d_samp tile in float32 and hand it to a double-buffered
+shared tile; two scatter warpgroups rebuild each pixel's four bilinear
+corners, add σ(mask)·weight·d_samp into a float32 d_x with 16-byte vector
+reductions and reduce the offset and mask terms over the channels with
+warp shuffles (one-sided floor-convention derivatives, so an integer
+sample position differentiates as ``ops/dcn.py`` under autograd does),
+while the consumers multiply the next slice.  (b) d_W = sampledᵀ × d_out
+over the pixels: two gather warpgroups write the modulated sample,
+rounded to the working type as the forward rounds it, straight into the
+swizzled shared layout that ``wgmma`` reads as a transposed A, d_out
+arrives by TMA as a transposed B, and pixel splits add their float32
+tiles with vector reductions.  float32 (used only by the checks) and
+bfloat16 with Cout > 1024 keep the first kernels: per tap and 128-channel
+slice a ``wmma`` d_samp tile and a 4-warp scatter, and a 32-pixel
+regather against d_out.  The summation order of the atomics varies from
+run to run.  The band, one-hot matmuls and ``rows_per_step`` of the TPU
+kernel are gone: exact for any offset.
 """
 from __future__ import annotations
 
@@ -62,8 +73,10 @@ launches = 0
 backward_launches = 0
 
 _ENTRY = {torch.bfloat16: "dcn_forward_bf16", torch.float32: "dcn_forward_f32"}
-_BWD_ENTRY = {torch.bfloat16: "dcn_backward_bf16",
-              torch.float32: "dcn_backward_f32"}
+_BWD_DATA = {torch.bfloat16: "dcn_backward_data_bf16",
+             torch.float32: "dcn_backward_data_f32"}
+_BWD_WEIGHT = {torch.bfloat16: "dcn_backward_weight_bf16",
+               torch.float32: "dcn_backward_weight_f32"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -180,18 +193,41 @@ def backward_kernel(x: torch.Tensor, offset_mask: torch.Tensor,
     d_om = torch.empty_like(offset_mask)
     d_w = torch.zeros((9 * cin, cout), dtype=torch.float32, device=x.device)
     _aligned(x, w_t, d_out, d_x, d_w)
-    name = _BWD_ENTRY[x.dtype]
-    fn = kernel_lib.function(name, _P, _P, _P, _P, _P, _P, _P,
+    backward_data(x, offset_mask, w_t, d_out, d_x, d_om)
+    backward_weight(x, offset_mask, d_out, d_w)
+    backward_launches += 1
+    return (d_x.to(x.dtype), d_om,
+            d_w.reshape(3, 3, cin, cout).to(weight.dtype))
+
+
+def backward_data(x, offset_mask, w_t, d_out, d_x, d_om) -> None:
+    """K3's first device kernel, (a): adds d_x into the zeroed float32
+    ``d_x`` and writes ``d_om``, on tensors :func:`backward_kernel` has
+    checked and laid out (``w_t`` [3, 3, Cin, Cout] in x.dtype).  Counts
+    no launch: :func:`backward_kernel` counts the backward once."""
+    n, h, w, cin = x.shape
+    name = _BWD_DATA[x.dtype]
+    fn = kernel_lib.function(name, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), offset_mask.data_ptr(), w_t.data_ptr(),
                 d_out.data_ptr(), d_x.data_ptr(), d_om.data_ptr(),
-                d_w.data_ptr(), n, h, w, cin, cout, stream)
+                n, h, w, cin, d_out.shape[-1], stream)
     kernel_lib.check(rc, name)
-    backward_launches += 1
-    return (d_x.to(x.dtype), d_om,
-            d_w.reshape(3, 3, cin, cout).to(weight.dtype))
+
+
+def backward_weight(x, offset_mask, d_out, d_w) -> None:
+    """K3's second device kernel, (b): adds d_W into the zeroed float32
+    ``d_w`` [9·Cin, Cout] (see :func:`backward_data`)."""
+    n, h, w, cin = x.shape
+    name = _BWD_WEIGHT[x.dtype]
+    fn = kernel_lib.function(name, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), offset_mask.data_ptr(), d_out.data_ptr(),
+                d_w.data_ptr(), n, h, w, cin, d_out.shape[-1], stream)
+    kernel_lib.check(rc, name)
 
 
 def plain_backward(x: torch.Tensor, offset_mask: torch.Tensor,

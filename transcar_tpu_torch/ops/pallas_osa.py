@@ -12,22 +12,32 @@ block), 1.671 TFLOP and 4.34 GB of compulsory traffic in bfloat16, so it
 is tensor-core bound (about 1.7 ms at the dense peak) wherever the tile
 keeps the multiply fed.
 
-What the design does about it: an implicit GEMM over M = N·H·W pixels,
-N = Cout and K = ΣCᵢ (``csrc/conv_tile.cuh``, shared with K5 and K6).  A
-block owns 64 pixels of one image × 128 output channels; its K loop walks
-the pieces in turn, each with its own pointer and width, so the
-concatenation is a pointer table and never reaches device memory.  K
-slices are double buffered with ``cp.async``; bfloat16 multiplies on the
-tensor cores (``wmma``, float32 accumulators), float32 on CUDA-core FMAs
-(no TF32).  The epilogue applies the folded FrozenBN affine and the ReLU
-in float32, stores the output once, and adds the block's column sums over
-its real pixels into ``sums[n, Cout]``.  The TPU kernel carried those sums
-across its sequential grid axis; Hopper's blocks run in no order, so they
-meet in float32 ``atomicAdd``s, whose order changes from run to run (a
-relative error of order 1e-6 in float32 over a stage-2 image, checked at
-1e-4).  The output channels are the fastest grid axis, so the blocks that
-share a pixel tile run together and read it from L2.  ``rows_per_step``
-was a VMEM tiling knob and is accepted and ignored.
+What the design does about it.  bfloat16 calls whose widths and Cout are
+multiples of 8 (every VoVNet-99 block) take the Hopper tile of
+``csrc/osa_reduce.cu`` on ``csrc/hopper_tile.cuh``: an implicit GEMM per
+image over its pixels, N = Cout, K = ΣCᵢ walked piece by piece, each piece
+and weight slice its own TMA tensor map, so the concatenation never
+reaches device memory and TMA's zero fill ends a tile at the image edge
+and a 64-wide K slice past a width of 160 or 224.  A persistent block per
+SM keeps a 4-stage ring of slices in flight with one producer thread while
+two consumer warpgroups run ``wgmma`` over 128 pixels × 256 channels; the
+epilogue applies the folded FrozenBN affine (staged in shared memory per
+tile) and the ReLU in float32 from the accumulator registers, stores
+bfloat16 once with 8-byte stores after one exchange between neighbouring
+lanes, and adds per-(tile, channel) column sums, reduced by a butterfly of
+warp shuffles and one shared-memory row per warp, into ``sums[n, Cout]``.  The weights
+are read K-major ([Cout, Cᵢ] rows, as the 1×1 conv parameter already
+stores them): :func:`kmajor_weights` gives the [Cᵢ, Cout] views the model
+caches, and any other weight is packed so on each call.  float32 calls and
+bfloat16 calls outside those shapes take the ``wmma`` tile
+(``csrc/conv_tile.cuh``, shared with K5 and K6: 64 pixels × 128 channels,
+``wmma`` bf16 or CUDA-core float32 FMAs without TF32, ``cp.async`` double
+buffering); the choice is made by dtype and shape, never on failure.  The
+TPU kernel carried the channel sums across its sequential grid axis;
+Hopper's blocks run in no order, so they meet in float32 ``atomicAdd``s,
+whose order changes from run to run (a relative error of order 1e-6 in
+float32 over a stage-2 image, checked at 1e-4).  ``rows_per_step`` was a
+VMEM tiling knob and is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -40,6 +50,8 @@ from transcar_tpu_torch.ops import kernel_lib
 
 #: K4 launches since the count was last set to 0.
 launches = 0
+#: Of those, the launches that took the Hopper (wgmma) tile.
+wgmma_launches = 0
 
 _ENTRY = {torch.bfloat16: "osa_reduce_bf16", torch.float32: "osa_reduce_f32"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -89,7 +101,9 @@ def osa_reduce(pieces: Sequence[torch.Tensor],
     Args:
       pieces: [N, H, W, Cᵢ] tensors (bfloat16 or float32, one dtype).
       weights: [Cᵢ, Cout] splits of the 1×1 kernel along its input axis,
-        any float dtype (cast to the pieces' dtype).
+        any float dtype (cast to the pieces' dtype); the Hopper tile reads
+        them without a copy when they are K-major views in that dtype
+        (:func:`kmajor_weights`).
       scale, bias: [Cout] folded FrozenBN affine (float32).
       relu: apply the ReLU after the affine.
       rows_per_step: the TPU kernel's VMEM tile; ignored.
@@ -106,9 +120,38 @@ def osa_reduce(pieces: Sequence[torch.Tensor],
     return kernel(pieces, weights, scale, bias, relu)
 
 
+def kmajor_weights(weight: torch.Tensor, widths: Sequence[int],
+                   dtype) -> list:
+    """The 1×1 reduce kernel ``weight`` ([Cout, ΣCᵢ, 1, 1] or [Cout, ΣCᵢ])
+    as the [Cᵢ, Cout] weights of :func:`osa_reduce`, in ``dtype``: views of
+    one contiguous [Cout, ΣCᵢ] tensor (stride (1, ΣCᵢ)), the K-major layout
+    the Hopper tile reads without a copy."""
+    w = weight.reshape(weight.shape[0], -1).to(dtype).contiguous()
+    return list(torch.split(w.t(), list(widths), 0))
+
+
+def _wgmma_weights(weights, dtype) -> list:
+    """Each weight as a K-major view in ``dtype`` (itself if it is one)."""
+    out = []
+    for wi in weights:
+        if not (wi.dtype == dtype and wi.stride(0) == 1
+                and wi.stride(1) % 8 == 0 and wi.data_ptr() % 16 == 0):
+            wi = wi.to(dtype).t().contiguous().t()
+        out.append(wi)
+    return out
+
+
+def takes_wgmma_tile(pieces, cout: int) -> bool:
+    """Whether a call takes the Hopper tile: bfloat16 pieces whose widths
+    and Cout are multiples of 8, on 16-byte aligned bases."""
+    return (pieces[0].dtype == torch.bfloat16 and cout % 8 == 0
+            and all(p.shape[-1] % 8 == 0 and p.data_ptr() % 16 == 0
+                    for p in pieces))
+
+
 def kernel(pieces, weights, scale, bias, relu: bool = True):
     """K4 on CUDA tensors (see :func:`osa_reduce`)."""
-    global launches
+    global launches, wgmma_launches
     x0 = pieces[0]
     n, h, w, _ = x0.shape
     dtype, dev = x0.dtype, x0.device
@@ -121,7 +164,6 @@ def kernel(pieces, weights, scale, bias, relu: bool = True):
                          f"and {len(weights)} weights")
     cout = weights[0].shape[-1]
     pieces = [p.contiguous() for p in pieces]
-    weights = [wi.to(dtype).contiguous() for wi in weights]
     for p, wi in zip(pieces, weights):
         if (p.shape[:3] != (n, h, w) or p.dtype != dtype or p.device != dev
                 or wi.shape != (p.shape[-1], cout) or wi.device != dev):
@@ -136,15 +178,25 @@ def kernel(pieces, weights, scale, bias, relu: bool = True):
     out = torch.empty((n, h, w, cout), dtype=dtype, device=dev)
     sums = torch.zeros((n, cout), dtype=torch.float32, device=dev)
     k = len(pieces)
-    fn = kernel_lib.function(_ENTRY[dtype], _I, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P)
+    wgmma = takes_wgmma_tile(pieces, cout)
+    if wgmma:
+        name = "osa_reduce_bf16_wgmma"
+        weights = _wgmma_weights(weights, dtype)
+        extra = [(_I * k)(*[wi.stride(1) for wi in weights])]
+    else:
+        name = _ENTRY[dtype]
+        weights = [wi.to(dtype).contiguous() for wi in weights]
+        extra = []
+    fn = kernel_lib.function(name, _I, _P, _P, _P, *([_P] if wgmma else []),
+                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(k, (_P * k)(*[p.data_ptr() for p in pieces]),
                 (_P * k)(*[wi.data_ptr() for wi in weights]),
-                (_I * k)(*[p.shape[-1] for p in pieces]),
+                (_I * k)(*[p.shape[-1] for p in pieces]), *extra,
                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
                 sums.data_ptr(), n, h, w, cout, int(relu), stream)
-    kernel_lib.check(rc, _ENTRY[dtype])
+    kernel_lib.check(rc, name)
     launches += 1
+    wgmma_launches += int(wgmma)
     return out, sums

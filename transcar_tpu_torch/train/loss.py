@@ -24,6 +24,7 @@ from typing import Dict
 import torch
 
 from transcar_tpu_torch.core.boxes import normalize_bbox
+from transcar_tpu_torch.core.device import const
 from transcar_tpu_torch.ops.focal import (focal_loss_cost, l1_loss,
                                           sigmoid_focal_loss)
 from transcar_tpu_torch.ops.hungarian import hungarian_match
@@ -75,8 +76,7 @@ def _layer_loss(cls_scores, bbox_preds, labels, bbox_targets, bbox_weights,
         torch.ones(b * nq, device=cls_scores.device), c,
         gamma=cfg.focal_gamma, alpha=cfg.focal_alpha, avg_factor=cls_avg,
         loss_weight=cfg.loss_cls_weight)
-    code_w = torch.tensor(cfg.code_weights, dtype=torch.float32,
-                          device=cls_scores.device)
+    code_w = const(cfg.code_weights, cls_scores.device)
     targets = bbox_targets.reshape(-1, 10)
     finite = torch.isfinite(targets).all(dim=-1, keepdim=True)
     weights = bbox_weights.reshape(-1, 10) * code_w * finite
