@@ -6,8 +6,13 @@ Run from the repository root with no arguments::
 
 ``--parent-csrc DIR`` also builds an earlier commit's kernel sources (for
 example ``git archive <commit> transcar_tpu_torch/csrc`` unpacked under
-the git-ignored ``transcar_tpu_torch/build/``) and times its K3 and K4 in
-turns with these (parent, kernel, kernel, parent) in phases 4 and 8.
+the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K4
+and K5 in turns with these (parent, kernel, kernel, parent) in phases 3,
+4 and 8; the summary line then carries each one's ``parent_ms``.
+``--variants k1|k5|all`` runs none of the phases: it builds each knock-out
+variant of the K1 / K5 Hopper tiles in ``VARIANTS`` (a copy of their
+sources under ``transcar_tpu_torch/build/variants/`` with one patch) and
+prints its time per request at the main path's shapes.
 
 Phases, one line each (a failing phase raises and the script exits
 non-zero):
@@ -15,7 +20,11 @@ non-zero):
   1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from ``transcar_tpu_torch/csrc`` (seconds taken);
   3. K1 (DCNv2 forward) against its plain version at both flagship DCN
-     shapes, bfloat16 and float32, offsets drawn over ±8 px;
+     shapes, bfloat16 (on the Hopper tile) and float32 (on the first
+     tile), offsets over ±8 px, zero and whole-pixel, and in bfloat16 at
+     the model's offset scale; per request beside cuDNN's bf16 3×3 conv of
+     the same shapes (the GEMM without the gather, a reference line); the
+     Hopper tile's ``-Xptxas -v`` line;
   4. K3 (DCNv2 backward) against autograd of its plain version at both
      flagship DCN shapes, bfloat16 and float32, offsets over ±8 px, zero
      and whole-pixel, and in bfloat16 at the model's offset scale; its two
@@ -24,14 +33,16 @@ non-zero):
      8 heads of 32, beside ``F.scaled_dot_product_attention``;
   6. the flagship slice through ``transcar_tpu_torch.cli.benchmark``:
      TransCAR-R101 batch-1 inference on 6 × 928 × 1600 with 900 queries
-     and 1500 radar tokens, seeded random weights; launch counts, finite
+     and 1500 radar tokens, seeded random weights; launch counts (every K1
+     launch on the Hopper tile), finite
      outputs, kernel path against plain path in float32 (one decoder
      layer, see phase_slice), samples/s of the kernel and the plain path
      in bfloat16;
   7. training through ``benchmark --train`` at the same width: the
      ``detr3d_r101`` full-backbone recipe (K1 forward, K3 backward) and
      the ``transcar_r101`` fusion-only recipe (K1 only), bfloat16
-     backbone; finite losses, launch counts per step, which parameters
+     backbone; finite losses, launch counts per step (every K1 launch on
+     the Hopper tile), which parameters
      moved, peak memory, ms/step; then one float32 step of each recipe,
      kernel path against plain path (see phase_train_check);
   8. K4 (OSA concat-reduce), K5 (whole OSA block) and K6 (fused
@@ -40,7 +51,10 @@ non-zero):
      bottleneck shapes), bfloat16 and float32; K4 beside a cuDNN 1×1
      ``F.conv2d`` over the concatenation built beforehand, every bfloat16
      call on the Hopper (wgmma) tile and every float32 one on the wmma
-     tile of ``conv_tile.cuh``;
+     tile of ``conv_tile.cuh``; K5 in bfloat16 as 5 chain-tile launches
+     and one K4 Hopper-tile launch per call, timed apart, beside the
+     default path's cost for the same blocks (cuDNN bf16 3×3 chain, then
+     K4);
   9. the VoVNet-99 slice through ``benchmark transcar_vovnet_trainval``:
      16 K4 + 3 K2 + 0 K1 launches per request, every K4 launch on the
      wgmma tile, finite outputs and decode,
@@ -48,10 +62,12 @@ non-zero):
      samples/s and peak memory of the kernel and the plain path in
      bfloat16;
  10. the K5 path: the full-width VoVNet-99 backbone with
-     ``stage_impls=("fused",) * 4`` (16 K5 launches) against the K4
+     ``stage_impls=("fused",) * 4`` (16 K5 launches; in bfloat16 80
+     chain-tile launches and 16 reduces on K4's Hopper tile) against the K4
      default on the 4 stage outputs, float32, and both timed in bfloat16;
  11. the K6 path: ``benchmark transcar_r101 --cfg-options
-     model.backbone.block_impl=fused``: 6 K6 + 26 K1 + 3 K2 per request,
+     model.backbone.block_impl=fused``: 6 K6 + 26 K1 (all on the Hopper
+     tile) + 3 K2 per request,
      float32 against the plain path, samples/s beside the default path;
  12. one ``transcar_vovnet_trainval --train`` fusion-only run: finite
      loss, camera frozen, no kernel launches (training takes the plain
@@ -289,67 +305,295 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+def csrc_library(csrc, tag: str):
+    """The kernel library built from the sources in ``csrc`` into the
+    git-ignored ``transcar_tpu_torch/build/<tag>``, opened with ctypes."""
+    from transcar_tpu_torch.ops import kernel_lib
+
+    t0 = time.perf_counter()
+    so = kernel_lib.build(pathlib.Path(csrc).resolve(),
+                          kernel_lib.BUILD_DIR / tag)
+    print(f"build {tag}: {so.name} from {csrc} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ctypes.CDLL(str(so))
+
+
 def parent_library(csrc: str):
     """The kernel library built from an earlier commit's ``csrc`` (for
     example ``git archive <parent> transcar_tpu_torch/csrc`` unpacked
     under the git-ignored ``transcar_tpu_torch/build/``), to time its
     kernels beside these in the same run."""
+    return csrc_library(csrc, "parent")
+
+
+# Knock-out variants of the K1 and K5 Hopper tiles (``--variants``): name:
+# (sources copied, file patched, [(old text, new text), ...]).  A variant
+# that takes out part of the work computes garbage; only its time is read.
+# A patch whose old text is gone raises.  No patch may drop an mbarrier
+# wait: a gather that skips its wait on ``empty`` over-arrives the ring.
+K1_SRC = ("dcn_forward.cu", "dcn_tap.cuh", "hopper_tile.cuh")
+K5_SRC = ("osa_block.cu", "osa_wgmma.cuh", "hopper_tile.cuh", "conv_tile.cuh")
+VARIANTS = {
+    "k1 base": (K1_SRC, None, []),
+    "k1 3-stage ring": (K1_SRC, "dcn_forward.cu", [(
+        "constexpr int F_STAGES = 2;", "constexpr int F_STAGES = 3;")]),
+    "k1 8x16 tiles": (K1_SRC, "dcn_forward.cu", [(
+        "  pick_tile(p, sms);",
+        "  pick_tile(p, sms);\n  p.bh = 8; p.bw = 16; p.tiles_h = (H + 7) / 8;"
+        " p.tiles_w = (W + 15) / 16;\n"
+        "  p.tiles = N * p.tiles_h * p.tiles_w * p.tiles_n;")]),
+    "k1 taps outer (K order tap, then channel slice)": (K1_SRC, "dcn_forward.cu", [(
+        "      for (int c = 0; c < p.cs; ++c) {\n        for (int k = 0; k < 9; ++k) {",
+        "      for (int k = 0; k < 9; ++k) {\n        for (int c = 0; c < p.cs; ++c) {")]),
+    "k1 all shared memory carved out (small L1)": (K1_SRC, "dcn_forward.cu", [(
+        "                             (smem * 100 + 233471) / 233472);",
+        "                             100);")]),
+    "k1 corner loads all from 64 pixel rows (L1 hits)": (K1_SRC, "dcn_forward.cu", [(
+        "p.x + static_cast<size_t>(o4[cn]) * p.Cin + ch",
+        "p.x + static_cast<size_t>(o4[cn] & 63) * p.Cin + ch")]),
+    "k1 no corner loads": (K1_SRC, "dcn_forward.cu", [(
+        "raw[i][cn] = live && o4[cn] >= 0", "raw[i][cn] = false && o4[cn] >= 0")]),
+    "k1 no gather (A left unwritten)": (K1_SRC, "dcn_forward.cu", [(
+        "          uint4 raw[8][4];", "#if 0\n          uint4 raw[8][4];"), (
+        "            *reinterpret_cast<uint4*>(st + px * 128 + ((q ^ (px & 7)) << 4)) = o;\n"
+        "          }\n",
+        "            *reinterpret_cast<uint4*>(st + px * 128 + ((q ^ (px & 7)) << 4)) = o;\n"
+        "          }\n#endif\n")]),
+    "k1 on half the SMs (same tiles)": (K1_SRC, "dcn_forward.cu", [(
+        "  const int grid = p.tiles < sms ? p.tiles : sms;",
+        "  const int grid = p.tiles < sms / 2 ? p.tiles : sms / 2;")]),
+    "k1 no MMA": (K1_SRC, "dcn_forward.cu", [(
+        "        hop::mma_slice<BN, 0, 0>(acc, da, db);\n", "")]),
+    "k5 base": (K5_SRC, None, []),
+    "k5 B box of BN rows (zero-filled past Ch)": (K5_SRC, "osa_block.cu", [(
+        "  p.b_rows = Cout < bn ? Cout : bn;", "  p.b_rows = bn;")]),
+    "k5 no MMA": (K5_SRC, "osa_wgmma.cuh", [(
+        "            hop::mma_slice<BN, 0, 0>(acc, da, db);\n", "")]),
+    "k5 no A loads": (K5_SRC, "osa_wgmma.cuh", [(
+        "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * BK * 2);\n"
+        "              if constexpr (kConv) {\n"
+        "                const int i0 = (mt / p.tiles_w) * (BM / p.bw);\n"
+        "                const int j0 = (mt % p.tiles_w) * p.bw;\n"
+        "                hop::tma_load_4d(sa + r.stage * BM * BK, &p.a[0], &full[r.stage], k0,\n"
+        "                                 j0 - 1 + tap % 3, i0 - 1 + tap / 3, img);\n",
+        "              hop::mbar_expect_tx(&full[r.stage], (kConv ? p.b_rows : BM + p.b_rows) * BK * 2);\n"
+        "              if constexpr (kConv) {\n")]),
+    "k5 no B loads": (K5_SRC, "osa_wgmma.cuh", [(
+        "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * BK * 2);\n",
+        "              hop::mbar_expect_tx(&full[r.stage], (kConv ? BM : BM + p.b_rows) * BK * 2);\n"), (
+        "                hop::tma_load_3d(sb + r.stage * BN * BK, &p.b[0], &full[r.stage], k0,\n"
+        "                                 tap, nt * BN);\n", "")]),
+}
+
+
+def variant_library(name: str):
+    """The library of one knock-out variant: its sources copied from
+    ``csrc/`` under ``build/variants/``, patched and built."""
+    import shutil
+
     from transcar_tpu_torch.ops import kernel_lib
 
-    t0 = time.perf_counter()
-    so = kernel_lib.build(pathlib.Path(csrc).resolve(),
-                          kernel_lib.BUILD_DIR / "parent")
-    print(f"build parent: {so.name} from {csrc} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return ctypes.CDLL(str(so))
+    sources, target, patches = VARIANTS[name]
+    tag = "variants/" + "".join(c if c.isalnum() else "_" for c in name)
+    src = kernel_lib.BUILD_DIR / tag / "csrc"
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir(parents=True)
+    for f in sources:
+        shutil.copy(kernel_lib.CSRC / f, src / f)
+    if target is not None:
+        text = (src / target).read_text()
+        for old, new in patches:
+            if old not in text:
+                raise RuntimeError(f"{name}: patch target not in {target}: "
+                                   f"{old!r}")
+            text = text.replace(old, new)
+        (src / target).write_text(text)
+    return csrc_library(src, tag)
 
 
-def phase_k1() -> dict:
-    from transcar_tpu_torch.ops import pallas_dcn
+def _variant_calls(kind: str) -> list:
+    """(label, launches per request, call(lib)) of the K1 entry at the
+    flagship DCN shapes (offsets ±8 px and the model's) or of K5's chain
+    tile at the 7 VoVNet-99 block shapes (5 convs each)."""
+    from transcar_tpu_torch.ops import pallas_dcn, pallas_osa_block
+
+    vp = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    calls = []
+    if kind == "k1":
+        g = torch.Generator(device="cuda").manual_seed(11)
+        for n, h, w, cin, cout, per_req in FLAGSHIP_DCN:
+            for offsets in ("pm8", "model"):
+                x, om, wt, _ = dcn_backward_case(g, n, h, w, cin, cout,
+                                                 torch.bfloat16, offsets)
+                t = (x, om, pallas_dcn.kmajor_weight(wt), torch.empty(
+                    (n, h, w, cout), dtype=torch.bfloat16, device="cuda"))
+                calls.append((f"[{n},{h},{w},{cin}]->{cout} {offsets}", per_req,
+                              lambda lib, t=t, d=(n, h, w, cin, cout):
+                              lib.dcn_forward_bf16_wgmma(*map(vp, t), *d,
+                                                         stream())))
+        return calls
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for h, w, c0, ch, _, per_req in VOV_BLOCKS:
+        for i, cin in enumerate([c0] + [ch] * 4):
+            x = torch.randn(6, h, w, cin, device="cuda", generator=g).bfloat16()
+            w9 = torch.randn(3, 3, cin, ch, device="cuda",
+                             generator=g) / math.sqrt(9 * cin)
+            s, b = _affine(g, ch)
+            wk = pallas_osa_block.kmajor_conv_weight(w9, torch.bfloat16)
+            o = torch.empty((6, h, w, ch), dtype=torch.bfloat16, device="cuda")
+            calls.append((f"6x{h}x{w} {cin}->{ch} conv{i}", per_req,
+                          lambda lib, x=x, cin=cin, t=(wk, s, b, o),
+                          d=(6, h, w, ch): lib.osa_conv3x3_bf16_wgmma(
+                              vp(x), cin, *map(vp, t), *d, stream())))
+    return calls
+
+
+def phase_variants(kinds, smi: str) -> None:
+    """Each knock-out variant of ``kinds`` ("k1", "k5"): per request ms
+    (CUDA events) at the main path's shapes, by offsets for K1."""
+    for kind in kinds:
+        calls = _variant_calls(kind)
+        for name in VARIANTS:
+            if not name.startswith(kind):
+                continue
+            lib = variant_library(name)
+            per_req, parts = {}, []
+            for label, n, call in calls:
+                if call(lib) != 0:
+                    raise RuntimeError(f"{name} failed at {label}")
+                ms = cuda_ms(lambda: call(lib), iters=20 if kind == "k1" else 10)
+                key = label.rsplit(" ", 1)[-1] if kind == "k1" else "all"
+                per_req[key] = per_req.get(key, 0.0) + n * ms
+                parts.append(f"{label} {ms:.4f}")
+            print(f"{name}: per request "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in per_req.items())
+                  + " | " + ", ".join(parts) + f" ({smi})", flush=True)
+
+
+def parent_dcn_forward(lib, x, om, wt):
+    """The parent commit's bfloat16 K1 with its wrapper's preparation: its
+    Hopper tile ``lib.dcn_forward_bf16_wgmma`` on the K-major weight where
+    the library has one, else its wmma tile ``lib.dcn_forward_bf16`` on
+    the [9·Cin, Cout] weight."""
+    n, h, w, cin = x.shape
+    cout = wt.shape[-1]
+    wgmma = hasattr(lib, "dcn_forward_bf16_wgmma")
+    w9 = (wt.permute(3, 0, 1, 2) if wgmma else wt).to(x.dtype).contiguous()
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device="cuda")
+    rc = (lib.dcn_forward_bf16_wgmma if wgmma else lib.dcn_forward_bf16)(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (x, om, w9, out)),
+        n, h, w, cin, cout,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"parent K1: CUDA error {rc}")
+    return out
+
+
+def in_turns(kern, old) -> tuple:
+    """(kernel ms, parent ms, the line's text): timed parent, kernel,
+    kernel, parent; each the better of its two turns."""
+    turns = [cuda_ms(f) for f in (old, kern, kern, old)]
+    return (min(turns[1:3]), min(turns[0], turns[3]),
+            f"parent {turns[0]:.3f} / {turns[3]:.3f} ms, kernel "
+            f"{turns[1]:.3f} / {turns[2]:.3f} ms")
+
+
+def phase_k1(parent=None) -> dict:
+    """K1 against its plain version at both flagship shapes: bfloat16 on
+    the Hopper tile and float32 on the first tile, offsets over ±8 px,
+    zero, whole-pixel and (bfloat16) at the model's scale; per R101
+    request (23 + 3 launches) beside cuDNN's 3×3 convolution of the same
+    shapes (the GEMM without the gather, a reference line) and beside the
+    parent commit's K1 (``parent``: its kernel library) when given."""
+    from transcar_tpu_torch.ops import kernel_lib, pallas_dcn
     from transcar_tpu_torch.ops.dcn import modulated_deform_conv
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    result = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "bound_by": "operations", "library_ms": None}
+    result = _kernel_result()
+    result["parent_ms"] = 0.0 if parent is not None else None
+    per_req = {"model": 0.0, "parent_model": 0.0, "cudnn": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for n, h, w, cin, cout, per_req in FLAGSHIP_DCN:
-            dev = "cuda"
-            x = torch.randn(n, h, w, cin, device=dev, generator=g).to(dtype)
-            om = torch.randn(n, h, w, 27, device=dev, generator=g)
-            om[..., :18] = (torch.rand(n, h, w, 18, device=dev, generator=g)
-                            * 16.0 - 8.0)
-            om = om.to(dtype)
-            wt = (torch.randn(3, 3, cin, cout, device=dev, generator=g)
-                  / math.sqrt(9 * cin)).to(dtype)
-            out = pallas_dcn.fused_deform_conv(x, om, wt)
-            ref = modulated_deform_conv(x, om, wt)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
-            dy = om[..., 0:18:2].float().abs()
-            past = (dy > 5.0).float().mean().item()
-            ms = cuda_ms(lambda: pallas_dcn.fused_deform_conv(x, om, wt))
-            plain_ms = cuda_ms(lambda: modulated_deform_conv(x, om, wt))
-            ok = math.isfinite(rel) and rel <= DCN_TOL[dtype]
-            print(f"K1 dcn {str(dtype)[6:]} x[{n},{h},{w},{cin}]->{cout}: "
-                  f"max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-                  f"(tol {DCN_TOL[dtype]:.0e} of max|plain|), taps with "
-                  f"|dy|>5 px {past:.3f}; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"K1 {dtype} disagrees with its plain "
-                                     f"version: rel err {rel}")
-            del ref
-            if dtype == torch.bfloat16:     # the main path's dtype
-                result["max_abs_err"] = max(result["max_abs_err"], err)
-                result["ms"] += per_req * ms
-                result["plain_ms"] += per_req * plain_ms
-                result["bound_ms"] += per_req * dcn_bound_ms(x, om, wt, out)
-            del out
-    print(f"K1 per request on the bfloat16 path (23 + 3 launches): kernel "
-          f"{result['ms']:.3f} ms, plain {result['plain_ms']:.3f} ms, bound "
-          f"{result['bound_ms']:.3f} ms (no single PyTorch call computes "
+        for n, h, w, cin, cout, launches in FLAGSHIP_DCN:
+            cases = ("pm8", "zero", "integer") + (
+                ("model",) if dtype == torch.bfloat16 else ())
+            for offsets in cases:
+                x, om, wt, _ = dcn_backward_case(g, n, h, w, cin, cout, dtype,
+                                                 offsets)
+                wt = wt.to(dtype)
+                # the K-major copy the model caches (models/resnet.DCNConv)
+                wk = pallas_dcn.kmajor_weight(wt, dtype)
+                before = pallas_dcn.wgmma_launches
+                out = pallas_dcn.fused_deform_conv(x, om, wt, wk)
+                took = pallas_dcn.wgmma_launches - before
+                ref = modulated_deform_conv(x, om, wt)
+                torch.cuda.synchronize()
+                err, rel = _rel_err(out, ref)
+                want_tile = int(dtype == torch.bfloat16)
+                ok = (math.isfinite(rel) and rel <= DCN_TOL[dtype]
+                      and took == want_tile)
+                line = (f"K1 dcn {str(dtype)[6:]} x[{n},{h},{w},{cin}]->{cout}"
+                        f" offsets {offsets} "
+                        f"({'wgmma tile' if took else 'wmma tile'}): "
+                        f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
+                        f"{DCN_TOL[dtype]:.0e} of max|plain|)")
+                del ref
+                if dtype == torch.bfloat16 and offsets in ("pm8", "model"):
+                    kern = lambda: pallas_dcn.fused_deform_conv(x, om, wt, wk)
+                    if parent is not None:
+                        ms, old_ms, text = in_turns(
+                            kern, lambda: parent_dcn_forward(parent, x, om, wt))
+                        line += "; " + text
+                    else:
+                        ms, old_ms = cuda_ms(kern), 0.0
+                        line += f"; kernel {ms:.3f} ms"
+                    if offsets == "model":
+                        per_req["model"] += launches * ms
+                        per_req["parent_model"] += launches * old_ms
+                    else:
+                        plain_ms = cuda_ms(lambda: modulated_deform_conv(
+                            x, om, wt), iters=5, warmup=1)
+                        # the reference line: cuDNN's bf16 3x3 conv of the
+                        # same shapes, the GEMM a DCN does without its gather
+                        xc = x.permute(0, 3, 1, 2)
+                        wc = wt.permute(3, 2, 0, 1).contiguous(
+                            memory_format=torch.channels_last)
+                        cudnn_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+                            xc, wc, padding=1))
+                        del xc, wc
+                        bound = dcn_bound_ms(x, om, wt, out)
+                        result["max_abs_err"] = max(result["max_abs_err"], err)
+                        result["ms"] += launches * ms
+                        result["plain_ms"] += launches * plain_ms
+                        result["bound_ms"] += launches * bound
+                        per_req["cudnn"] += launches * cudnn_ms
+                        if parent is not None:
+                            result["parent_ms"] += launches * old_ms
+                        line += (f", plain {plain_ms:.3f} ms, cuDNN 3x3 conv "
+                                 f"(no gather) {cudnn_ms:.3f} ms, bound "
+                                 f"{bound:.3f} ms (kernel at {bound / ms:.0%}"
+                                 f" of it)")
+                print(line + (" ok" if ok else " FAIL"))
+                if not ok:
+                    raise AssertionError(f"K1 {dtype} {offsets} disagrees with "
+                                         f"its plain version ({rel}) or took "
+                                         f"the wrong tile ({took})")
+                del x, om, wt, wk, out
+    print(f"K1 per request on the bfloat16 path (23 + 3 launches, wgmma "
+          f"tile), offsets pm8: kernel {result['ms']:.3f} ms, plain "
+          f"{result['plain_ms']:.3f} ms, bound {result['bound_ms']:.3f} ms"
+          + (f", parent K1 {result['parent_ms']:.3f} ms (kernel / parent "
+             f"{result['ms'] / result['parent_ms']:.3f})" if parent else "")
+          + f"; offsets at the model's scale: kernel {per_req['model']:.3f} ms"
+          + (f", parent {per_req['parent_model']:.3f} ms (kernel / parent "
+             f"{per_req['model'] / per_req['parent_model']:.3f})"
+             if parent else "")
+          + f"; reference: cuDNN bf16 3x3 conv of the same shapes "
+          f"{per_req['cudnn']:.3f} ms (no single PyTorch call computes "
           f"DCNv2)")
+    log = kernel_lib.library_path().with_suffix(".log").read_text()
+    print("K1 tile ptxas -v: " + " | ".join(
+        ln for ln in ptxas_lines(log) if ln.startswith("dcn_forward_wgmma")))
     return result
 
 
@@ -422,21 +666,27 @@ def k3_parts_ms(x, om, wt, d_out) -> tuple:
 
 
 def parent_dcn_backward(lib, x, om, wt, d_out):
-    """The parent commit's K3 (one C entry for both kernels), with its
-    wrapper's preparation: ``lib.dcn_backward_bf16``."""
+    """The parent commit's K3 with its wrapper's preparation: its two
+    entries ``dcn_backward_data_bf16`` and ``dcn_backward_weight_bf16``, or
+    the one ``dcn_backward_bf16`` of a commit before they were split."""
     n, h, w, cin = x.shape
     cout = wt.shape[-1]
     w_t = wt.to(x.dtype).contiguous()
     d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device="cuda")
     d_om = torch.empty_like(om)
     d_w = torch.zeros((9 * cin, cout), dtype=torch.float32, device="cuda")
-    fn = lib.dcn_backward_bf16
-    rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (x, om, w_t, d_out,
-                                                       d_x, d_om, d_w)),
-            n, h, w, cin, cout,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"parent dcn_backward_bf16: CUDA error {rc}")
+    vp = lambda *ts: [ctypes.c_void_p(t.data_ptr()) for t in ts]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if hasattr(lib, "dcn_backward_data_bf16"):
+        rcs = [lib.dcn_backward_data_bf16(*vp(x, om, w_t, d_out, d_x, d_om),
+                                          n, h, w, cin, cout, stream),
+               lib.dcn_backward_weight_bf16(*vp(x, om, d_out, d_w),
+                                            n, h, w, cin, cout, stream)]
+    else:
+        rcs = [lib.dcn_backward_bf16(*vp(x, om, w_t, d_out, d_x, d_om, d_w),
+                                     n, h, w, cin, cout, stream)]
+    if any(rcs):
+        raise RuntimeError(f"parent K3: CUDA errors {rcs}")
     return d_x.to(x.dtype), d_om, d_w.reshape(3, 3, cin, cout)
 
 
@@ -472,12 +722,8 @@ def phase_k3(parent=None) -> dict:
                     old = (lambda: parent_dcn_backward(parent, x, om, wt,
                                                        d_out))
                     if parent is not None and dtype == torch.bfloat16:
-                        # in turns: parent, kernel, kernel, parent
-                        turns = [cuda_ms(f) for f in (old, kern, kern, old)]
-                        ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
-                        line += (f"; parent K3 {turns[0]:.3f} / "
-                                 f"{turns[3]:.3f} ms, kernel {turns[1]:.3f}"
-                                 f" / {turns[2]:.3f} ms")
+                        ms, old_ms, text = in_turns(kern, old)
+                        line += "; " + text
                     else:
                         ms, old_ms = cuda_ms(kern), 0.0
                         line += f"; kernel {ms:.3f} ms"
@@ -506,6 +752,7 @@ def phase_k3(parent=None) -> dict:
                     raise AssertionError(f"K3 {dtype} {offsets} disagrees "
                                          f"with its plain version: {rels}")
                 del x, om, wt, d_out
+    result["parent_ms"] = per_step["parent"] if parent is not None else None
     print(f"K3 per detr3d_r101 train step on the bfloat16 path (23 + 3 "
           f"launches), offsets pm8: kernel {result['ms']:.3f} ms ((a) "
           f"{per_step['data']:.3f} + (b) {per_step['weight']:.3f}), plain "
@@ -578,20 +825,28 @@ def phase_slice(smi: str) -> dict:
              "model.head.use_pallas_attention=false"]
 
     # the main path: bfloat16 backbone, float32 head, through the kernels
+    from transcar_tpu_torch.ops import pallas_dcn
+
     _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
+    k1_wgmma = pallas_dcn.wgmma_launches
     want = {k: per_req.get(k, 0) * rec["requests"]
             for k in rec["kernel_launches"]}
     valid = _check_outputs("slice", out, cfg)
     print(f"slice {preset} 6x928x1600 bs1 (bf16 backbone, fp32 head): "
           f"{rec['requests']} requests, launches {rec['kernel_launches']} "
-          f"(want {per_req} per request, no other kernel); outputs finite; "
+          f"(want {per_req} per request, no other kernel), K1 on the wgmma "
+          f"tile {k1_wgmma} of {rec['kernel_launches']['dcn_forward']}; "
+          f"outputs finite; "
           f"decode {valid}/300 valid boxes; DCN taps with |dy|>5 px "
           f"{rec['dcn_taps_past_5px']:.4f}; fusion keeps "
           f"{rec['fusion_keep_share']:.3e} of (query, token) pairs")
     if rec["kernel_launches"] != want:
         raise AssertionError(f"kernel launches {rec['kernel_launches']} != "
                              f"{want}")
+    if k1_wgmma != want["dcn_forward"]:
+        raise AssertionError(f"slice: {want['dcn_forward'] - k1_wgmma} K1 "
+                             "launches missed the wgmma tile")
 
     # float32 backbone: the kernel path against the plain path.  The
     # random-weight decoder amplifies any perturbation about 10x per layer
@@ -727,6 +982,7 @@ def phase_train(smi: str) -> dict:
                                           str(warmup)])
         launches = (pallas_dcn.launches, pallas_dcn.backward_launches,
                     pallas_attention.launches)
+        k1_wgmma = pallas_dcn.wgmma_launches
         steps = rec["steps"]
         fusion_only = rec["fusion_only"]
         remat = resolve_remat(cfg) and not fusion_only
@@ -740,7 +996,8 @@ def phase_train(smi: str) -> dict:
               f"{'fusion-only' if fusion_only else 'full backbone'}): "
               f"{steps} steps, launches K1 {launches[0]} K3 {launches[1]} "
               f"K2 {launches[2]} (want {want}: K1 {want[0] // steps} and K3 "
-              f"{want[1] // steps} per step); loss total first "
+              f"{want[1] // steps} per step), K1 on the wgmma tile {k1_wgmma} "
+              f"of {launches[0]}; loss total first "
               f"{rec['loss_first']['total']:.4f} last "
               f"{rec['loss_last']['total']:.4f}, finite {finite}; trainable "
               f"tensors moved {moved[0]}/{moved[1]} (unmoved: {moved[4]} zero "
@@ -752,6 +1009,9 @@ def phase_train(smi: str) -> dict:
         if launches != want:
             raise AssertionError(f"train {preset}: launches {launches} != "
                                  f"{want}")
+        if k1_wgmma != launches[0]:
+            raise AssertionError(f"train {preset}: {launches[0] - k1_wgmma} "
+                                 "K1 launches missed the wgmma tile")
         if not finite:
             raise AssertionError(f"train {preset}: non-finite loss")
         if moved[0] + moved[4] != moved[1] or moved[2] != 0 or moved[0] == 0:
@@ -837,28 +1097,33 @@ def _affine(g, c):
 
 def _kernel_result() -> dict:
     return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "bound_by": "operations", "library_ms": None}
+            "bound_by": "operations", "library_ms": None, "parent_ms": None}
 
 
 def parent_osa_reduce(lib, pieces, ws, s, b):
-    """The parent commit's K4 (its wmma tile) with its wrapper's
-    preparation: ``lib.osa_reduce_bf16`` on contiguous [Cᵢ, Cout]
-    weights."""
+    """The parent commit's K4 with its wrapper's preparation: its Hopper
+    tile ``lib.osa_reduce_bf16_wgmma`` on the K-major views ``ws`` where
+    the library has one, else its wmma tile ``lib.osa_reduce_bf16`` on
+    contiguous [Cᵢ, Cout] weights."""
     n, h, w, _ = pieces[0].shape
     cout, k = ws[0].shape[-1], len(pieces)
-    ws = [wi.contiguous() for wi in ws]
+    wgmma = hasattr(lib, "osa_reduce_bf16_wgmma")
+    if not wgmma:
+        ws = [wi.contiguous() for wi in ws]
     out = torch.empty((n, h, w, cout), dtype=pieces[0].dtype, device="cuda")
     sums = torch.zeros((n, cout), dtype=torch.float32, device="cuda")
     ptrs = ctypes.c_void_p * k
-    rc = lib.osa_reduce_bf16(
+    ints = ctypes.c_int * k
+    rc = (lib.osa_reduce_bf16_wgmma if wgmma else lib.osa_reduce_bf16)(
         k, ptrs(*[p.data_ptr() for p in pieces]),
         ptrs(*[wi.data_ptr() for wi in ws]),
-        (ctypes.c_int * k)(*[p.shape[-1] for p in pieces]),
+        ints(*[p.shape[-1] for p in pieces]),
+        *([ints(*[wi.stride(1) for wi in ws])] if wgmma else []),
         *(ctypes.c_void_p(t.data_ptr()) for t in (s, b, out, sums)),
         n, h, w, cout, 1,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"parent osa_reduce_bf16: CUDA error {rc}")
+        raise RuntimeError(f"parent K4: CUDA error {rc}")
     return out, sums
 
 
@@ -904,13 +1169,10 @@ def phase_k4(parent=None) -> dict:
                 del ref, ref_sums
                 kern = lambda: pallas_osa.osa_reduce(pieces, ws, s, b)
                 if parent is not None:
-                    wc = [wi.contiguous() for wi in ws]
-                    old = lambda: parent_osa_reduce(parent, pieces, wc, s, b)
-                    turns = [cuda_ms(f) for f in (old, kern, kern, old)]
-                    ms, old_ms = min(turns[1:3]), min(turns[0], turns[3])
+                    ms, old_ms, text = in_turns(kern, lambda: parent_osa_reduce(
+                        parent, pieces, ws, s, b))
                     parent_ms += per_req * old_ms
-                    line += (f"; parent K4 {turns[0]:.3f} / {turns[3]:.3f} "
-                             f"ms, kernel {turns[1]:.3f} / {turns[2]:.3f} ms")
+                    line += "; " + text
                 else:
                     ms = cuda_ms(kern)
                     line += f"; kernel {ms:.3f} ms"
@@ -944,6 +1206,7 @@ def phase_k4(parent=None) -> dict:
                                      f" or took the wrong tile ({took})")
             del pieces, ws, out, sums
     res["bound_by"] = "operations" if "operations" in bound_kinds else "bytes"
+    res["parent_ms"] = parent_ms if parent is not None else None
     print(f"K4 per request on the bfloat16 path (16 launches): kernel "
           f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, cuDNN 1x1 "
           f"conv {res['library_ms']:.3f} ms (kernel / cuDNN "
@@ -954,14 +1217,63 @@ def phase_k4(parent=None) -> dict:
     return res
 
 
-def phase_k5() -> dict:
-    """K5 at the 7 VoVNet-99 block shapes; per request (16 calls)."""
-    from transcar_tpu_torch.ops import pallas_osa_block
+def parent_osa_block(lib, x, w9s, affs, rws, raff):
+    """The parent commit's bfloat16 K5 with its wrapper's preparation:
+    where the library has the chain tile ``lib.osa_conv3x3_bf16_wgmma``,
+    its launches on K-major chain weights, then the parent's K4 on the
+    chain; else ``lib.osa_block_bf16`` (n_convs + 1 wmma-tile kernels of
+    conv_tile.cuh) on tap-major [9·Cin, Ch] chain weights and contiguous
+    [Cᵢ, Cr] reduce splits."""
+    n, h, w, c0 = x.shape
+    k, ch, cr = len(w9s), w9s[0].shape[-1], rws[0].shape[-1]
+    vp = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if hasattr(lib, "osa_conv3x3_bf16_wgmma"):
+        chain = [x]
+        for w9, (sc, bi) in zip(w9s, affs):
+            wk = w9.permute(3, 0, 1, 2).to(x.dtype).contiguous()
+            chain.append(torch.empty((n, h, w, ch), dtype=x.dtype,
+                                     device="cuda"))
+            rc = lib.osa_conv3x3_bf16_wgmma(
+                vp(chain[-2]), chain[-2].shape[-1], vp(wk), vp(sc), vp(bi),
+                vp(chain[-1]), n, h, w, ch, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K5 chain tile: CUDA error {rc}")
+        return parent_osa_reduce(lib, chain, rws, *raff)
+    ws = [w9.to(x.dtype).contiguous() for w9 in w9s]
+    rc_ws = [wr.to(x.dtype).contiguous() for wr in rws]
+    chain = [torch.empty((n, h, w, ch), dtype=x.dtype, device="cuda")
+             for _ in range(k)]
+    out = torch.empty((n, h, w, cr), dtype=x.dtype, device="cuda")
+    sums = torch.zeros((n, cr), dtype=torch.float32, device="cuda")
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    rc = lib.osa_block_bf16(
+        vp(x), c0, k, ch, ptrs(ws), ptrs([a[0] for a in affs]),
+        ptrs([a[1] for a in affs]), ptrs(chain), ptrs(rc_ws), vp(raff[0]),
+        vp(raff[1]), vp(out), vp(sums), n, h, w, cr, stream)
+    if rc != 0:
+        raise RuntimeError(f"parent osa_block_bf16: CUDA error {rc}")
+    return out, sums
+
+
+def phase_k5(parent=None) -> dict:
+    """K5 at the 7 VoVNet-99 block shapes; per request (16 calls) in
+    bfloat16 with its 5 chain-tile launches and its K4 reduce timed apart,
+    beside the default path's cost for the same blocks (cuDNN bf16 3×3
+    convs, then K4) and beside the parent commit's K5 (``parent``: its
+    kernel library) when given.  The weights are the K-major copies and
+    views the model caches."""
+    from transcar_tpu_torch.ops import pallas_osa, pallas_osa_block
 
     g = torch.Generator(device="cuda").manual_seed(5)
     res = _kernel_result()
+    res["parent_ms"] = 0.0 if parent is not None else None
+    per_req = {"chain": 0.0, "reduce": 0.0, "cudnn_chain": 0.0}
+    counts = lambda: (pallas_osa_block.launches,
+                      pallas_osa_block.wgmma_launches, pallas_osa.launches,
+                      pallas_osa.wgmma_launches)
     for dtype in (torch.bfloat16, torch.float32):
-        for h, w, c0, ch, cout, per_req in VOV_BLOCKS:
+        for h, w, c0, ch, cout, per_req_calls in VOV_BLOCKS:
             n = 6
             x = torch.randn(n, h, w, c0, device="cuda", generator=g).to(dtype)
             w9s, affs, cin = [], [], c0
@@ -972,25 +1284,58 @@ def phase_k5() -> dict:
                 affs.append(_affine(g, ch))
                 cin = ch
             widths = [c0] + [ch] * 5
-            rws = [(torch.randn(c, cout, device="cuda", generator=g)
-                    / math.sqrt(sum(widths))).to(dtype) for c in widths]
+            w_all = (torch.randn(cout, sum(widths), device="cuda", generator=g)
+                     / math.sqrt(sum(widths)))
+            rws = pallas_osa.kmajor_weights(w_all, widths, dtype)
             raff = _affine(g, cout)
+            wks = [pallas_osa_block.kmajor_conv_weight(w9, dtype) for w9 in w9s]
             args = (x, w9s, affs, rws, raff)
-            out, sums = pallas_osa_block.osa_block_fused(*args)
+            before = counts()
+            out, sums = pallas_osa_block.osa_block_fused(*args,
+                                                         conv_kmajor=wks)
+            got = tuple(a - b for a, b in zip(counts(), before))
             ref, ref_sums = pallas_osa_block.plain_osa_block(*args)
             torch.cuda.synchronize()
             err, rel = _rel_err(out, ref)
             _, srel = _rel_err(sums, ref_sums)
             stol = SUMS_TOL if dtype == torch.float32 else CHAIN_TOL[dtype]
-            ok = math.isfinite(rel) and rel <= CHAIN_TOL[dtype] and srel <= stol
+            bf16 = int(dtype == torch.bfloat16)
+            want = (1, 5 * bf16, bf16, bf16)
+            ok = (math.isfinite(rel) and rel <= CHAIN_TOL[dtype]
+                  and srel <= stol and got == want)
             line = (f"K5 osa_block {str(dtype)[6:]} 6x{h}x{w} {c0}->5x{ch}"
                     f"->{cout}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
                     f"(tol {CHAIN_TOL[dtype]:.0e}), sums rel err {srel:.3e} "
-                    f"(tol {stol:.0e})")
+                    f"(tol {stol:.0e}); launches K5 / chain tile / K4 / K4 "
+                    f"wgmma {got} (want {want})")
             if dtype == torch.bfloat16:
                 del ref, ref_sums
-                ms = cuda_ms(lambda: pallas_osa_block.osa_block_fused(*args),
-                             iters=10)
+                kern = lambda: pallas_osa_block.osa_block_fused(
+                    *args, conv_kmajor=wks)
+                if parent is not None:
+                    ms, old_ms, text = in_turns(kern, lambda: parent_osa_block(
+                        parent, *args))
+                    res["parent_ms"] += per_req_calls * old_ms
+                    line += "; " + text
+                else:
+                    ms = cuda_ms(kern)
+                    line += f"; kernel {ms:.3f} ms"
+                # the parts: the 5 chain-tile launches, then the reduce
+                chain = [x]
+                for wk, (sc, bi) in zip(wks, affs):
+                    chain.append(pallas_osa_block.conv3x3_kernel(chain[-1], wk,
+                                                                 sc, bi))
+                chain_ms = cuda_ms(lambda: [pallas_osa_block.conv3x3_kernel(
+                    a, wk, sc, bi) for a, wk, (sc, bi) in zip(chain, wks, affs)])
+                red_ms = cuda_ms(lambda: pallas_osa.osa_reduce(chain, rws,
+                                                               *raff))
+                # the default path's chain: cuDNN bf16 3x3 convs (no affine)
+                xs = [a.permute(0, 3, 1, 2) for a in chain[:5]]
+                wcs = [w9.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last) for w9 in w9s]
+                cudnn_ms = cuda_ms(lambda: [torch.nn.functional.conv2d(
+                    a, wc, padding=1) for a, wc in zip(xs, wcs)])
+                del xs, wcs, chain
                 plain_ms = cuda_ms(lambda: pallas_osa_block.plain_osa_block(
                     *args), iters=3, warmup=1)
                 flops = 2.0 * n * h * w * (9 * (c0 * ch + 4 * ch * ch)
@@ -1000,20 +1345,33 @@ def phase_k5() -> dict:
                     out, sums))
                 res["bound_by"] = kind
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["ms"] += per_req * ms
-                res["plain_ms"] += per_req * plain_ms
-                res["bound_ms"] += per_req * bound
-                line += (f"; kernel {ms:.3f} ms (6 device kernels), plain "
-                         f"{plain_ms:.3f} ms, bound {bound:.3f} ms by {kind}")
+                res["ms"] += per_req_calls * ms
+                res["plain_ms"] += per_req_calls * plain_ms
+                res["bound_ms"] += per_req_calls * bound
+                per_req["chain"] += per_req_calls * chain_ms
+                per_req["reduce"] += per_req_calls * red_ms
+                per_req["cudnn_chain"] += per_req_calls * cudnn_ms
+                line += (f"; chain tiles {chain_ms:.3f} ms + reduce (K4) "
+                         f"{red_ms:.3f} ms, cuDNN 3x3 chain {cudnn_ms:.3f} ms; "
+                         f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms by "
+                         f"{kind}")
             print(line + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"K5 {dtype} 6x{h}x{w} disagrees with "
-                                     f"its plain version: {rel}, sums {srel}")
-            del x, w9s, rws, out, sums, args
-    print(f"K5 per request on the bfloat16 path (16 calls): kernel "
-          f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
-          f"{res['bound_ms']:.3f} ms (no single PyTorch call computes an OSA "
-          f"block)")
+                                     f"its plain version ({rel}, sums {srel})"
+                                     f" or took the wrong tiles ({got})")
+            del x, w9s, rws, out, sums, args, wks
+    print(f"K5 per request on the bfloat16 path (16 calls: 80 chain-tile "
+          f"launches + 16 K4): kernel {res['ms']:.3f} ms (chain tiles "
+          f"{per_req['chain']:.3f} + reduce {per_req['reduce']:.3f}), plain "
+          f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms"
+          + (f", parent K5 {res['parent_ms']:.3f} ms (kernel / parent "
+             f"{res['ms'] / res['parent_ms']:.3f})" if parent else "")
+          + f"; the default path's cost for the same blocks: cuDNN bf16 3x3 "
+          f"chain {per_req['cudnn_chain']:.3f} ms + K4 "
+          f"{per_req['reduce']:.3f} ms = "
+          f"{per_req['cudnn_chain'] + per_req['reduce']:.3f} ms (no single "
+          f"PyTorch call computes an OSA block)")
     return res
 
 
@@ -1081,9 +1439,11 @@ def _zero_counts() -> None:
     from transcar_tpu_torch.ops import pallas_msdeform
 
     pallas_dcn.launches = pallas_dcn.backward_launches = 0
+    pallas_dcn.wgmma_launches = 0
     pallas_attention.launches = pallas_osa.launches = 0
     pallas_osa.wgmma_launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
+    pallas_osa_block.wgmma_launches = 0
     pallas_msdeform.launches = 0
     pallas_msdeform.backward_taps_launches = 0
     pallas_msdeform.backward_value_launches = 0
@@ -1192,16 +1552,21 @@ def phase_k5_path(smi: str) -> int:
             init_weights(net, torch.Generator().manual_seed(0))
             nets[impl] = net.to(device="cuda",
                                 memory_format=torch.channels_last).eval()
+        bf16 = int(dtype == "bfloat16")
+        want = (16, 80 * bf16, 16 * bf16, 16 * bf16)
         with torch.inference_mode():
             _zero_counts()
             fused = nets["fused"](x)
             torch.cuda.synchronize()
-            counts = (pallas_osa_block.launches, pallas_osa.launches)
+            counts = (pallas_osa_block.launches,
+                      pallas_osa_block.wgmma_launches, pallas_osa.launches,
+                      pallas_osa.wgmma_launches)
             default = nets["pallas"](x)
-            k4 = pallas_osa.launches - counts[1]
-            if counts != (16, 0) or k4 != 16:
-                raise AssertionError(f"K5 path launches K5/K4 {counts}, K4 "
-                                     f"path K4 {k4}; want (16, 0) and 16")
+            k4 = pallas_osa.launches - counts[2]
+            if counts != want or k4 != 16:
+                raise AssertionError(
+                    f"K5 path launches K5 / chain tile / K4 / K4 wgmma "
+                    f"{counts}, K4 path K4 {k4}; want {want} and 16")
             rels = [_rel_err(a, b)[1] for a, b in zip(fused, default)]
             finite = all(bool(torch.isfinite(a).all()) for a in fused)
             # timed in bfloat16 only: the K4 path's float32 chain convs
@@ -1213,7 +1578,8 @@ def phase_k5_path(smi: str) -> int:
                 f"{cuda_ms(lambda: nets['pallas'](x), iters=5, warmup=1):.2f}"
                 f" ms on {smi}")
         ok = finite and (dtype == "bfloat16" or max(rels) <= BACKBONE_TOL)
-        print(f"K5 path VoVNet-99 {dtype} 6x3x928x1600: 16 K5 launches; "
+        print(f"K5 path VoVNet-99 {dtype} 6x3x928x1600: launches K5 / chain "
+              f"tile / K4 reduce / K4 on the wgmma tile {counts}; "
               f"stage 2-5 max_rel_err vs the K4 path "
               + " / ".join(f"{r:.3e}" for r in rels)
               + (f" (tol {BACKBONE_TOL:.0e})" if dtype == "float32"
@@ -1233,18 +1599,26 @@ def phase_k6_path(smi: str) -> int:
     from transcar_tpu_torch.cli import benchmark
     from transcar_tpu_torch.core.config import get_preset
 
+    from transcar_tpu_torch.ops import pallas_dcn
+
     preset, fused = "transcar_r101", "model.backbone.block_impl=fused"
     per_req = {"bottleneck": 6, "dcn_forward": 26, "masked_attention": 3}
     _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3",
                               "--cfg-options", fused])
+    k1_wgmma = pallas_dcn.wgmma_launches
     got = {k: rec["kernel_launches"][k] for k in per_req}
     want = {k: v * rec["requests"] for k, v in per_req.items()}
     valid = _check_outputs("K6 path", out, get_preset(preset))
     print(f"K6 path {preset} block_impl=fused 6x928x1600 bs1: launches {got}"
-          f" (want {want}); outputs finite; decode {valid}/300 valid boxes")
+          f" (want {want}), K1 on the wgmma tile {k1_wgmma} of "
+          f"{got['dcn_forward']}; outputs finite; decode {valid}/300 valid "
+          f"boxes")
     if got != want:
         raise AssertionError(f"K6 path launches {got} != {want}")
+    if k1_wgmma != got["dcn_forward"]:
+        raise AssertionError(f"K6 path: {got['dcn_forward'] - k1_wgmma} K1 "
+                             "launches missed the wgmma tile")
     plain = ["model.backbone.dcn_impl=exact",
              "model.head.use_pallas_attention=false"]
     worst = _fp32_vs_plain(preset, [fused], plain)
@@ -1666,13 +2040,21 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", default=None,
                     help="an earlier commit's transcar_tpu_torch/csrc: build "
-                         "it too and time its K3 and K4 in turns with "
-                         "these (phases K3, K4)")
+                         "it too and time its K1, K3, K4 and K5 in turns "
+                         "with these (phases K1, K3, K4, K5)")
+    ap.add_argument("--variants", choices=("k1", "k5", "all"), default=None,
+                    help="instead of the phases: build and time the knock-out "
+                         "variants of the K1 and / or K5 Hopper tiles "
+                         "(VARIANTS), then exit")
     args = ap.parse_args(argv)
     smi = phase_device()
+    if args.variants:
+        phase_variants(["k1", "k5"] if args.variants == "all"
+                       else [args.variants], smi)
+        return
     phase_build()
     parent = parent_library(args.parent_csrc) if args.parent_csrc else None
-    k1 = phase_k1()
+    k1 = phase_k1(parent)
     k3 = phase_k3(parent)
     k2 = phase_k2()
     launches = phase_slice(smi)
@@ -1680,7 +2062,7 @@ def main(argv=None) -> None:
     phase_train_check()
     launches["dcn_backward"] = train["detr3d_r101"]["launches"][1]
     k4 = phase_k4(parent)
-    k5 = phase_k5()
+    k5 = phase_k5(parent)
     k6 = phase_k6()
     launches["osa_reduce"] = phase_vovnet_slice(smi)["osa_reduce"]
     launches["osa_block"] = phase_k5_path(smi)
@@ -1724,7 +2106,8 @@ def main(argv=None) -> None:
                         "plain_ms": res["plain_ms"],
                         "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"],
-                        "library_ms": res["library_ms"]})
+                        "library_ms": res["library_ms"],
+                        "parent_ms": res.get("parent_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,82 @@ def test_dcn_kernel_rejects_unsupported_shapes(dev):
                                      torch.zeros(3, 3, 24, 8, device=dev))
 
 
+# a bfloat16 call the Hopper tile does not take raises: no other tile
+@pytest.mark.parametrize("cin,cout", [(12, 8), (16, 12)])
+def test_dcn_bfloat16_raises_off_the_wgmma_tile(dev, cin, cout):
+    x = torch.zeros(1, 4, 4, cin, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Cin % 8 == 0 and Cout % 8 == 0"):
+        pallas_dcn.fused_deform_conv(
+            x, torch.zeros(1, 4, 4, 27, device=dev, dtype=torch.bfloat16),
+            torch.zeros(3, 3, cin, cout, device=dev))
+
+
+def _dcn_fwd_case(dev, n, h, w, cin, cout, offsets):
+    """bfloat16 K1 inputs: offsets over ±8 px ("pm8"), ±40 px ("far": most
+    taps land outside the image), 0 ("zero"), whole pixels in [-3, 3]
+    ("integer") or N(0, 2 px) ("model", the benchmark's scale)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n, h, w, cin, device=dev, generator=g)
+    om = torch.randn(n, h, w, 27, device=dev, generator=g)
+    u = torch.rand(n, h, w, 18, device=dev, generator=g)
+    om[..., :18] = {"pm8": u * 16 - 8, "far": u * 80 - 40, "zero": u * 0,
+                    "integer": (u * 7).floor() - 3,
+                    "model": torch.randn(n, h, w, 18, device=dev,
+                                         generator=g) * 2}[offsets]
+    wt = torch.randn(3, 3, cin, cout, device=dev, generator=g) / (9 * cin) ** 0.5
+    return x.bfloat16(), om.bfloat16(), wt.bfloat16()
+
+
+def _dcn_fwd_check(x, om, wt, weight_kmajor=None):
+    counts = (pallas_dcn.launches, pallas_dcn.wgmma_launches)
+    out = pallas_dcn.fused_deform_conv(x, om, wt, weight_kmajor)
+    ref = dcn.modulated_deform_conv(x, om, wt)
+    assert (pallas_dcn.launches, pallas_dcn.wgmma_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    _close(out, ref, 1e-2)
+
+
+# K1's Hopper tile against its plain version in bfloat16, max|kernel −
+# plain| over max|plain| within one output rounding (2⁻⁸) with margin:
+# pixel counts off the 128-pixel tile, each Cout tile width (64, 128, 256;
+# 512 as two 256-wide tiles), Cin 64 and 40 (no multiple of the 64-channel
+# slice), offsets far outside the image, zero and whole-pixel
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 7, 11, 64, 64), (2, 9, 13, 40, 128), (1, 13, 21, 64, 256),
+    (2, 5, 9, 128, 512), (1, 6, 7, 40, 72)])
+@pytest.mark.parametrize("offsets", ["pm8", "far", "zero", "integer"])
+def test_dcn_wgmma_tile(dev, n, h, w, cin, cout, offsets):
+    _dcn_fwd_check(*_dcn_fwd_case(dev, n, h, w, cin, cout, offsets))
+
+
+# the two flagship shapes (23 + 3 launches of an R101 request)
+@pytest.mark.parametrize("n,h,w,cin,cout", [(6, 58, 100, 256, 256),
+                                            (6, 29, 50, 512, 512)])
+@pytest.mark.parametrize("offsets", ["model", "pm8"])
+def test_dcn_wgmma_tile_flagship(dev, n, h, w, cin, cout, offsets):
+    _dcn_fwd_check(*_dcn_fwd_case(dev, n, h, w, cin, cout, offsets))
+
+
+def test_dcn_wgmma_tile_takes_a_cached_weight(dev):
+    # the float32 parameter with its cached K-major bf16 copy, as
+    # models/resnet.DCNConv passes them; a copy of the wrong layout is not
+    # read (the wrapper builds its own)
+    x, om, wt = _dcn_fwd_case(dev, 1, 9, 10, 64, 96, "pm8")
+    w32 = wt.float()
+    _dcn_fwd_check(x, om, w32, pallas_dcn.kmajor_weight(w32))
+    _dcn_fwd_check(x, om, w32, wt.contiguous())
+
+
+def test_dcn_float32_keeps_the_first_tile(dev):
+    x, om, wt = (t.float() for t in _dcn_fwd_case(dev, 1, 7, 11, 64, 72,
+                                                   "pm8"))
+    counts = (pallas_dcn.launches, pallas_dcn.wgmma_launches)
+    out = pallas_dcn.fused_deform_conv(x, om, wt)
+    assert (pallas_dcn.launches, pallas_dcn.wgmma_launches) == (
+        counts[0] + 1, counts[1])
+    _close(out, dcn.modulated_deform_conv(x, om, wt), 1e-5)
+
+
 def _dcn_bwd_case(dev, n, h, w, cin, cout, dtype, offsets):
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(n, h, w, cin, device=dev, generator=g)
@@ -123,10 +199,12 @@ def test_dcn_autograd_function(dev):
     omr = om.clone().requires_grad_()
     wr = wt.clone().requires_grad_()
     f0, b0 = pallas_dcn.launches, pallas_dcn.backward_launches
+    t0 = pallas_dcn.wgmma_launches
     out = pallas_dcn.fused_deform_conv(xc.permute(0, 2, 3, 1), omr, wr)
     out.backward(d_out)
     assert (pallas_dcn.launches, pallas_dcn.backward_launches) == (f0 + 1,
                                                                    b0 + 1)
+    assert pallas_dcn.wgmma_launches == t0 + 1      # K1's Hopper tile feeds K3
     assert wr.grad.dtype == torch.float32
     assert xc.grad.shape == xc.shape and torch.isfinite(xc.grad).all()
     ref = pallas_dcn.plain_backward(x, om, wt, d_out)
@@ -259,6 +337,60 @@ def test_osa_block_kernel(dev, dtype, n, h, w, c0, ch, cr, k):
     out, sums = pallas_osa_block.osa_block_fused(x, w9s, affs, rws, raff)
     ref, ref_sums = pallas_osa_block.plain_osa_block(x, w9s, affs, rws, raff)
     assert pallas_osa_block.launches == before + 1
+    _close(out, ref, CHAIN_TOL[dtype])
+    _close(sums, ref_sums, SUMS_TOL if dtype == torch.float32
+           else CHAIN_TOL[dtype])
+
+
+# K5's chain tile against conv3x3_affine_relu rounded once to bfloat16:
+# the ragged chain widths 160 and 224 (no multiple of the 64-channel slice),
+# W = 50 (no multiple of any tile width), a single row, several images
+@pytest.mark.parametrize("n,h,w,cin,ch", [
+    (2, 1, 50, 64, 160), (1, 3, 50, 224, 224), (2, 9, 50, 160, 160),
+    (1, 17, 19, 128, 128), (1, 5, 100, 192, 192)])
+def test_osa_chain_wgmma_tile(dev, n, h, w, cin, ch):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(n, h, w, cin, device=dev, generator=g).bfloat16()
+    w9 = torch.randn(3, 3, cin, ch, device=dev, generator=g) / (9 * cin) ** 0.5
+    s, b = _aff(g, ch, dev)
+    before = pallas_osa_block.wgmma_launches
+    out = pallas_osa_block.conv3x3_kernel(
+        x, pallas_osa_block.kmajor_conv_weight(w9, torch.bfloat16), s, b)
+    ref = pallas_osa_block.conv3x3_affine_relu(x, w9, (s, b)).bfloat16()
+    assert pallas_osa_block.wgmma_launches == before + 1
+    _close(out, ref, CONV_TOL[torch.bfloat16])
+
+
+# a whole bfloat16 block on the Hopper tiles (k chain tiles, then K4's
+# wgmma tile for the reduce) against plain_osa_block; float32 keeps the
+# wmma tile of conv_tile.cuh for all of it
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c0,ch,cr,k", [
+    (2, 1, 50, 256, 160, 512, 5),
+    (1, 7, 50, 768, 224, 1024, 5),
+    (1, 9, 13, 128, 128, 256, 2),
+])
+def test_osa_block_wgmma_tiles(dev, dtype, n, h, w, c0, ch, cr, k):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(n, h, w, c0, device=dev, generator=g).to(dtype)
+    w9s, affs, cin = [], [], c0
+    for _ in range(k):
+        w9s.append(torch.randn(3, 3, cin, ch, device=dev, generator=g)
+                   / (9 * cin) ** 0.5)
+        affs.append(_aff(g, ch, dev))
+        cin = ch
+    rws = [torch.randn(c, cr, device=dev, generator=g) / (c0 + k * ch) ** 0.5
+           for c in [c0] + [ch] * k]
+    raff = _aff(g, cr, dev)
+    counts = lambda: (pallas_osa_block.launches,
+                      pallas_osa_block.wgmma_launches, pallas_osa.launches,
+                      pallas_osa.wgmma_launches)
+    before = counts()
+    out, sums = pallas_osa_block.osa_block_fused(x, w9s, affs, rws, raff)
+    ref, ref_sums = pallas_osa_block.plain_osa_block(x, w9s, affs, rws, raff)
+    bf16 = int(dtype == torch.bfloat16)
+    assert counts() == (before[0] + 1, before[1] + k * bf16,
+                        before[2] + bf16, before[3] + bf16)
     _close(out, ref, CHAIN_TOL[dtype])
     _close(sums, ref_sums, SUMS_TOL if dtype == torch.float32
            else CHAIN_TOL[dtype])

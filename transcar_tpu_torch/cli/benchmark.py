@@ -215,11 +215,11 @@ def _write_trace(prof, trace_dir, dev, wall_s: float, count: int) -> dict:
 #: Kernel groups of the trace summary: the first pattern a kernel's name
 #: contains decides its group.
 KERNEL_GROUPS = (
-    ("K1 dcn_forward", ("dcn_forward_kernel",)),
+    ("K1 dcn_forward", ("dcn_forward_kernel", "dcn_forward_wgmma_kernel")),
     ("K3 dcn_backward", ("dcn_bwd_",)),
     ("K2 masked_attention", ("masked_attention",)),
     ("K4 osa_reduce", ("osa_reduce_wgmma", "conv_gemm_kernel<4,")),
-    ("K5 osa_block", ("conv_gemm_kernel<5,",)),
+    ("K5 osa_block", ("osa_chain_wgmma", "conv_gemm_kernel<5,")),
     ("K6 bottleneck", ("conv_gemm_kernel<6,",)),
     ("K7 msdeform_forward", ("msdeform_forward_kernel",)),
     ("K8 msdeform_backward_taps", ("msdeform_backward_taps_kernel",)),

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) GEMM building block shared by K4 (osa_reduce.cu) and K3
-// (dcn_backward.cu): a warpgroup tile of `wgmma.mma_async` fed by an
+// Hopper (sm_90a) GEMM building block shared by K1 (dcn_forward.cu), K3
+// (dcn_backward.cu), K4 (osa_reduce.cu) and K5 (osa_block.cu, through
+// osa_wgmma.cuh): a warpgroup tile of `wgmma.mma_async` fed by an
 // asynchronous multi-stage ring in shared memory.
 //
 // - TMA tile loads (`cp.async.bulk.tensor`) from CUtensorMaps passed to the
@@ -108,6 +109,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 // Order this thread's generic-proxy shared-memory writes before later
@@ -278,14 +289,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (2 or 3) dimensions, innermost first, with
+// A bf16 tensor map of `rank` (2 to 4) dimensions, innermost first, with
 // byte strides of the outer dimensions, a box of `box` elements and the
-// 128-byte swizzle (box[0] must be 64).  Returns false on failure.
+// 128-byte swizzle (box[0] must be 64).  Box coordinates may start below 0
+// or end past a dimension: those elements load as zeros.  Returns false on
+// failure.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                      const uint64_t* strides, const uint32_t* box) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

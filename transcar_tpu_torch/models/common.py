@@ -29,6 +29,22 @@ LN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
 
+def cached_copy(module: nn.Module, name: str, params: Sequence[torch.Tensor],
+                dtype: torch.dtype, build):
+    """``build()`` (a kernel's layout of ``params`` in ``dtype``), kept on
+    ``module`` under ``name`` and rebuilt when a parameter changes (in
+    place, which bumps its ``_version``, or moved or replaced), when
+    ``dtype`` does or when the inference mode does."""
+    key = (tuple((id(w), w._version, w.data_ptr(), w.device) for w in params),
+           dtype, torch.is_inference_mode_enabled())
+    hit = module.__dict__.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, build())
+        module.__dict__[name] = hit
+    return hit[1]
+
+
 def disable_tf32() -> None:
     """Full float32 matmuls and convolutions: TF32 keeps ~10 mantissa
     bits, and cuDNN allows it for float32 convolutions by default."""

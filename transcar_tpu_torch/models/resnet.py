@@ -29,10 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from transcar_tpu_torch.models.common import Conv2d, ConvBN, FrozenBN
+from transcar_tpu_torch.models.common import (Conv2d, ConvBN, FrozenBN,
+                                              cached_copy)
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
 from transcar_tpu_torch.ops.pallas_bottleneck import bottleneck_fused
-from transcar_tpu_torch.ops.pallas_dcn import fused_deform_conv
+from transcar_tpu_torch.ops.pallas_dcn import fused_deform_conv, kmajor_weight
 
 RESNET_DEPTHS = {
     50: (3, 4, 6, 3),
@@ -51,7 +52,8 @@ class DCNConv(nn.Module):
     plain version on a CPU one.  The wrapper gets the float32 ``weight``
     and casts it inside, as the JAX module hands ``fused_deform_conv_ad``
     its float32 param, so the weight gradient reaches the optimizer
-    unrounded.
+    unrounded.  On a CUDA tensor it also hands K1's Hopper tile the
+    parameter's K-major copy in the compute dtype, cached.
     """
 
     def __init__(self, in_features: int, features: int, impl: str = "exact"):
@@ -62,12 +64,20 @@ class DCNConv(nn.Module):
         self.conv_offset = Conv2d(in_features, 27, 3, padding=1)
         self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3))
 
+    def _weight_kmajor(self, dtype) -> torch.Tensor:
+        """K1's weight: ``kmajor_weight`` of the [3, 3, Cin, Cout] view,
+        [Cout, 3, 3, Cin] in ``dtype`` (:func:`cached_copy`)."""
+        w = self.weight
+        return cached_copy(self, "_kmajor", [w], dtype, lambda: kmajor_weight(
+            w.permute(2, 3, 1, 0), dtype))
+
     def forward(self, x):
         om = self.conv_offset(x).permute(0, 2, 3, 1)          # NHWC views
         xh = x.permute(0, 2, 3, 1)
         w = self.weight.permute(2, 3, 1, 0)                  # [3,3,Cin,Cout]
         if self.impl == "pallas":
-            out = fused_deform_conv(xh, om, w)
+            out = fused_deform_conv(
+                xh, om, w, self._weight_kmajor(x.dtype) if x.is_cuda else None)
         else:
             out = modulated_deform_conv(xh, om, w.to(x.dtype))
         return out.permute(0, 3, 1, 2)

@@ -34,9 +34,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from transcar_tpu_torch.models.common import Conv2d, ConvBN
+from transcar_tpu_torch.models.common import Conv2d, ConvBN, cached_copy
 from transcar_tpu_torch.ops.pallas_osa import kmajor_weights, osa_reduce
-from transcar_tpu_torch.ops.pallas_osa_block import osa_block_fused
+from transcar_tpu_torch.ops.pallas_osa_block import (kmajor_conv_weight,
+                                                     osa_block_fused)
 
 V99_SPEC = dict(
     stem=(64, 64, 128),
@@ -95,25 +96,21 @@ class OSABlock(nn.Module):
             cin = stage_ch
         self.concat = ConvBN(sum(self.widths), concat_ch, 1)
         self.ese = (eSE if reduce_impl == "xla" else _eSEGate)(concat_ch)
-        self._kmajor_key, self._kmajor = None, None
 
     def _reduce_kmajor(self, dtype) -> list:
         """K4's weights: K-major [Cᵢ, Cout] views in ``dtype``
-        (:func:`kmajor_weights`), cached and rebuilt when the parameter
-        changes (in place, which bumps its ``_version``, or moved or
-        replaced)."""
+        (:func:`kmajor_weights`, :func:`cached_copy`)."""
         w = self.concat.conv.weight
-        key = (id(w), w._version, w.data_ptr(), w.device, dtype)
-        if self._kmajor_key != key:
-            with torch.no_grad():
-                self._kmajor = kmajor_weights(w, self.widths, dtype)
-            self._kmajor_key = key
-        return self._kmajor
+        return cached_copy(self, "_kmajor", [w], dtype,
+                           lambda: kmajor_weights(w, self.widths, dtype))
 
-    def _reduce_splits(self, dtype) -> list:
-        """The 1×1 reduce kernel as [Cᵢ, Cout] row blocks, one per piece."""
-        w = self.concat.conv.weight[:, :, 0, 0].to(dtype).t().contiguous()
-        return list(torch.split(w, self.widths, 0))
+    def _chain_kmajor(self, dtype) -> list:
+        """K5's chain weights: K-major [Ch, 3, 3, Cinᵢ] copies in ``dtype``
+        (:func:`kmajor_conv_weight`, :func:`cached_copy`)."""
+        ws = [getattr(self, f"conv{i}").conv.weight
+              for i in range(self.n_convs)]
+        return cached_copy(self, "_chain", ws, dtype, lambda: [
+            kmajor_conv_weight(w.permute(2, 3, 1, 0), dtype) for w in ws])
 
     def forward(self, x):
         identity = x
@@ -122,7 +119,9 @@ class OSABlock(nn.Module):
             out, sums = osa_block_fused(
                 _nhwc(x), [c.conv.weight.permute(2, 3, 1, 0) for c in convs],
                 [c.bn.affine() for c in convs],
-                self._reduce_splits(x.dtype), self.concat.bn.affine())
+                self._reduce_kmajor(x.dtype), self.concat.bn.affine(),
+                conv_kmajor=(self._chain_kmajor(x.dtype) if x.is_cuda
+                             else None))
         else:
             outputs = [x]
             for i in range(self.n_convs):

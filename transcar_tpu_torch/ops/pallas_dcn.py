@@ -7,23 +7,52 @@ bilinear taps × σ(mask) and the fused 9·Cin → Cout contraction.
 
 What bounds it on the H100: the flagship runs it 26 times a request
 (23× [6, 58, 100, 256] → 256, 3× [6, 29, 50, 512] → 512), about 1.07 TFLOP
-a sample, so it is tensor-core bound once the bilinear gather keeps up;
-the gather reads 4 corners × 9 taps per pixel, about 36× the input, which
-stays in the 50 MB L2 (the largest input is 17.8 MB in bf16).
+a sample, 1.08 ms at the bfloat16 dense peak.  The bilinear gather reads 4
+corners × 9 taps per pixel, about 36× the input (16.7 GB of corner rows a
+request; the largest input is 17.8 MB in bf16 and stays in the 50 MB L2),
+and that gather sets the pace: taking its corner loads out cuts the
+kernel's time by more than half, and on half the SMs it takes 1.9× as long,
+so what binds is how many corner loads each SM keeps in flight, not the
+card's L2 (``chip_smoke.py --variants``).
 
-What the design does about it: an implicit GEMM over M = N·H·W pixels,
-N = Cout and K = 9·Cin.  A block owns a 64-pixel × 128-channel output
-tile.  It first computes, once per (pixel, tap) in float32, the four
-corner addresses (−1 outside the image) and their bilinear weights with
-σ(mask) folded in.  Then for each 32-wide K slice it gathers the corners
-with 16-byte loads, writes the modulated sample (rounded to the working
-type, as ``pallas_dcn.py`` rounds ``sampled``) into a shared-memory A
-tile, stages the weight slice as the B tile and multiplies on the tensor
-cores (``nvcuda::wmma`` bf16 16×16×16, fp32 accumulate; float32 inputs
-take a CUDA-core FMA loop instead, so the float32 path has no TF32).
-The sampled [pixels, 9·Cin] matrix never reaches device memory.  The
-TPU kernel's row band, one-hot matmuls and ``rows_per_step`` were Mosaic
-workarounds and are gone: the result is exact for any offset.
+What the design does about it: an implicit GEMM over M = N·H·W pixels, N =
+Cout and K = 9·Cin in which the sampled [pixels, 9·Cin] matrix never reaches
+device memory.  Every bfloat16 call (Cin and Cout multiples of 8,
+:func:`takes_wgmma_tile`; every K1 launch of the R101 presets) takes the
+Hopper tile of ``csrc/dcn_forward.cu`` on ``csrc/hopper_tile.cuh``: a
+persistent block per SM walks tiles of a pixel rectangle (at most 128
+pixels, shaped so that the rounds of one tile per SM come out full, e.g. 10
+× 10 on the layer-3 shape, whose 272 tiles of 128 pixels would leave a third
+round of 8) × 256 output channels (128 or 64 for a smaller Cout), so at Cout
+256 one gather serves the whole product. K walks the 64-channel slices and
+within each the 9 taps through a 2-stage shared-memory ring: the taps of one
+slice read overlapping corner rows of the tile's neighbourhood, and the
+block leaves all the shared memory it does not need to L1, which serves them
+again (a third stage takes from that L1 and was slower).  A gather warpgroup
+writes each slice's A operand: per tile a thread computes one pixel's four
+corners and bilinear weights × σ(mask) for the 9 taps in float32 into a
+shared table; per slice 8 neighbouring threads read one 128-byte corner row
+with 16-byte loads (32 loads a thread in flight), combine the corners in
+float32, round the modulated sample once to bfloat16 (as ``pallas_dcn.py``
+rounds ``sampled``) and write it in the 128-byte swizzle ``wgmma`` reads,
+the same bytes K3's d_W kernel writes. Two consumer warpgroups multiply
+(``wgmma`` m64n256k16, float32 accumulators); the epilogue rounds once and
+stores 16 bytes a lane.  (Two gather warpgroups do not fit: with 512 threads
+``ptxas`` caps every thread at 128 registers, below what m64n256 needs.)
+The weight is the B operand K-major, [Cout, 3, 3, Cin] in bfloat16
+(:func:`kmajor_weight`), loaded by TMA from a 3-D map [Cout][9][Cin] whose
+zero fill ends a slice past a Cin that is no multiple of 64, so no slice
+reads the next tap's rows.  That layout needs a copy of the [3, 3, Cin,
+Cout] weight, and so does the cast of the float32 parameter that every call
+made before; ``models/resnet.DCNConv`` caches the copy per parameter
+version, so a serving request makes none.  (The [9·Cin, Cout] weight as an
+MN-major B would need no permute but still the cast, and reads each slice as
+four 64-wide boxes.)  A bfloat16 call the Hopper tile does not take raises.
+float32 calls (the checks) take the first tile: a block of 64 pixels × 128
+channels that stages a 32-wide K slice, gather and multiply in turn, on
+CUDA-core FMAs (no TF32).  Both tiles are exact for any offset; the TPU
+kernel's row band, one-hot matmuls and ``rows_per_step`` were Mosaic
+workarounds and are gone.
 
 The backward, K3 (``csrc/dcn_backward.cu``), replaces
 ``transcar_tpu/ops/pallas_dcn.py::_fused_dcn_bwd_impl`` (the Pallas
@@ -60,7 +89,7 @@ kernel are gone: exact for any offset.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,10 +98,11 @@ from transcar_tpu_torch.ops.dcn import modulated_deform_conv
 
 #: K1 (forward) launches since the count was last set to 0.
 launches = 0
+#: Of those, the launches that took the Hopper (wgmma) tile.
+wgmma_launches = 0
 #: K3 (backward) launches since the count was last set to 0.
 backward_launches = 0
 
-_ENTRY = {torch.bfloat16: "dcn_forward_bf16", torch.float32: "dcn_forward_f32"}
 _BWD_DATA = {torch.bfloat16: "dcn_backward_data_bf16",
              torch.float32: "dcn_backward_data_f32"}
 _BWD_WEIGHT = {torch.bfloat16: "dcn_backward_weight_bf16",
@@ -81,7 +111,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
-                      weight: torch.Tensor) -> torch.Tensor:
+                      weight: torch.Tensor,
+                      weight_kmajor: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """DCNv2, 3×3 / stride 1 / pad 1 / dilation 1, exact for any offset,
     differentiable in all three inputs.
 
@@ -92,6 +124,9 @@ def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
       weight: [3, 3, Cin, Cout], any float dtype (the float32 parameter):
         cast to x.dtype for the product, and its gradient comes back in
         its own dtype, accumulated in float32.
+      weight_kmajor: optional :func:`kmajor_weight` of ``weight`` (a
+        cached copy); the Hopper tile uses it when it has the layout and
+        dtype it reads, and builds one otherwise.
     Returns:
       [N, H, W, Cout] in x.dtype.
 
@@ -100,7 +135,7 @@ def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
     """
     if x.device.type == "cpu":
         return modulated_deform_conv(x, offset_mask, weight.to(x.dtype))
-    return FusedDeformConvFunction.apply(x, offset_mask, weight)
+    return FusedDeformConvFunction.apply(x, offset_mask, weight, weight_kmajor)
 
 
 class FusedDeformConvFunction(torch.autograd.Function):
@@ -108,21 +143,36 @@ class FusedDeformConvFunction(torch.autograd.Function):
     ``fused_deform_conv_ad``)."""
 
     @staticmethod
-    def forward(ctx, x, offset_mask, weight):
+    def forward(ctx, x, offset_mask, weight, weight_kmajor=None):
         x, offset_mask = x.contiguous(), offset_mask.contiguous()
         ctx.save_for_backward(x, offset_mask, weight)
-        return forward_kernel(x, offset_mask, weight)
+        return forward_kernel(x, offset_mask, weight, weight_kmajor)
 
     @staticmethod
     def backward(ctx, d_out):
-        return backward_kernel(*ctx.saved_tensors, d_out)
+        return (*backward_kernel(*ctx.saved_tensors, d_out), None)
 
 
-def _check(x, offset_mask, weight) -> None:
-    """Raise on what the kernels do not take."""
+def kmajor_weight(weight: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The [3, 3, Cin, Cout] DCN weight as the Hopper tile's K-major B:
+    [Cout, 3, 3, Cin] contiguous in ``dtype``."""
+    return weight.permute(3, 0, 1, 2).to(dtype).contiguous()
+
+
+def takes_wgmma_tile(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """Whether a K1 call takes the Hopper tile: bfloat16 with Cin and Cout
+    multiples of 8.  Any other bfloat16 call raises."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and weight.shape[-1] % 8 == 0)
+
+
+def _check(x, offset_mask, weight, cin_multiple: int = 32) -> None:
+    """Raise on what the kernels do not take (``cin_multiple``: 32 for the
+    first tiles, 8 for the forward's Hopper tile)."""
     n, h, w, cin = x.shape
     cout = weight.shape[-1]
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _BWD_DATA:
         raise TypeError(f"dcn kernel takes bfloat16 or float32, not {x.dtype}")
     if offset_mask.shape != (n, h, w, 27) or offset_mask.dtype != x.dtype:
         raise ValueError(f"offset_mask {tuple(offset_mask.shape)} "
@@ -131,9 +181,9 @@ def _check(x, offset_mask, weight) -> None:
     if weight.shape != (3, 3, cin, cout):
         raise ValueError(f"weight {tuple(weight.shape)} must be "
                          f"[3, 3, {cin}, Cout]")
-    if cin % 32 or cout % 8:
-        raise ValueError(f"dcn kernel needs Cin % 32 == 0 and Cout % 8 == 0,"
-                         f" got Cin={cin}, Cout={cout}")
+    if cin % cin_multiple or cout % 8:
+        raise ValueError(f"dcn kernel needs Cin % {cin_multiple} == 0 and "
+                         f"Cout % 8 == 0, got Cin={cin}, Cout={cout}")
     if not (x.is_cuda and offset_mask.device == x.device
             and weight.device == x.device):
         raise ValueError("dcn kernel: all tensors must be on one CUDA device")
@@ -145,25 +195,37 @@ def _aligned(*tensors) -> None:
 
 
 def forward_kernel(x: torch.Tensor, offset_mask: torch.Tensor,
-                   weight: torch.Tensor) -> torch.Tensor:
+                   weight: torch.Tensor,
+                   weight_kmajor: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """K1 on CUDA tensors (see :func:`fused_deform_conv`)."""
-    global launches
-    _check(x, offset_mask, weight)
+    global launches, wgmma_launches
+    x = x.contiguous()
+    wgmma = takes_wgmma_tile(x, weight)
+    _check(x, offset_mask, weight, 8 if x.dtype == torch.bfloat16 else 32)
     n, h, w, cin = x.shape
     cout = weight.shape[-1]
-    x = x.contiguous()
     offset_mask = offset_mask.contiguous()
-    weight = weight.to(x.dtype).contiguous()
+    if wgmma:
+        name = "dcn_forward_bf16_wgmma"
+        wk = weight_kmajor
+        if not (wk is not None and wk.shape == (cout, 3, 3, cin)
+                and wk.dtype == x.dtype and wk.device == x.device
+                and wk.is_contiguous()):
+            wk = kmajor_weight(weight, x.dtype)
+    else:
+        name = "dcn_forward_f32"
+        wk = weight.to(x.dtype).contiguous()
+    _aligned(x, wk)
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    _aligned(x, weight)
-    fn = kernel_lib.function(_ENTRY[x.dtype], _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P)
+    fn = kernel_lib.function(name, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), offset_mask.data_ptr(), weight.data_ptr(),
+        rc = fn(x.data_ptr(), offset_mask.data_ptr(), wk.data_ptr(),
                 out.data_ptr(), n, h, w, cin, cout, stream)
-    kernel_lib.check(rc, _ENTRY[x.dtype])
+    kernel_lib.check(rc, name)
     launches += 1
+    wgmma_launches += int(wgmma)
     return out
 
 
