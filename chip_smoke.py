@@ -6,13 +6,14 @@ Run from the repository root with no arguments::
 
 ``--parent-csrc DIR`` also builds an earlier commit's kernel sources (for
 example ``git archive <commit> transcar_tpu_torch/csrc`` unpacked under
-the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K4
-and K5 in turns with these (parent, kernel, kernel, parent) in phases 3,
-4 and 8; the summary line then carries each one's ``parent_ms``.
-``--variants k1|k5|all`` runs none of the phases: it builds each knock-out
-variant of the K1 / K5 Hopper tiles in ``VARIANTS`` (a copy of their
-sources under ``transcar_tpu_torch/build/variants/`` with one patch) and
-prints its time per request at the main path's shapes.
+the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K4,
+K5, K6, K7, K8 and K9 in turns with these (parent, kernel, kernel,
+parent) in phases 3, 4, 8, 13 and 15; the summary line then carries each
+one's ``parent_ms``.  ``--variants k1|k5|k6|k8|all`` runs none of the
+phases: it builds each knock-out variant of the K1 / K5 / K6 / K8 kernels
+in ``VARIANTS`` (a copy of their sources under
+``transcar_tpu_torch/build/variants/`` with its patches) and prints its
+time per request or step at the main path's shapes.
 
 Phases, one line each (a failing phase raises and the script exits
 non-zero):
@@ -54,7 +55,9 @@ non-zero):
      tile of ``conv_tile.cuh``; K5 in bfloat16 as 5 chain-tile launches
      and one K4 Hopper-tile launch per call, timed apart, beside the
      default path's cost for the same blocks (cuDNN bf16 3×3 chain, then
-     K4);
+     K4); K6 in bfloat16 on the Hopper tile with its three device kernels
+     timed apart, beside cuDNN's bf16 convolutions of the same shapes (a
+     reference line), and the K6 tile's ``-Xptxas -v`` lines;
   9. the VoVNet-99 slice through ``benchmark transcar_vovnet_trainval``:
      16 K4 + 3 K2 + 0 K1 launches per request, every K4 launch on the
      wgmma tile, finite outputs and decode,
@@ -66,8 +69,8 @@ non-zero):
      chain-tile launches and 16 reduces on K4's Hopper tile) against the K4
      default on the 4 stage outputs, float32, and both timed in bfloat16;
  11. the K6 path: ``benchmark transcar_r101 --cfg-options
-     model.backbone.block_impl=fused``: 6 K6 + 26 K1 (all on the Hopper
-     tile) + 3 K2 per request,
+     model.backbone.block_impl=fused``: 6 K6 + 26 K1 (all on their
+     Hopper tiles) + 3 K2 per request,
      float32 against the plain path, samples/s beside the default path;
  12. one ``transcar_vovnet_trainval --train`` fusion-only run: finite
      loss, camera frozen, no kernel launches (training takes the plain
@@ -85,11 +88,13 @@ non-zero):
  15. K8 (d_attn, d_loc) and K9 (d_value), the MSDeformAttn backward,
      against the plain backward (autograd of K7's plain version, chunked)
      at one encoder and one decoder call of the pillar shapes, with K7's
-     inputs and a random output gradient;
+     inputs and a random output gradient, K8 on its lane-group kernel;
+     per call and per step, and the lane-group kernel's ``-Xptxas -v``
+     line;
  16. ``objdgcnn_pillar`` training through ``benchmark --train`` at the
      same width (dropout 0.1, batch statistics, clip 35, AdamW with the
-     VFE and SECOND at lr × 0.1): 8 K7 + 8 K8 + 8 K9 launches per step
-     and no other kernel, finite losses, trainable elements and BN running
+     VFE and SECOND at lr × 0.1): 8 K7 + 8 K8 (all on the lane-group
+     kernel) + 8 K9 launches per step and no other kernel, finite losses, trainable elements and BN running
      statistics moved, ms/step and peak memory; then one float32 step
      with one decoder layer and dropout 0, kernel path against plain path
      (gradients per leaf);
@@ -326,50 +331,60 @@ def parent_library(csrc: str):
     return csrc_library(csrc, "parent")
 
 
-# Knock-out variants of the K1 and K5 Hopper tiles (``--variants``): name:
-# (sources copied, file patched, [(old text, new text), ...]).  A variant
-# that takes out part of the work computes garbage; only its time is read.
-# A patch whose old text is gone raises.  No patch may drop an mbarrier
-# wait: a gather that skips its wait on ``empty`` over-arrives the ring.
+# Knock-out variants of the K1, K5, K6 and K8 kernels (``--variants``):
+# name: (sources copied, [(file patched, old text, new text), ...]).  A
+# variant that takes out part of the work computes garbage; only its time
+# is read.  A patch whose old text is gone raises.  No patch may drop an
+# mbarrier wait: a gather that skips its wait on ``empty`` over-arrives the
+# ring.
 K1_SRC = ("dcn_forward.cu", "dcn_tap.cuh", "hopper_tile.cuh")
 K5_SRC = ("osa_block.cu", "osa_wgmma.cuh", "hopper_tile.cuh", "conv_tile.cuh")
+K6_SRC = ("bottleneck.cu", "osa_wgmma.cuh", "hopper_tile.cuh", "conv_tile.cuh")
+K8_SRC = ("msdeform_backward.cu", "msdeform_gather.cuh")
+_K6_BN64 = (
+    "  if (bn == 64) return osa::launch_tile<64>(bottleneck_{}_wgmma_kernel<64{}>, p,"
+    " stream);\n  return bn == 256\n")
 VARIANTS = {
-    "k1 base": (K1_SRC, None, []),
-    "k1 3-stage ring": (K1_SRC, "dcn_forward.cu", [(
-        "constexpr int F_STAGES = 2;", "constexpr int F_STAGES = 3;")]),
-    "k1 8x16 tiles": (K1_SRC, "dcn_forward.cu", [(
-        "  pick_tile(p, sms);",
+    "k1 base": (K1_SRC, []),
+    "k1 3-stage ring": (K1_SRC, [(
+        "dcn_forward.cu", "constexpr int F_STAGES = 2;", "constexpr int F_STAGES = 3;")]),
+    "k1 8x16 tiles": (K1_SRC, [(
+        "dcn_forward.cu", "  pick_tile(p, sms);",
         "  pick_tile(p, sms);\n  p.bh = 8; p.bw = 16; p.tiles_h = (H + 7) / 8;"
         " p.tiles_w = (W + 15) / 16;\n"
         "  p.tiles = N * p.tiles_h * p.tiles_w * p.tiles_n;")]),
-    "k1 taps outer (K order tap, then channel slice)": (K1_SRC, "dcn_forward.cu", [(
+    "k1 taps outer (K order tap, then channel slice)": (K1_SRC, [(
+        "dcn_forward.cu",
         "      for (int c = 0; c < p.cs; ++c) {\n        for (int k = 0; k < 9; ++k) {",
         "      for (int k = 0; k < 9; ++k) {\n        for (int c = 0; c < p.cs; ++c) {")]),
-    "k1 all shared memory carved out (small L1)": (K1_SRC, "dcn_forward.cu", [(
-        "                             (smem * 100 + 233471) / 233472);",
+    "k1 all shared memory carved out (small L1)": (K1_SRC, [(
+        "dcn_forward.cu", "                             (smem * 100 + 233471) / 233472);",
         "                             100);")]),
-    "k1 corner loads all from 64 pixel rows (L1 hits)": (K1_SRC, "dcn_forward.cu", [(
-        "p.x + static_cast<size_t>(o4[cn]) * p.Cin + ch",
+    "k1 corner loads all from 64 pixel rows (L1 hits)": (K1_SRC, [(
+        "dcn_forward.cu", "p.x + static_cast<size_t>(o4[cn]) * p.Cin + ch",
         "p.x + static_cast<size_t>(o4[cn] & 63) * p.Cin + ch")]),
-    "k1 no corner loads": (K1_SRC, "dcn_forward.cu", [(
-        "raw[i][cn] = live && o4[cn] >= 0", "raw[i][cn] = false && o4[cn] >= 0")]),
-    "k1 no gather (A left unwritten)": (K1_SRC, "dcn_forward.cu", [(
-        "          uint4 raw[8][4];", "#if 0\n          uint4 raw[8][4];"), (
+    "k1 no corner loads": (K1_SRC, [(
+        "dcn_forward.cu", "raw[i][cn] = live && o4[cn] >= 0",
+        "raw[i][cn] = false && o4[cn] >= 0")]),
+    "k1 no gather (A left unwritten)": (K1_SRC, [(
+        "dcn_forward.cu", "          uint4 raw[8][4];", "#if 0\n          uint4 raw[8][4];"), (
+        "dcn_forward.cu",
         "            *reinterpret_cast<uint4*>(st + px * 128 + ((q ^ (px & 7)) << 4)) = o;\n"
         "          }\n",
         "            *reinterpret_cast<uint4*>(st + px * 128 + ((q ^ (px & 7)) << 4)) = o;\n"
         "          }\n#endif\n")]),
-    "k1 on half the SMs (same tiles)": (K1_SRC, "dcn_forward.cu", [(
-        "  const int grid = p.tiles < sms ? p.tiles : sms;",
+    "k1 on half the SMs (same tiles)": (K1_SRC, [(
+        "dcn_forward.cu", "  const int grid = p.tiles < sms ? p.tiles : sms;",
         "  const int grid = p.tiles < sms / 2 ? p.tiles : sms / 2;")]),
-    "k1 no MMA": (K1_SRC, "dcn_forward.cu", [(
-        "        hop::mma_slice<BN, 0, 0>(acc, da, db);\n", "")]),
-    "k5 base": (K5_SRC, None, []),
-    "k5 B box of BN rows (zero-filled past Ch)": (K5_SRC, "osa_block.cu", [(
-        "  p.b_rows = Cout < bn ? Cout : bn;", "  p.b_rows = bn;")]),
-    "k5 no MMA": (K5_SRC, "osa_wgmma.cuh", [(
-        "            hop::mma_slice<BN, 0, 0>(acc, da, db);\n", "")]),
-    "k5 no A loads": (K5_SRC, "osa_wgmma.cuh", [(
+    "k1 no MMA": (K1_SRC, [(
+        "dcn_forward.cu", "        hop::mma_slice<BN, 0, 0>(acc, da, db);\n", "")]),
+    "k5 base": (K5_SRC, []),
+    "k5 B box of BN rows (zero-filled past Ch)": (K5_SRC, [(
+        "osa_wgmma.cuh", "  p->b_rows = Cout < bn ? Cout : bn;", "  p->b_rows = bn;")]),
+    "k5 no MMA": (K5_SRC, [(
+        "osa_wgmma.cuh", "  hop::mma_slice<BN, 0, 0>(d, da, db);\n", "")]),
+    "k5 no A loads": (K5_SRC, [(
+        "osa_wgmma.cuh",
         "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * BK * 2);\n"
         "              if constexpr (kConv) {\n"
         "                const int i0 = (mt / p.tiles_w) * (BM / p.bw);\n"
@@ -378,11 +393,81 @@ VARIANTS = {
         "                                 j0 - 1 + tap % 3, i0 - 1 + tap / 3, img);\n",
         "              hop::mbar_expect_tx(&full[r.stage], (kConv ? p.b_rows : BM + p.b_rows) * BK * 2);\n"
         "              if constexpr (kConv) {\n")]),
-    "k5 no B loads": (K5_SRC, "osa_wgmma.cuh", [(
+    "k5 no B loads": (K5_SRC, [(
+        "osa_wgmma.cuh",
         "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * BK * 2);\n",
         "              hop::mbar_expect_tx(&full[r.stage], (kConv ? BM : BM + p.b_rows) * BK * 2);\n"), (
+        "osa_wgmma.cuh",
         "                hop::tma_load_3d(sb + r.stage * BN * BK, &p.b[0], &full[r.stage], k0,\n"
         "                                 tap, nt * BN);\n", "")]),
+    "k6 base": (K6_SRC, []),
+    "k6 BN = 128 tiles for Cm = 64 (conv1, conv2)": (K6_SRC, [(
+        "bottleneck.cu", "  return cm <= 64 ? 64 : cm <= 128 ? 128 :",
+        "  return cm <= 128 ? 128 :")]),
+    # the other downsample design: its product written by a launch of its
+    # own and read back as the residual.  Written here in bfloat16 into the
+    # output (each tile's residual is read before its store), so it moves
+    # half the bytes of the float32 design: a lower bound on its time
+    "k6 downsample as its own launch, read back as the residual (bf16)": (K6_SRC, [(
+        "bottleneck.cu", "  if (ds) {\n    p.scale2 = sd;\n",
+        "  if (ds) {\n"
+        "    osa::OsaParams q{};\n"
+        "    const int rq = osa::reduce_params(&q, 1, &x, &wd, &cin, &cin, N, H, W, cout,\n"
+        "                                      kConv3BN);\n"
+        "    if (rq != 0) return rq;\n"
+        "    q.scale = sd;\n    q.bias = bd;\n    q.out = static_cast<hop::bf16*>(out);\n"
+        "    const int rl = launch<kConv3BN>(bottleneck_reduce_wgmma_kernel<kConv3BN, 0>, q,\n"
+        "                                    out, false, N, stream);\n"
+        "    if (rl != 0) return rl;\n"
+        "    p.n_pieces = 1;\n"
+        "    if (!osa::slot_map(&p.r, out, p, false, N))\n"
+        "      return static_cast<int>(cudaErrorInvalidValue);\n"
+        "    return launch<kConv3BN>(bottleneck_reduce_wgmma_kernel<kConv3BN, 1>, p, out,\n"
+        "                            false, N, stream);\n"
+        "  }\n  if (ds) {\n    p.scale2 = sd;\n")]),
+    "k6 no MMA": (K6_SRC, [(
+        "osa_wgmma.cuh", "  hop::mma_slice<BN, 0, 0>(d, da, db);\n", "")]),
+    "k6 no output stores": (K6_SRC, [(
+        "osa_wgmma.cuh",
+        "    if constexpr (kConv)\n"
+        "      hop::tma_store_4d(&p.o, src, nt * BN + h * 64, (mt % p.tiles_w) * p.bw,\n"
+        "                        (mt / p.tiles_w) * (BM / p.bw), img);\n"
+        "    else\n"
+        "      hop::tma_store_3d(&p.o, src, nt * BN + h * 64, mt * BM, img);\n",
+        "    (void)src;\n")]),
+    "k6 no residual loads": (K6_SRC, [(
+        "osa_wgmma.cuh",
+        "          if constexpr (kResid == 1) {\n            const int boxes",
+        "          if constexpr (kResid == -1) {\n            const int boxes")]),
+    "k8 base": (K8_SRC, []),
+    "k8 G = 2 lanes a sample (16 channels a lane)": (K8_SRC, [(
+        "msdeform_backward.cu", "msdeform_backward_taps_group_kernel<4, 2>",
+        "msdeform_backward_taps_group_kernel<2, 4>")]),
+    "k8 G = 8 lanes a sample (4 channels a lane)": (K8_SRC, [(
+        "msdeform_backward.cu", "msdeform_backward_taps_group_kernel<4, 2>",
+        "msdeform_backward_taps_group_kernel<8, 1>")]),
+    "k8 one query a warp": (K8_SRC, [(
+        "msdeform_backward.cu", "constexpr int kGroupQueries = 4;",
+        "constexpr int kGroupQueries = 1;")]),
+    "k8 query-major order": (K8_SRC, [(
+        "msdeform_backward.cu", "inv_qp = 1.f / (nq * P);", "inv_lp = 1.f / LP;"), (
+        "msdeform_backward.cu",
+        "      const int lu = small_div(u, inv_qp), rem = u - lu * nq * P;\n"
+        "      int i = small_div(rem, inv_p), s = lu * P + rem - i * P;\n",
+        "      int i = small_div(u, inv_lp), s = u - i * LP;\n")]),
+    "k8 no value loads": (K8_SRC, [(
+        "msdeform_gather.cuh",
+        "    t[0][k] = in && c.v00 ? __ldg(reinterpret_cast<const float4*>(p + t00)) : zero;\n"
+        "    t[1][k] = in && c.v01 ? __ldg(reinterpret_cast<const float4*>(p + t00 + row)) : zero;\n"
+        "    t[2][k] = in && c.v10 ? __ldg(reinterpret_cast<const float4*>(p + t10)) : zero;\n"
+        "    t[3][k] = in && c.v11 ? __ldg(reinterpret_cast<const float4*>(p + t10 + row)) : zero;\n",
+        "    for (int q = 0; q < 4; ++q)\n"
+        "      t[q][k] = in ? make_float4(c.tx + q, c.ty, c.tx, c.ty + q) : zero;\n")]),
+    "k8 no group sums": (K8_SRC, [(
+        "msdeform_backward.cu",
+        "        sg += __shfl_xor_sync(0xffffffffu, sg, o);\n"
+        "        sx += __shfl_xor_sync(0xffffffffu, sx, o);\n"
+        "        sy += __shfl_xor_sync(0xffffffffu, sy, o);\n", "")]),
 }
 
 
@@ -393,31 +478,33 @@ def variant_library(name: str):
 
     from transcar_tpu_torch.ops import kernel_lib
 
-    sources, target, patches = VARIANTS[name]
+    sources, patches = VARIANTS[name]
     tag = "variants/" + "".join(c if c.isalnum() else "_" for c in name)
     src = kernel_lib.BUILD_DIR / tag / "csrc"
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
     for f in sources:
         shutil.copy(kernel_lib.CSRC / f, src / f)
-    if target is not None:
+    for target, old, new in patches:
         text = (src / target).read_text()
-        for old, new in patches:
-            if old not in text:
-                raise RuntimeError(f"{name}: patch target not in {target}: "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        (src / target).write_text(text)
+        if old not in text:
+            raise RuntimeError(f"{name}: patch target not in {target}: "
+                               f"{old!r}")
+        (src / target).write_text(text.replace(old, new))
     return csrc_library(src, tag)
 
 
 def _variant_calls(kind: str) -> list:
-    """(label, launches per request, call(lib)) of the K1 entry at the
-    flagship DCN shapes (offsets ±8 px and the model's) or of K5's chain
-    tile at the 7 VoVNet-99 block shapes (5 convs each)."""
-    from transcar_tpu_torch.ops import pallas_dcn, pallas_osa_block
+    """(label, launches per request or step, call(lib)) of the K1 entry at
+    the flagship DCN shapes (offsets ±8 px and the model's), of K5's chain
+    tile at the 7 VoVNet-99 block shapes (5 convs each), of K6's three
+    Hopper-tile entries at the 3 R101 bottleneck shapes, or of K8's
+    lane-group entry at one encoder and one decoder call of the pillar
+    shapes."""
+    from transcar_tpu_torch.ops import (pallas_bottleneck, pallas_dcn,
+                                        pallas_osa_block)
 
-    vp = lambda t: ctypes.c_void_p(t.data_ptr())
+    vp = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = []
     if kind == "k1":
@@ -432,6 +519,53 @@ def _variant_calls(kind: str) -> list:
                               lambda lib, t=t, d=(n, h, w, cin, cout):
                               lib.dcn_forward_bf16_wgmma(*map(vp, t), *d,
                                                          stream())))
+        return calls
+    if kind == "k6":
+        g = torch.Generator(device="cuda").manual_seed(16)
+        for (x, ws, affs, kw), (h, w, cin, cm, cout, ds, per_req) in zip(
+                (k6_case(g, torch.bfloat16, *shape[:6]) for shape in R101_K6),
+                R101_K6):
+            ks = pallas_bottleneck.kmajor_weights(*ws, kw.get("wd"))
+            h1 = torch.empty((6, h, w, cm), dtype=x.dtype, device="cuda")
+            h2, out = torch.empty_like(h1), torch.empty(
+                (6, h, w, cout), dtype=x.dtype, device="cuda")
+            (s1, b1), (s2, b2), (s3, b3) = affs
+            sd, bd = kw.get("affd", (None, None))
+            label = f"6x{h}x{w} {cin}->{cm}->{cout}"
+            a, d = (s1, b1, s2, b2, s3, b3, sd, bd), (6, h, w)
+            calls += [
+                (f"{label} conv1", per_req,
+                 lambda lib, x=x, k=ks[0], a=a, h1=h1, d=d, cin=cin, cm=cm:
+                 lib.bottleneck_conv1_bf16_wgmma(
+                     vp(x), cin, vp(k), vp(a[0]), vp(a[1]), vp(h1), *d, cm,
+                     stream())),
+                (f"{label} conv2", per_req,
+                 lambda lib, k=ks[1], a=a, h1=h1, h2=h2, d=d, cm=cm:
+                 lib.bottleneck_conv2_bf16_wgmma(
+                     vp(h1), cm, vp(k), vp(a[2]), vp(a[3]), vp(h2), *d,
+                     stream())),
+                (f"{label} conv3", per_req,
+                 lambda lib, x=x, k=ks, a=a, h2=h2, o=out, d=d, cin=cin,
+                 cm=cm, cout=cout: lib.bottleneck_conv3_bf16_wgmma(
+                     vp(h2), cm, vp(k[2]), vp(a[4]), vp(a[5]), vp(x), cin,
+                     vp(k[3]), vp(a[6]), vp(a[7]), vp(o), *d, cout,
+                     stream()))]
+        return calls
+    if kind == "k8":
+        g = torch.Generator(device="cuda").manual_seed(18)
+        s = sum(h * w for h, w in BEV_LEVELS)
+        levels = [(ctypes.c_int * 4)(*v) for v in (
+            [h for h, _ in BEV_LEVELS], [w for _, w in BEV_LEVELS],
+            [sum(h * w for h, w in BEV_LEVELS[:i]) for i in range(4)])]
+        for name, q, per_step in (("encoder", s, 2), ("decoder", 300, 6)):
+            value, loc, wgt = msdeform_case(g, q, name == "encoder")
+            d_out = torch.randn(1, q, 256, device="cuda", generator=g)
+            t = (value, loc, wgt, d_out, torch.empty_like(loc),
+                 torch.empty_like(wgt))
+            calls.append((f"{name} Q={q}", per_step,
+                          lambda lib, t=t, q=q: lib.msdeform_backward_taps_group_f32(
+                              *map(vp, t), 1, s, q, 8, 32, 4, 4, *levels,
+                              stream())))
         return calls
     g = torch.Generator(device="cuda").manual_seed(12)
     for h, w, c0, ch, _, per_req in VOV_BLOCKS:
@@ -450,25 +584,41 @@ def _variant_calls(kind: str) -> list:
 
 
 def phase_variants(kinds, smi: str) -> None:
-    """Each knock-out variant of ``kinds`` ("k1", "k5"): per request ms
-    (CUDA events) at the main path's shapes, by offsets for K1."""
+    """Each knock-out variant of ``kinds`` ("k1", "k5", "k6", "k8"): ms per
+    request or step (CUDA events) at the main path's shapes, by offsets
+    for K1 and by call for K8, timed in turns with the unpatched kernel
+    ("<kind> base"; base, variant, variant, base at every call, each the
+    better of its two turns) so that every reading has a paired one."""
     for kind in kinds:
         calls = _variant_calls(kind)
+        base = variant_library(f"{kind} base")
         for name in VARIANTS:
             if not name.startswith(kind):
                 continue
-            lib = variant_library(name)
-            per_req, parts = {}, []
+            lib = base if name == f"{kind} base" else variant_library(name)
+            per_req, base_req, parts = {}, {}, []
             for label, n, call in calls:
                 if call(lib) != 0:
                     raise RuntimeError(f"{name} failed at {label}")
-                ms = cuda_ms(lambda: call(lib), iters=20 if kind == "k1" else 10)
-                key = label.rsplit(" ", 1)[-1] if kind == "k1" else "all"
+                iters = 20 if kind == "k1" else 10
+                var = lambda: call(lib)
+                turns = [cuda_ms(f, iters=iters)
+                         for f in (lambda: call(base), var, var,
+                                   lambda: call(base))]
+                ms, base_ms = min(turns[1:3]), min(turns[0], turns[3])
+                key = {"k1": label.rsplit(" ", 1)[-1],
+                       "k6": label.rsplit(" ", 1)[-1],
+                       "k8": label.split(" ", 1)[0]}.get(kind, "all")
                 per_req[key] = per_req.get(key, 0.0) + n * ms
-                parts.append(f"{label} {ms:.4f}")
-            print(f"{name}: per request "
-                  + ", ".join(f"{k} {v:.3f} ms" for k, v in per_req.items())
+                base_req[key] = base_req.get(key, 0.0) + n * base_ms
+                parts.append(f"{label} {ms:.4f} (base {base_ms:.4f})")
+            unit = "step" if kind == "k8" else "request"
+            print(f"{name}: per {unit} "
+                  + ", ".join(f"{k} {v:.3f} ms (base {base_req[k]:.3f})"
+                              for k, v in per_req.items())
                   + " | " + ", ".join(parts) + f" ({smi})", flush=True)
+        del calls
+        torch.cuda.empty_cache()
 
 
 def parent_dcn_forward(lib, x, om, wt):
@@ -1101,9 +1251,10 @@ def _kernel_result() -> dict:
 
 
 def parent_osa_reduce(lib, pieces, ws, s, b):
-    """The parent commit's K4 with its wrapper's preparation: its Hopper
-    tile ``lib.osa_reduce_bf16_wgmma`` on the K-major views ``ws`` where
-    the library has one, else its wmma tile ``lib.osa_reduce_bf16`` on
+    """The K4 of ``lib`` (the parent's, or this build's for a like-for-like
+    timing) with its wrapper's preparation: its Hopper tile
+    ``lib.osa_reduce_bf16_wgmma`` on the K-major views ``ws`` where the
+    library has one, else its wmma tile ``lib.osa_reduce_bf16`` on
     contiguous [Cᵢ, Cout] weights."""
     n, h, w, _ = pieces[0].shape
     cout, k = ws[0].shape[-1], len(pieces)
@@ -1123,7 +1274,7 @@ def parent_osa_reduce(lib, pieces, ws, s, b):
         n, h, w, cout, 1,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"parent K4: CUDA error {rc}")
+        raise RuntimeError(f"K4 entry: CUDA error {rc}")
     return out, sums
 
 
@@ -1131,11 +1282,12 @@ def phase_k4(parent=None) -> dict:
     """K4 at the 7 VoVNet-99 block shapes; per request (16 launches) in
     bfloat16 beside one cuDNN 1×1 convolution over the concatenation, and
     beside the parent commit's K4 (``parent``: its kernel library) when
-    given.  The bfloat16 weights are the K-major views the model caches
+    given, both timed through their bare entries.  The bfloat16 weights are the K-major views the model caches
     (``pallas_osa.kmajor_weights``)."""
     from transcar_tpu_torch.ops import pallas_osa
 
     g = torch.Generator(device="cuda").manual_seed(4)
+    own = own_library()
     res = _kernel_result()
     res["library_ms"] = 0.0
     parent_ms = 0.0
@@ -1167,7 +1319,9 @@ def phase_k4(parent=None) -> dict:
                     f"{SUMS_TOL:.0e})")
             if dtype == torch.bfloat16:         # the main path's dtype
                 del ref, ref_sums
-                kern = lambda: pallas_osa.osa_reduce(pieces, ws, s, b)
+                # the entry as the parent's is timed: the wrapper's host
+                # time would pass a small call's device time
+                kern = lambda: parent_osa_reduce(own, pieces, ws, s, b)
                 if parent is not None:
                     ms, old_ms, text = in_turns(kern, lambda: parent_osa_reduce(
                         parent, pieces, ws, s, b))
@@ -1375,59 +1529,187 @@ def phase_k5(parent=None) -> dict:
     return res
 
 
-def phase_k6() -> dict:
-    """K6 at the 3 R101 stride-1 non-DCN bottleneck shapes; per request
-    of ``transcar_r101`` with ``block_impl=fused`` (6 calls)."""
+def k6_case(g, dtype, h, w, cin, cm, cout, ds):
+    """Seeded inputs of one K6 call at N = 6: x, the JAX-layout kernels
+    (w1, w2, w3), their affines and the downsample's as keywords."""
+    x = torch.randn(6, h, w, cin, device="cuda", generator=g).to(dtype)
+    k = lambda *sh: (torch.randn(*sh, device="cuda", generator=g)
+                     / math.sqrt(sh[0] * sh[1] * sh[2])).to(dtype)
+    ws = (k(1, 1, cin, cm), k(3, 3, cm, cm), k(1, 1, cm, cout))
+    affs = (_affine(g, cm), _affine(g, cm), _affine(g, cout))
+    kw = dict(wd=k(1, 1, cin, cout), affd=_affine(g, cout)) if ds else {}
+    return x, ws, affs, kw
+
+
+def bottleneck_entry(lib, x, ws, affs, wd=None, affd=None):
+    """The bfloat16 K6 of ``lib`` (this build's or the parent's) on weights
+    prepared as its wrapper prepares them (before the timing): where the
+    library has them, its three Hopper-tile entries on the K-major copies;
+    else its one entry ``bottleneck_bf16`` (three conv_tile.cuh kernels) on
+    [Cin, Cm], [3, 3, Cm, Cm], [Cm, Cout] and [Cin, Cout] weights.
+    Returns a function of no arguments that runs it."""
     from transcar_tpu_torch.ops import pallas_bottleneck
 
+    n, h, w, cin = x.shape
+    cm, cout = ws[0].shape[-1], ws[2].shape[-1]
+    vp = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    h1 = torch.empty((n, h, w, cm), dtype=x.dtype, device="cuda")
+    h2, out = torch.empty_like(h1), torch.empty((n, h, w, cout),
+                                                 dtype=x.dtype, device="cuda")
+    (s1, b1), (s2, b2), (s3, b3) = affs
+    sd, bd = affd if affd is not None else (None, None)
+    if hasattr(lib, "bottleneck_conv1_bf16_wgmma"):
+        ks = pallas_bottleneck.kmajor_weights(*ws, wd)
+
+        def run():
+            return (lib.bottleneck_conv1_bf16_wgmma(
+                        vp(x), cin, vp(ks[0]), vp(s1), vp(b1), vp(h1), n, h, w,
+                        cm, stream())
+                    or lib.bottleneck_conv2_bf16_wgmma(
+                        vp(h1), cm, vp(ks[1]), vp(s2), vp(b2), vp(h2), n, h, w,
+                        stream())
+                    or lib.bottleneck_conv3_bf16_wgmma(
+                        vp(h2), cm, vp(ks[2]), vp(s3), vp(b3), vp(x), cin,
+                        vp(ks[3]), vp(sd), vp(bd), vp(out), n, h, w, cout,
+                        stream()))
+    else:
+        m = lambda t: t.reshape(t.shape[-2], t.shape[-1]).contiguous()
+        pw = (m(ws[0]), ws[1].contiguous(), m(ws[2]),
+              None if wd is None else m(wd))
+
+        def run():
+            return lib.bottleneck_bf16(
+                vp(x), cin, cm, cout, vp(pw[0]), vp(s1), vp(b1), vp(pw[1]),
+                vp(s2), vp(b2), vp(pw[2]), vp(s3), vp(b3), vp(pw[3]), vp(sd),
+                vp(bd), vp(h1), vp(h2), vp(out), n, h, w, stream())
+
+    def checked():
+        rc = run()
+        if rc != 0:
+            raise RuntimeError(f"K6 entries: CUDA error {rc}")
+        return out
+    return checked
+
+
+def phase_k6(parent=None) -> dict:
+    """K6 at the 3 R101 stride-1 non-DCN bottleneck shapes, bfloat16 on
+    the Hopper tile (K-major weights as the model caches them) and float32
+    on the first tile; per request of ``transcar_r101`` with
+    ``block_impl=fused`` (6 calls) with its three device kernels timed
+    apart, beside cuDNN's bf16 convolutions of the same shapes (a
+    reference line) and the parent commit's K6 (``parent``) when given,
+    both timed through their bare entries."""
+    from transcar_tpu_torch.ops import kernel_lib, pallas_bottleneck
+
+    F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(6)
+    own = own_library()
     res = _kernel_result()
+    res["parent_ms"] = 0.0 if parent is not None else None
+    per_req = {"conv1": 0.0, "conv2": 0.0, "conv3": 0.0, "cudnn": 0.0,
+               "wrapper": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for h, w, cin, cm, cout, ds, per_req in R101_K6:
-            n = 6
-            x = torch.randn(n, h, w, cin, device="cuda", generator=g).to(dtype)
-            k = lambda *sh: (torch.randn(*sh, device="cuda", generator=g)
-                             / math.sqrt(sh[0] * sh[1] * sh[2])).to(dtype)
-            ws = [k(1, 1, cin, cm), k(3, 3, cm, cm), k(1, 1, cm, cout)]
-            affs = [_affine(g, cm), _affine(g, cm), _affine(g, cout)]
-            kw = dict(wd=k(1, 1, cin, cout), affd=_affine(g, cout)) if ds else {}
+        for shape in R101_K6:
+            h, w, cin, cm, cout, ds, n_req = shape
+            x, ws, affs, kw = k6_case(g, dtype, *shape[:6])
+            ks = pallas_bottleneck.kmajor_weights(*ws, kw.get("wd"),
+                                                  dtype=dtype)
             args = (x, ws[0], affs[0], ws[1], affs[1], ws[2], affs[2])
-            out = pallas_bottleneck.bottleneck_fused(*args, **kw)
+            before = pallas_bottleneck.wgmma_launches
+            out = pallas_bottleneck.bottleneck_fused(*args, **kw, kmajor=ks)
+            took = pallas_bottleneck.wgmma_launches - before
             ref = pallas_bottleneck.plain_bottleneck(*args, **kw)
             torch.cuda.synchronize()
             err, rel = _rel_err(out, ref)
-            ok = math.isfinite(rel) and rel <= CHAIN_TOL[dtype]
+            want = int(dtype == torch.bfloat16)
+            ok = math.isfinite(rel) and rel <= CHAIN_TOL[dtype] and took == want
             line = (f"K6 bottleneck {str(dtype)[6:]} 6x{h}x{w} {cin}->{cm}->"
-                    f"{cout}{' +downsample' if ds else ''}: max_abs_err "
+                    f"{cout}{' +downsample' if ds else ''} "
+                    f"({'wgmma tile' if took else 'wmma tile'}): max_abs_err "
                     f"{err:.3e} max_rel_err {rel:.3e} (tol "
                     f"{CHAIN_TOL[dtype]:.0e})")
             if dtype == torch.bfloat16:
                 del ref
-                ms = cuda_ms(lambda: pallas_bottleneck.bottleneck_fused(
-                    *args, **kw))
+                kern = bottleneck_entry(own, x, ws, affs, kw.get("wd"),
+                                        kw.get("affd"))
+                if parent is not None:
+                    ms, old_ms, text = in_turns(kern, bottleneck_entry(
+                        parent, x, ws, affs, kw.get("wd"), kw.get("affd")))
+                    res["parent_ms"] += n_req * old_ms
+                    line += "; " + text
+                else:
+                    ms = cuda_ms(kern)
+                    line += f"; kernel {ms:.3f} ms"
+                # the path the model calls: the wrapper on the K-major
+                # copies it caches (unusable copies raise there)
+                wrap_ms = cuda_ms(lambda: pallas_bottleneck.bottleneck_fused(
+                    *args, **kw, kmajor=ks))
+                per_req["wrapper"] += n_req * wrap_ms
+                line += f", through the wrapper {wrap_ms:.3f} ms"
+                # the three device kernels apart
+                f32 = [t.float().contiguous() for a in affs for t in a]
+                fd = [t.float().contiguous() for t in kw["affd"]] if ds else []
+                h1 = pallas_bottleneck.conv1_kernel(x, ks[0], *f32[:2])
+                h2 = pallas_bottleneck.conv2_kernel(h1, ks[1], *f32[2:4])
+                parts = [cuda_ms(lambda: pallas_bottleneck.conv1_kernel(
+                             x, ks[0], *f32[:2])),
+                         cuda_ms(lambda: pallas_bottleneck.conv2_kernel(
+                             h1, ks[1], *f32[2:4])),
+                         cuda_ms(lambda: pallas_bottleneck.conv3_kernel(
+                             h2, ks[2], *f32[4:], x, ks[3], *fd))]
+                # the reference line: cuDNN's bf16 convolutions of the same
+                # shapes (1x1, 3x3, 1x1 and the 1x1 downsample), the GEMMs
+                # without their epilogues
+                cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+                xc, h1c, h2c = (t.permute(0, 3, 1, 2) for t in (x, h1, h2))
+                wc = [cl(t.permute(3, 2, 0, 1)) for t in
+                      (*ws, *([kw["wd"]] if ds else []))]
+                cudnn_ms = cuda_ms(lambda: [
+                    F.conv2d(xc, wc[0]), F.conv2d(h1c, wc[1], padding=1),
+                    F.conv2d(h2c, wc[2])] + (
+                        [F.conv2d(xc, wc[3])] if ds else []))
+                del xc, h1c, h2c, wc, h1, h2
                 plain_ms = cuda_ms(lambda: pallas_bottleneck.plain_bottleneck(
                     *args, **kw), iters=5, warmup=1)
-                flops = 2.0 * n * h * w * (cin * cm + 9 * cm * cm + cm * cout
+                flops = 2.0 * 6 * h * w * (cin * cm + 9 * cm * cm + cm * cout
                                            + (cin * cout if ds else 0))
                 extra = [kw["wd"], *kw["affd"]] if ds else []
                 bound, kind = bound_ms(flops, dtype, nbytes(
                     x, *ws, *[t for a in affs for t in a], *extra, out))
                 res["bound_by"] = kind
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["ms"] += per_req * ms
-                res["plain_ms"] += per_req * plain_ms
-                res["bound_ms"] += per_req * bound
-                line += (f"; kernel {ms:.3f} ms (3 device kernels), plain "
-                         f"{plain_ms:.3f} ms, bound {bound:.3f} ms by {kind}")
+                res["ms"] += n_req * ms
+                res["plain_ms"] += n_req * plain_ms
+                res["bound_ms"] += n_req * bound
+                for key, t in zip(("conv1", "conv2", "conv3"), parts):
+                    per_req[key] += n_req * t
+                per_req["cudnn"] += n_req * cudnn_ms
+                line += (f"; conv1 {parts[0]:.3f} + conv2 {parts[1]:.3f} + "
+                         f"conv3 {parts[2]:.3f} ms, cuDNN bf16 convs (no "
+                         f"epilogues) {cudnn_ms:.3f} ms, plain {plain_ms:.3f} "
+                         f"ms, bound {bound:.3f} ms by {kind} (kernel at "
+                         f"{bound / ms:.0%} of it)")
             print(line + (" ok" if ok else " FAIL"))
             if not ok:
                 raise AssertionError(f"K6 {dtype} 6x{h}x{w} disagrees with "
-                                     f"its plain version: {rel}")
-            del x, ws, out, args, kw
-    print(f"K6 per request on the bfloat16 path (6 calls): kernel "
-          f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bound "
-          f"{res['bound_ms']:.3f} ms (no single PyTorch call computes a "
-          f"bottleneck)")
+                                     f"its plain version ({rel}) or took the "
+                                     f"wrong tile ({took})")
+            del x, ws, out, args, kw, ks
+    print(f"K6 per request on the bfloat16 path (6 calls, wgmma tile): "
+          f"kernel {res['ms']:.3f} ms (through the wrapper "
+          f"{per_req['wrapper']:.3f}; conv1 {per_req['conv1']:.3f} + conv2 "
+          f"{per_req['conv2']:.3f} + conv3 {per_req['conv3']:.3f}), plain "
+          f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms"
+          + (f", parent K6 {res['parent_ms']:.3f} ms (kernel / parent "
+             f"{res['ms'] / res['parent_ms']:.3f})" if parent else "")
+          + f"; reference: cuDNN bf16 1x1 / 3x3 / 1x1 (+ 1x1 downsample) "
+          f"convs of the same shapes {per_req['cudnn']:.3f} ms (no single "
+          f"PyTorch call computes a bottleneck)")
+    log = kernel_lib.library_path().with_suffix(".log").read_text()
+    print("K6 tile ptxas -v: " + " | ".join(
+        ln for ln in ptxas_lines(log) if ln.startswith("bottleneck_")
+        and "wgmma" in ln))
     return res
 
 
@@ -1443,9 +1725,10 @@ def _zero_counts() -> None:
     pallas_attention.launches = pallas_osa.launches = 0
     pallas_osa.wgmma_launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
-    pallas_osa_block.wgmma_launches = 0
+    pallas_osa_block.wgmma_launches = pallas_bottleneck.wgmma_launches = 0
     pallas_msdeform.launches = 0
     pallas_msdeform.backward_taps_launches = 0
+    pallas_msdeform.backward_taps_group_launches = 0
     pallas_msdeform.backward_value_launches = 0
 
 
@@ -1599,7 +1882,7 @@ def phase_k6_path(smi: str) -> int:
     from transcar_tpu_torch.cli import benchmark
     from transcar_tpu_torch.core.config import get_preset
 
-    from transcar_tpu_torch.ops import pallas_dcn
+    from transcar_tpu_torch.ops import pallas_bottleneck, pallas_dcn
 
     preset, fused = "transcar_r101", "model.backbone.block_impl=fused"
     per_req = {"bottleneck": 6, "dcn_forward": 26, "masked_attention": 3}
@@ -1607,15 +1890,20 @@ def phase_k6_path(smi: str) -> int:
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3",
                               "--cfg-options", fused])
     k1_wgmma = pallas_dcn.wgmma_launches
+    k6_wgmma = pallas_bottleneck.wgmma_launches
     got = {k: rec["kernel_launches"][k] for k in per_req}
     want = {k: v * rec["requests"] for k, v in per_req.items()}
     valid = _check_outputs("K6 path", out, get_preset(preset))
     print(f"K6 path {preset} block_impl=fused 6x928x1600 bs1: launches {got}"
           f" (want {want}), K1 on the wgmma tile {k1_wgmma} of "
-          f"{got['dcn_forward']}; outputs finite; decode {valid}/300 valid "
+          f"{got['dcn_forward']}, K6 on the wgmma tile {k6_wgmma} of "
+          f"{got['bottleneck']}; outputs finite; decode {valid}/300 valid "
           f"boxes")
     if got != want:
         raise AssertionError(f"K6 path launches {got} != {want}")
+    if k6_wgmma != got["bottleneck"]:
+        raise AssertionError(f"K6 path: {got['bottleneck'] - k6_wgmma} K6 "
+                             "calls missed the wgmma tile")
     if k1_wgmma != got["dcn_forward"]:
         raise AssertionError(f"K6 path: {got['dcn_forward'] - k1_wgmma} K1 "
                              "launches missed the wgmma tile")
@@ -1702,15 +1990,47 @@ def msdeform_case(g, q: int, encoder: bool):
     return value, loc, wgt
 
 
-def phase_k7() -> dict:
+def own_library():
+    """This build's kernel library under a ctypes handle of its own (no
+    argtypes set), for timing its entries as the parent's are timed."""
+    from transcar_tpu_torch.ops import kernel_lib
+
+    return ctypes.CDLL(str(kernel_lib.build()))
+
+
+def msdeform_entry(lib, name: str, tensors, value, q: int):
+    """A function of no arguments that runs the entry ``name`` of the
+    MSDeformAttn kernels in ``lib`` (this build's or the parent's) on
+    ``tensors`` (pointers, in the entry's order) at the pillar shapes
+    (batch 1, Q = ``q``, 8 heads of 32, 4 levels × 4 points): the bare
+    launch, without the wrapper's checks and allocations, whose host time
+    would exceed a decoder call's device time."""
+    levels = [(ctypes.c_int * 4)(*v) for v in (
+        [h for h, _ in BEV_LEVELS], [w for _, w in BEV_LEVELS],
+        [sum(h * w for h, w in BEV_LEVELS[:i]) for i in range(4)])]
+    fn = getattr(lib, name)
+
+    def run():
+        rc = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), 1,
+                value.shape[1], q, 8, 32, 4, 4, *levels,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+    return run
+
+
+def phase_k7(parent=None) -> dict:
     """K7 at one encoder and one decoder call of the pillar slice; per
-    request (2 encoder + 6 decoder launches)."""
+    request (2 encoder + 6 decoder launches), beside the parent commit's
+    K7 (``parent``) when given, both timed through their bare entries."""
     from transcar_tpu_torch.ops import pallas_msdeform
     from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
 
     g = torch.Generator(device="cuda").manual_seed(13)
+    own = own_library()
     res = _kernel_result()
     res["bound_by"] = "bytes"
+    res["parent_ms"] = 0.0 if parent is not None else None
     s = sum(h * w for h, w in BEV_LEVELS)
     for name, q, per_req, chunk in (("encoder", s, 2, 16384),
                                     ("decoder", 300, 6, 0)):
@@ -1721,8 +2041,17 @@ def phase_k7() -> dict:
         torch.cuda.synchronize()
         err, rel = _rel_err(out, ref)
         ok = math.isfinite(rel) and rel <= MSDEFORM_TOL
-        ms = cuda_ms(lambda: pallas_msdeform.ms_deform_attn(
-            value, BEV_LEVELS, loc, wgt))
+        scratch = torch.empty_like(out)
+        kern = msdeform_entry(own, "msdeform_forward_f32",
+                              (value, loc, wgt, scratch), value, q)
+        if parent is not None:
+            ms, old_ms, turns = in_turns(kern, msdeform_entry(
+                parent, "msdeform_forward_f32", (value, loc, wgt, scratch),
+                value, q))
+            res["parent_ms"] += per_req * old_ms
+            turns = f" ({turns})"
+        else:
+            ms, turns = cuda_ms(kern), ""
         plain_ms = cuda_ms(lambda: ms_deform_attn_core(
             value, BEV_LEVELS, loc, wgt, chunk), iters=5, warmup=1)
         # 4 taps (multiply-add each) and the weight (multiply-add) per
@@ -1737,8 +2066,9 @@ def phase_k7() -> dict:
         print(f"K7 msdeform {name} Q={q} S={s} 8 heads x 32, 4 levels x 4 "
               f"points: samples off the map {off_map:.3f}; max_abs_err "
               f"{err:.3e} max_rel_err {rel:.3e} (tol {MSDEFORM_TOL:.0e} of "
-              f"max|plain|); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound:.4f} ms by {kind} {'ok' if ok else 'FAIL'}")
+              f"max|plain|); kernel {ms:.4f} ms{turns}, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {kind} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K7 {name} disagrees with its plain "
                                  f"version: rel err {rel}")
@@ -1751,7 +2081,10 @@ def phase_k7() -> dict:
         del value, loc, wgt, out, ref
     print(f"K7 per objdgcnn_pillar request (2 encoder + 6 decoder "
           f"launches): kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f}"
-          f" ms, bound {res['bound_ms']:.4f} ms (no single PyTorch call "
+          f" ms, bound {res['bound_ms']:.4f} ms"
+          + (f", parent K7 {res['parent_ms']:.3f} ms (kernel / parent "
+             f"{res['ms'] / res['parent_ms']:.3f})" if parent else "")
+          + f" (no single PyTorch call "
           f"computes MSDeformAttn: F.grid_sample samples but does not reduce "
           f"with the weights)")
     return res
@@ -1821,17 +2154,21 @@ def phase_pillar(smi: str) -> int:
     return rec["kernel_launches"]["msdeform_forward"]
 
 
-def phase_k8_k9() -> tuple:
+def phase_k8_k9(parent=None) -> tuple:
     """K8 and K9 at one encoder and one decoder call of the pillar slice,
-    against the plain backward; per step (2 encoder + 6 decoder launches
-    of each)."""
-    from transcar_tpu_torch.ops import pallas_msdeform
+    against the plain backward; per call and per step (2 encoder + 6
+    decoder launches of each), beside the parent commit's K8 and K9
+    (``parent``) when given, both timed through their bare entries; K8
+    also through its wrapper, the path the model calls."""
+    from transcar_tpu_torch.ops import kernel_lib, pallas_msdeform
     from transcar_tpu_torch.ops.msdeform import ms_deform_attn_backward
 
     g = torch.Generator(device="cuda").manual_seed(17)
+    own = own_library()
     res = {"taps": _kernel_result(), "value": _kernel_result()}
     for r in res.values():
         r["bound_by"] = "bytes"
+        r["parent_ms"] = 0.0 if parent is not None else None
     s = sum(h * w for h, w in BEV_LEVELS)
     for name, q, per_step, chunk in (("encoder", s, 2, 16384),
                                      ("decoder", 300, 6, 0)):
@@ -1851,16 +2188,47 @@ def phase_k8_k9() -> tuple:
             return ms_deform_attn_backward(value, BEV_LEVELS, loc, wgt,
                                            d_out, chunk)
 
+        before = pallas_msdeform.backward_taps_group_launches
         d_loc, d_attn = taps()
+        group = pallas_msdeform.backward_taps_group_launches - before
         d_value = dvalue()
         ref_value, ref_loc, ref_attn = plain()
         torch.cuda.synchronize()
         errs = {k: _rel_err(a, b) for k, (a, b) in {
             "d_attn": (d_attn, ref_attn), "d_loc": (d_loc, ref_loc),
             "d_value": (d_value, ref_value)}.items()}
-        ok = all(math.isfinite(rel) and rel <= MSDEFORM_BWD_TOL
-                 for _, rel in errs.values())
-        ms_taps, ms_value = cuda_ms(taps), cuda_ms(dvalue)
+        ok = group == 1 and all(math.isfinite(rel) and rel <= MSDEFORM_BWD_TOL
+                                for _, rel in errs.values())
+        del ref_value, ref_loc, ref_attn
+        # the bare entries, timed as the parent's are (the wrappers' host
+        # time would pass a decoder call's device time); K9 with the
+        # zero-fill of d_value that its wrapper makes
+        tensors = (value, loc, wgt, d_out, torch.empty_like(d_loc),
+                   torch.empty_like(d_attn))
+        dv = torch.empty_like(d_value)
+        runs = {}
+        for tag, lib in (("kernel", own), ("parent", parent)):
+            if lib is None:
+                continue
+            taps_name = ("msdeform_backward_taps_group_f32"
+                         if hasattr(lib, "msdeform_backward_taps_group_f32")
+                         else "msdeform_backward_taps_f32")
+            run_value = msdeform_entry(lib, "msdeform_backward_value_f32",
+                                       (loc, wgt, d_out, dv), value, q)
+            runs[tag] = (msdeform_entry(lib, taps_name, tensors, value, q),
+                         lambda run=run_value: (dv.zero_(), run()))
+        if parent is not None:
+            ms_taps, old_taps, t_taps = in_turns(runs["kernel"][0],
+                                                 runs["parent"][0])
+            ms_value, old_value, t_value = in_turns(runs["kernel"][1],
+                                                    runs["parent"][1])
+            t_taps, t_value = f" ({t_taps})", f" ({t_value})"
+        else:
+            ms_taps, ms_value = (cuda_ms(f) for f in runs["kernel"])
+            old_taps = old_value = 0.0
+            t_taps = t_value = ""
+        del tensors, dv, runs
+        wrap_ms = cuda_ms(taps)
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         # K8: the value (no more than the taps of every sample), the
         # locations, the weights and the gradient in, d_loc and d_attn out;
@@ -1882,35 +2250,52 @@ def phase_k8_k9() -> tuple:
               f"levels x 4 points: "
               + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}"
                           for k, (e, r) in errs.items())
-              + f" (tol {MSDEFORM_BWD_TOL:.0e} of max|plain|); K8 "
-              f"{ms_taps:.4f} ms (bound {b_taps:.4f} ms by {k_taps}), K9 "
-              f"{ms_value:.4f} ms (bound {b_value:.4f} ms by {k_value}), "
-              f"plain backward (all three gradients) {plain_ms:.3f} ms "
+              + f" (tol {MSDEFORM_BWD_TOL:.0e} of max|plain|); K8 on the "
+              f"lane-group kernel {group} of 1; per call K8 {ms_taps:.4f} ms"
+              f"{t_taps} (through the wrapper {wrap_ms:.4f} ms; bound "
+              f"{b_taps:.4f} ms by {k_taps}), K9 "
+              f"{ms_value:.4f} ms{t_value} (bound {b_value:.4f} ms by "
+              f"{k_value}); per step ({per_step} calls) K8 "
+              f"{per_step * ms_taps:.3f} ms, K9 {per_step * ms_value:.3f} ms"
+              + (f", parent K8 {per_step * old_taps:.3f} ms, parent K9 "
+                 f"{per_step * old_value:.3f} ms" if parent else "")
+              + f"; plain backward (all three gradients) {plain_ms:.3f} ms "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K8/K9 {name} disagree with the plain "
-                                 f"backward: {errs}")
-        for key, ms, bound, kind, err in (
-                ("taps", ms_taps, b_taps, k_taps,
+                                 f"backward ({errs}) or K8 missed the "
+                                 f"lane-group kernel ({group})")
+        for key, ms, old_ms, bound, kind, err in (
+                ("taps", ms_taps, old_taps, b_taps, k_taps,
                  max(errs["d_attn"][0], errs["d_loc"][0])),
-                ("value", ms_value, b_value, k_value, errs["d_value"][0])):
+                ("value", ms_value, old_value, b_value, k_value,
+                 errs["d_value"][0])):
             r = res[key]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["ms"] += per_step * ms
             r["plain_ms"] += per_step * plain_ms
             r["bound_ms"] += per_step * bound
+            if parent is not None:
+                r["parent_ms"] += per_step * old_ms
             if kind == "operations":
                 r["bound_by"] = kind
         del value, loc, wgt, d_out, d_loc, d_attn, d_value
-        del ref_value, ref_loc, ref_attn
         torch.cuda.empty_cache()
+    ratio = lambda key: (f" (parent {res[key]['parent_ms']:.3f} ms, kernel / "
+                         f"parent {res[key]['ms'] / res[key]['parent_ms']:.3f})"
+                         if parent else "")
     print(f"K8 / K9 per objdgcnn_pillar train step (2 encoder + 6 decoder "
-          f"launches each): K8 {res['taps']['ms']:.3f} ms (bound "
-          f"{res['taps']['bound_ms']:.4f} ms), K9 {res['value']['ms']:.3f} "
-          f"ms (bound {res['value']['bound_ms']:.4f} ms); the plain backward"
-          f" computes all three gradients in one pass, "
-          f"{res['taps']['plain_ms']:.3f} ms, and stands in both rows (no "
-          f"single PyTorch call computes the MSDeformAttn backward)")
+          f"launches each): K8 {res['taps']['ms']:.3f} ms{ratio('taps')} "
+          f"(bound {res['taps']['bound_ms']:.4f} ms), K9 "
+          f"{res['value']['ms']:.3f} ms{ratio('value')} (bound "
+          f"{res['value']['bound_ms']:.4f} ms); the plain backward computes "
+          f"all three gradients in one pass, {res['taps']['plain_ms']:.3f} "
+          f"ms, and stands in both rows (no single PyTorch call computes the "
+          f"MSDeformAttn backward)")
+    log = kernel_lib.library_path().with_suffix(".log").read_text()
+    print("K8 lane-group kernel ptxas -v: " + " | ".join(
+        ln for ln in ptxas_lines(log)
+        if ln.startswith("msdeform_backward_taps_group_kernel")))
     return res["taps"], res["value"]
 
 
@@ -1930,6 +2315,7 @@ def phase_pillar_train(smi: str) -> dict:
     counts = (pallas_msdeform.launches,
               pallas_msdeform.backward_taps_launches,
               pallas_msdeform.backward_value_launches)
+    group = pallas_msdeform.backward_taps_group_launches
     steps = rec["steps"]
     want = {k: 0 for k in rec["kernel_launches"]}
     for k in ("msdeform_forward", "msdeform_backward_taps",
@@ -1948,7 +2334,8 @@ def phase_pillar_train(smi: str) -> dict:
     print(f"pillar train {preset} {rec['max_points']} points, 512x512 BEV "
           f"bs1 (bf16 SECOND and FPN, fp32 head, dropout 0.1, batch "
           f"statistics): {steps} steps, launches {rec['kernel_launches']} "
-          f"(want {want}: K7, K8, K9 {per_step} per step); loss total first "
+          f"(want {want}: K7, K8, K9 {per_step} per step), K8 on the "
+          f"lane-group kernel {group} of {counts[1]}; loss total first "
           f"{rec['loss_first']['total']:.4f} last "
           f"{rec['loss_last']['total']:.4f}, finite {finite}; trainable "
           f"elements moved {moved}/{total} ({moved / total:.4f}); BN "
@@ -1959,6 +2346,9 @@ def phase_pillar_train(smi: str) -> dict:
     if rec["kernel_launches"] != want or counts != (per_step * steps,) * 3:
         raise AssertionError(f"pillar train launches {rec['kernel_launches']}"
                              f" / {counts} != {want}")
+    if group != counts[1]:
+        raise AssertionError(f"pillar train: {counts[1] - group} K8 launches "
+                             "missed the lane-group kernel")
     if not finite:
         raise AssertionError("pillar train: non-finite loss")
     if moved <= 0.9 * total or bufs_moved != n_bufs:
@@ -2040,16 +2430,17 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", default=None,
                     help="an earlier commit's transcar_tpu_torch/csrc: build "
-                         "it too and time its K1, K3, K4 and K5 in turns "
-                         "with these (phases K1, K3, K4, K5)")
-    ap.add_argument("--variants", choices=("k1", "k5", "all"), default=None,
+                         "it too and time its K1, K3, K4, K5, K6, K7, K8 and "
+                         "K9 in turns with these (their phases)")
+    ap.add_argument("--variants", choices=("k1", "k5", "k6", "k8", "all"),
+                    default=None,
                     help="instead of the phases: build and time the knock-out "
-                         "variants of the K1 and / or K5 Hopper tiles "
+                         "variants of the K1, K5, K6 or K8 kernels "
                          "(VARIANTS), then exit")
     args = ap.parse_args(argv)
     smi = phase_device()
     if args.variants:
-        phase_variants(["k1", "k5"] if args.variants == "all"
+        phase_variants(["k1", "k5", "k6", "k8"] if args.variants == "all"
                        else [args.variants], smi)
         return
     phase_build()
@@ -2063,14 +2454,14 @@ def main(argv=None) -> None:
     launches["dcn_backward"] = train["detr3d_r101"]["launches"][1]
     k4 = phase_k4(parent)
     k5 = phase_k5(parent)
-    k6 = phase_k6()
+    k6 = phase_k6(parent)
     launches["osa_reduce"] = phase_vovnet_slice(smi)["osa_reduce"]
     launches["osa_block"] = phase_k5_path(smi)
     launches["bottleneck"] = phase_k6_path(smi)
     phase_vovnet_train(smi)
-    k7 = phase_k7()
+    k7 = phase_k7(parent)
     launches["msdeform_forward"] = phase_pillar(smi)
-    k8, k9 = phase_k8_k9()
+    k8, k9 = phase_k8_k9(parent)
     train_launches = phase_pillar_train(smi)
     phase_pillar_train_check()
     phase_sync()

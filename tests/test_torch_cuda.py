@@ -410,11 +410,64 @@ def test_bottleneck_kernel(dev, dtype, n, h, w, cin, cm, cout, ds):
     args = [k(1, 1, cin, cm), _aff(g, cm, dev), k(3, 3, cm, cm),
             _aff(g, cm, dev), k(1, 1, cm, cout), _aff(g, cout, dev)]
     kw = dict(wd=k(1, 1, cin, cout), affd=_aff(g, cout, dev)) if ds else {}
-    before = pallas_bottleneck.launches
+    before = (pallas_bottleneck.launches, pallas_bottleneck.wgmma_launches)
     out = pallas_bottleneck.bottleneck_fused(x, *args, **kw)
     ref = pallas_bottleneck.plain_bottleneck(x, *args, **kw)
-    assert pallas_bottleneck.launches == before + 1
+    # bfloat16 with every width a multiple of 8 takes the Hopper tile;
+    # float32 and Cin = 12 keep conv_tile.cuh
+    wgmma = int(dtype == torch.bfloat16 and cin % 8 == 0)
+    assert (pallas_bottleneck.launches, pallas_bottleneck.wgmma_launches) == (
+        before[0] + 1, before[1] + wgmma)
     _close(out, ref, CHAIN_TOL[dtype])
+
+
+# K6's Hopper tile (conv1 and conv3 on the reduce form, conv2 on the 3×3
+# form of csrc/osa_wgmma.cuh) at the three R101 width triples on a 29 × 50
+# grid (1450 pixels: no multiple of the 128-pixel tile), with the K-major
+# copies the model caches and without them (the wrapper builds them)
+@pytest.mark.parametrize("cin,cm,cout,ds", [
+    (64, 64, 256, True),                        # layer1_0, downsample
+    (256, 64, 256, False),                      # layer1_1..2
+    (512, 128, 512, False),                     # layer2_1..3
+])
+@pytest.mark.parametrize("kmajor", [True, False])
+def test_bottleneck_wgmma_tile(dev, cin, cm, cout, ds, kmajor):
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(1, 29, 50, cin, device=dev, generator=g).bfloat16()
+    k = lambda *s: torch.randn(*s, device=dev, generator=g) / (
+        s[0] * s[1] * s[2]) ** 0.5
+    w1, w2, w3 = k(1, 1, cin, cm), k(3, 3, cm, cm), k(1, 1, cm, cout)
+    args = [w1, _aff(g, cm, dev), w2, _aff(g, cm, dev), w3,
+            _aff(g, cout, dev)]
+    kw = dict(wd=k(1, 1, cin, cout), affd=_aff(g, cout, dev)) if ds else {}
+    ks = (pallas_bottleneck.kmajor_weights(w1, w2, w3, kw.get("wd"))
+          if kmajor else None)
+    before = (pallas_bottleneck.launches, pallas_bottleneck.wgmma_launches)
+    out = pallas_bottleneck.bottleneck_fused(x, *args, **kw, kmajor=ks)
+    ref = pallas_bottleneck.plain_bottleneck(x, *args, **kw)
+    assert (pallas_bottleneck.launches, pallas_bottleneck.wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(out, ref, CHAIN_TOL[torch.bfloat16])
+
+
+def test_bottleneck_wgmma_tile_rejects_unusable_kmajor(dev):
+    """K-major copies that are given but not in the Hopper tile's dtype
+    raise, rather than being rebuilt on every call; a float32 call on the
+    first tile ignores them."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    k = lambda *s: torch.randn(*s, device=dev, generator=g) / (
+        s[0] * s[1] * s[2]) ** 0.5
+    w1, w2, w3 = k(1, 1, 64, 32), k(3, 3, 32, 32), k(1, 1, 32, 64)
+    args = [w1, _aff(g, 32, dev), w2, _aff(g, 32, dev), w3, _aff(g, 64, dev)]
+    f32 = pallas_bottleneck.kmajor_weights(w1, w2, w3, dtype=torch.float32)
+    x = torch.randn(1, 5, 7, 64, device=dev, generator=g)
+    with pytest.raises(ValueError, match="K-major"):
+        pallas_bottleneck.bottleneck_fused(x.bfloat16(), *args, kmajor=f32)
+    before = pallas_bottleneck.wgmma_launches
+    out = pallas_bottleneck.bottleneck_fused(x, *args, kmajor=f32)
+    assert pallas_bottleneck.wgmma_launches == before
+    _close(out, pallas_bottleneck.plain_bottleneck(x, *args),
+           CHAIN_TOL[torch.float32])
 
 
 def test_conv_kernels_are_forward_only(dev):
@@ -474,6 +527,11 @@ def _counts():
             pallas_msdeform.backward_value_launches)
 
 
+def _takes_group(d):
+    """K8's lane-group kernel takes D % 8 == 0 and D <= 64."""
+    return d % 8 == 0 and d <= 64
+
+
 def test_msdeform_kernel_is_forward_only(dev):
     """The name is kept from when K7 refused autograd: on CUDA tensors the
     wrapper now differentiates through ``MSDeformAttnFunction``, one K7,
@@ -502,11 +560,17 @@ def test_msdeform_kernel_is_forward_only(dev):
 
 # K8 and K9 against the plain backward, max|kernel − plain| over
 # max|plain| per gradient: both float32, differing by summation order (and
-# d_value's atomics add in an order that changes from run to run)
+# d_value's atomics add in an order that changes from run to run).  D = 16,
+# 48 and 32 take K8's lane-group kernel (G = 2, 8 and 4 lanes a sample;
+# D = 48 leaves lanes idle), D = 12 and 72 its first kernel; the pillar-like
+# case has Q off the group kernel's 32-query blocks
 @pytest.mark.parametrize("b,q,heads,d,shapes,p", [
     (1, 37, 6, 16, [(7, 9), (4, 5), (2, 3), (1, 1)], 4),   # Q off the warp
     (2, 129, 6, 48, [(16, 16), (8, 8), (4, 4), (1, 1)], 4),  # D past 32
     (1, 129, 8, 32, [(1, 1), (3, 70)], 2),
+    (1, 301, 8, 32, [(32, 32), (16, 16), (8, 8), (4, 4)], 4),  # pillar-like
+    (1, 45, 4, 12, [(6, 7), (3, 4)], 4),
+    (1, 33, 3, 72, [(5, 6)], 3),
 ])
 def test_msdeform_backward_kernels(dev, b, q, heads, d, shapes, p):
     value, loc, wgt = _msdeform_case(dev, b, q, heads, d, shapes, p)
@@ -521,12 +585,15 @@ def test_msdeform_backward_kernels(dev, b, q, heads, d, shapes, p):
     loc[0, 2, 2, -1, 0] = torch.tensor([0.5, -1e20])
     d_out = torch.randn(b, q, heads * d, device=dev, generator=g)
     before = _counts()
+    before_group = pallas_msdeform.backward_taps_group_launches
     d_loc, d_attn = pallas_msdeform.backward_taps_kernel(value, shapes, loc,
                                                          wgt, d_out)
+    group = pallas_msdeform.backward_taps_group_launches - before_group
     d_value = pallas_msdeform.backward_value_kernel(value, shapes, loc, wgt,
                                                     d_out)
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1] + 1, before[2] + 1)
+    assert group == int(_takes_group(d))
     want = ms_deform_attn_backward(value, shapes, loc, wgt, d_out)
     for got, ref, name in zip((d_value, d_loc, d_attn), want,
                               ("d_value", "d_loc", "d_attn")):
@@ -534,3 +601,56 @@ def test_msdeform_backward_kernels(dev, b, q, heads, d, shapes, p):
         err = (got - ref).abs().max().item()
         assert err <= 1e-5 * ref.abs().max().item(), (name, err)
     assert not d_loc[0, 1, 1, 0, 1].any() and not d_attn[0, 2, 2, -1, 0]
+
+
+def test_msdeform_backward_misaligned_rows_skip_the_group_kernel(dev):
+    """A value or d_out 4 bytes past a 16-byte boundary (its rows are read
+    as float4) takes K8's first kernel through the wrapper, with the plain
+    gradients, and the lane-group entry refuses it with an error."""
+    shapes = [(4, 5)]
+    value, loc, wgt = _msdeform_case(dev, 1, 9, 2, 32, shapes, 2)
+    d_out = torch.randn(1, 9, 64, device=dev)
+    shift = lambda t: torch.empty(t.numel() + 1, device=dev)[1:].view_as(
+        t).copy_(t)
+    want = ms_deform_attn_backward(value, shapes, loc, wgt, d_out)
+    for v, g in ((shift(value), d_out), (value, shift(d_out))):
+        before = pallas_msdeform.backward_taps_group_launches
+        d_loc, d_attn = pallas_msdeform.backward_taps_kernel(v, shapes, loc,
+                                                             wgt, g)
+        assert pallas_msdeform.backward_taps_group_launches == before
+        for got, ref in ((d_loc, want[1]), (d_attn, want[2])):
+            assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pallas_msdeform._launch(
+                "msdeform_backward_taps_group_f32",
+                (pallas_msdeform._P,) * 6 + pallas_msdeform._SHAPE_ARGS,
+                *(t.data_ptr() for t in (v, loc, wgt, g, d_loc, d_attn)),
+                1, 20, 9, 2, 32, 1, 2, *pallas_msdeform._levels(shapes),
+                device=v.device)
+
+
+@pytest.mark.parametrize("d", [32, 12])
+def test_msdeform_backward_taps_non_finite_locations(dev, d):
+    """K8 on both kernels: a NaN or infinite location gives NaN d_attn and
+    d_loc for that sample alone; the rest match the plain backward."""
+    shapes = [(6, 7), (3, 4)]
+    value, loc, wgt = _msdeform_case(dev, 1, 40, 4, d, shapes, 4)
+    loc[0, 2, 1, 0, 3, 0] = float("nan")
+    loc[0, 33, 3, 1, 0, 1] = float("inf")
+    bad = torch.zeros(wgt.shape, dtype=torch.bool, device=dev)
+    bad[0, 2, 1, 0, 3] = bad[0, 33, 3, 1, 0] = True
+    d_out = torch.randn(1, 40, 4 * d, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+    before = pallas_msdeform.backward_taps_group_launches
+    d_loc, d_attn = pallas_msdeform.backward_taps_kernel(value, shapes, loc,
+                                                         wgt, d_out)
+    assert pallas_msdeform.backward_taps_group_launches - before == int(
+        _takes_group(d))
+    assert d_attn.isnan().equal(bad) and d_loc.isnan().any(-1).equal(bad)
+    assert d_loc[bad].isnan().all()
+    ok = ~bad
+    loc_ok = torch.where(bad[..., None], torch.zeros_like(loc), loc)
+    _, ref_loc, ref_attn = ms_deform_attn_backward(value, shapes, loc_ok, wgt,
+                                                   d_out)
+    for got, ref in ((d_attn[ok], ref_attn[ok]), (d_loc[ok], ref_loc[ok])):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

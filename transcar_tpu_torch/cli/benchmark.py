@@ -220,9 +220,9 @@ KERNEL_GROUPS = (
     ("K2 masked_attention", ("masked_attention",)),
     ("K4 osa_reduce", ("osa_reduce_wgmma", "conv_gemm_kernel<4,")),
     ("K5 osa_block", ("osa_chain_wgmma", "conv_gemm_kernel<5,")),
-    ("K6 bottleneck", ("conv_gemm_kernel<6,",)),
+    ("K6 bottleneck", ("bottleneck_", "conv_gemm_kernel<6,")),
     ("K7 msdeform_forward", ("msdeform_forward_kernel",)),
-    ("K8 msdeform_backward_taps", ("msdeform_backward_taps_kernel",)),
+    ("K8 msdeform_backward_taps", ("msdeform_backward_taps_",)),
     ("K9 msdeform_backward_value", ("msdeform_backward_value_kernel",)),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",

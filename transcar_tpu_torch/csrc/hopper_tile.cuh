@@ -1,7 +1,8 @@
 // Hopper (sm_90a) GEMM building block shared by K1 (dcn_forward.cu), K3
-// (dcn_backward.cu), K4 (osa_reduce.cu) and K5 (osa_block.cu, through
-// osa_wgmma.cuh): a warpgroup tile of `wgmma.mma_async` fed by an
-// asynchronous multi-stage ring in shared memory.
+// (dcn_backward.cu), K4 (osa_reduce.cu), K5 (osa_block.cu) and K6
+// (bottleneck.cu; K4-K6 through osa_wgmma.cuh): a warpgroup tile of
+// `wgmma.mma_async` fed by an asynchronous multi-stage ring in shared
+// memory.
 //
 // - TMA tile loads (`cp.async.bulk.tensor`) from CUtensorMaps passed to the
 //   kernel as __grid_constant__ parameters; each load reports its bytes to
@@ -121,6 +122,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c2), "r"(c3)
       : "memory");
 }
+// TMA stores of a box from shared memory (the same swizzled layout a load
+// writes); elements past the tensor's bounds are not written.  One thread
+// issues them, commits them as a bulk group, and waits for the group
+// before the shared memory is reused (read) or the kernel ends (all).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Order this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma operands written by threads, not by TMA).
 __device__ __forceinline__ void fence_proxy_async() {

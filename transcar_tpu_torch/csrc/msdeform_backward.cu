@@ -25,71 +25,40 @@
 // d_loc and adds nothing to d_value.  Layouts (contiguous float32): value
 // and d_value [B, S, H, D], loc and d_loc [B, Q, H, L, P, 2] (x, y), attn
 // and d_attn [B, Q, H, L, P], d_out [B, Q, H, D]; d_value is zeroed by the
-// caller.  One warp per (b, q, h); lane i holds channels d = i, i + 32, ...
-// so every tap is one coalesced read (K8) or atomic add (K9) of D floats.
+// caller.
+//
+// K8 has two kernels:
+// - msdeform_backward_taps_group_kernel, for D % 8 == 0, D <= 64 and
+//   16-byte aligned rows (the pillar head's D = 32): one lane group per
+//   sample (msdeform_gather.cuh; G = 4 lanes of 8 channels for D = 32, so
+//   a warp holds 8 samples).  A warp owns up to kGroupQueries neighbouring
+//   queries of one (batch, head), a block kGroupWarps such runs of one
+//   head, and walks their samples level by level, 16 samples in flight:
+//   each lane issues the loads of its samples' corner rows first (16-byte
+//   loads), then forms the four dot products g . v_corner over its
+//   channels, combines them into g.s, g.ds/dtx and g.ds/dty with the
+//   sample's corner weights, and sums those over the group's lanes
+//   (log2 G shuffle rounds).  The queries' gradient rows wait in shared
+//   memory, read once; d_attn and d_loc leave as one store a group.
+// - msdeform_backward_taps_kernel, for other D: one warp per (b, q, h);
+//   lane i holds channels d = i, i + 32, ..., so every tap is one
+//   coalesced read of D floats, and three warp-wide reductions a sample.
+// K9: one warp per (b, q, h), lanes over the channels; every tap is one
+// coalesced atomic add of D floats.
 
 #include <cuda_runtime.h>
 
+#include "msdeform_gather.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
+using msd::corners;
+using msd::Corners;
+using msd::kMaxLevels;
+using msd::Levels;
+using msd::make_levels;
+
 constexpr int kWarps = 8;          // warps per block
-
-struct Levels {
-  int h[kMaxLevels], w[kMaxLevels], start[kMaxLevels];
-};
-
-// The bilinear footprint of one sample on a level of hl x wl cells, with
-// grid_sample(align_corners=False) coordinates x = u * W_l - 0.5,
-// y = v * H_l - 0.5 and zero padding, rounded as K7 (msdeform_forward.cu,
-// which keeps the same arithmetic inline: shared as this function, it took
-// K7 from 80 to 100 registers and 1.56x the time on an H100) and the plain
-// version round it.
-struct Corners {
-  bool finite;                 // false for a non-finite location
-  bool v00, v01, v10, v11;     // which corners lie on the map
-  long long tok;               // token of corner (y0, x0) within the level
-  float tx, ty;                // fractional position inside the cell
-};
-
-__device__ __forceinline__ Corners corners(float2 uv, int hl, int wl) {
-  Corners c{};
-  // the plain version's rounding: one multiply, then one subtract
-  const float x = __fsub_rn(__fmul_rn(uv.x, static_cast<float>(wl)), 0.5f);
-  const float y = __fsub_rn(__fmul_rn(uv.y, static_cast<float>(hl)), 0.5f);
-  c.finite = isfinite(x) && isfinite(y);
-  if (!c.finite) return c;
-  const float x0 = floorf(x), y0 = floorf(y);
-  c.tx = x - x0;
-  c.ty = y - y0;
-  // validity in float, and the index from clamped values: a far-off
-  // location forms no out-of-range int
-  const bool vx0 = x0 >= 0.f && x0 <= wl - 1.f;
-  const bool vx1 = x0 >= -1.f && x0 <= wl - 2.f;
-  const bool vy0 = y0 >= 0.f && y0 <= hl - 1.f;
-  const bool vy1 = y0 >= -1.f && y0 <= hl - 2.f;
-  c.v00 = vy0 && vx0;
-  c.v01 = vy0 && vx1;
-  c.v10 = vy1 && vx0;
-  c.v11 = vy1 && vx1;
-  const int ix = static_cast<int>(fminf(fmaxf(x0, -1.f), wl));
-  const int iy = static_cast<int>(fminf(fmaxf(y0, -1.f), hl));
-  c.tok = static_cast<long long>(iy) * wl + ix;
-  return c;
-}
-
-// The level table of a launch; false if L is out of range.
-inline bool make_levels(int L, const int* level_h, const int* level_w,
-                        const int* level_start, Levels* lv) {
-  if (L < 1 || L > kMaxLevels) return false;
-  *lv = Levels{};
-  for (int l = 0; l < L; ++l) {
-    lv->h[l] = level_h[l];
-    lv->w[l] = level_w[l];
-    lv->start[l] = level_start[l];
-  }
-  return true;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -169,6 +138,139 @@ msdeform_backward_taps_kernel(const float* __restrict__ value,
   }
 }
 
+constexpr int kGroupWarps = 8;     // warps per block of the group kernel
+constexpr int kGroupQueries = 4;   // most neighbouring queries a warp owns
+constexpr int kGroupMaxD = 64;
+
+// a / b for small non-negative ints, by the float reciprocal inv = 1 / b:
+// (a + 0.5) / b lies at least 0.5 / b from an integer, far past the
+// rounding of the product for a < 2^20
+__device__ __forceinline__ int small_div(int a, float inv) {
+  return static_cast<int>((static_cast<float>(a) + 0.5f) * inv);
+}
+
+// K8 with one lane group of G lanes per sample (V float4 chunks a lane);
+// a warp owns up to kGroupQueries neighbouring queries of one (batch,
+// head) and walks their samples level by level.  Up to 16 samples in
+// flight a warp, as register room allows (R rounds of 32 / G).
+template <int G, int V>
+__global__ void __launch_bounds__(32 * kGroupWarps)
+msdeform_backward_taps_group_kernel(const float* __restrict__ value,
+                                    const float* __restrict__ loc,
+                                    const float* __restrict__ attn,
+                                    const float* __restrict__ d_out,
+                                    float* __restrict__ d_loc,
+                                    float* __restrict__ d_attn, Levels lv,
+                                    int q_blocks, int S, int Q, int H, int D,
+                                    int L, int P) {
+  constexpr int NG = 32 / G;                  // samples a warp holds at once
+  constexpr int kRounds16 = 16 / NG > 0 ? 16 / NG : 1;  // rounds for 16 samples
+  constexpr int R = kRounds16 < 4 / V ? kRounds16 : 4 / V;  // <= 4 chunks a corner
+  constexpr int QW = kGroupQueries;
+  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
+  __shared__ float4 s_g[kGroupWarps][QW * kGroupMaxD / 4];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      s_h[l] = lv.h[l];
+      s_w[l] = lv.w[l];
+      s_start[l] = lv.start[l];
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane / G, j = lane % G;
+  // block -> (b, run of kGroupWarps * QW queries, head), head fastest
+  const int h = static_cast<int>(blockIdx.x % H);
+  const int rest = static_cast<int>(blockIdx.x / H);
+  const long long b = rest / q_blocks;
+  const int q0 = ((rest % q_blocks) * kGroupWarps + warp) * QW;
+  const int nq = min(QW, Q - q0);
+  if (nq <= 0) return;                       // whole warps leave together
+
+  // the gradient rows of the warp's queries, read once
+  const int d4 = D / 4;
+  const long long item0 = (b * Q + q0) * H + h;        // item of query q0
+  float4* gs = s_g[warp];
+  for (int e = lane; e < nq * d4; e += 32) {
+    const int i = e / d4;
+    gs[e] = __ldg(reinterpret_cast<const float4*>(
+        d_out + (item0 + static_cast<long long>(i) * H) * D) + (e - i * d4));
+  }
+  __syncwarp();
+
+  const long long row = static_cast<long long>(H) * D;       // token stride
+  const float* vb = value + b * S * row + static_cast<long long>(h) * D;
+  const float2* loc2 = reinterpret_cast<const float2*>(loc);
+  float2* dloc2 = reinterpret_cast<float2*>(d_loc);
+  const int LP = L * P, n = nq * LP;
+  const float inv_p = 1.f / P, inv_qp = 1.f / (nq * P);
+  for (int u0 = 0; u0 < n; u0 += NG * R) {
+    float4 t[R][4][V];
+    Corners c[R];
+    float a[R];
+    int hl[R], wl[R], gsl[R];
+    long long sid[R];
+    bool live[R];
+    // every load of the R rounds first ...
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int u = u0 + r * NG + gi;
+      live[r] = u < n;
+      // slot u -> (query i of the warp's, sample s of its L * P),
+      // level-major; l = s / P by division ran 1% faster than l = lu (H100)
+      const int lu = small_div(u, inv_qp), rem = u - lu * nq * P;
+      int i = small_div(rem, inv_p), s = lu * P + rem - i * P;
+      if (!live[r]) i = s = 0;
+      const int l = small_div(s, inv_p);
+      sid[r] = (item0 + static_cast<long long>(i) * H) * LP + s;
+      hl[r] = s_h[l];
+      wl[r] = s_w[l];
+      gsl[r] = i * d4;
+      const float2 uv = live[r] ? __ldg(loc2 + sid[r]) : make_float2(0.f, 0.f);
+      a[r] = live[r] ? __ldg(attn + sid[r]) : 0.f;
+      c[r] = corners(uv, hl[r], wl[r]);
+      msd::load_taps<G, V>(vb + static_cast<long long>(s_start[l]) * row, row,
+                           wl[r], c[r], live[r], j, D, t[r]);
+    }
+    // ... then the products and the group sums
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float p00 = 0.f, p01 = 0.f, p10 = 0.f, p11 = 0.f;   // g . v_corner
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (4 * (k * G + j) < D) {
+          const float4 g = gs[gsl[r] + k * G + j];
+          p00 = msd::dot4(g, t[r][0][k], p00);
+          p01 = msd::dot4(g, t[r][1][k], p01);
+          p10 = msd::dot4(g, t[r][2][k], p10);
+          p11 = msd::dot4(g, t[r][3][k], p11);
+        }
+      }
+      const float tx = c[r].tx, ty = c[r].ty;
+      float sg = p00 * ((1.f - ty) * (1.f - tx)) + p01 * ((1.f - ty) * tx)
+                 + p10 * (ty * (1.f - tx)) + p11 * (ty * tx);
+      float sx = (p01 - p00) * (1.f - ty) + (p11 - p10) * ty;
+      float sy = (p10 - p00) * (1.f - tx) + (p11 - p01) * tx;
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1) {
+        sg += __shfl_xor_sync(0xffffffffu, sg, o);
+        sx += __shfl_xor_sync(0xffffffffu, sx, o);
+        sy += __shfl_xor_sync(0xffffffffu, sy, o);
+      }
+      if (j == 0 && live[r]) {
+        const float nan = __int_as_float(0x7fc00000);
+        d_attn[sid[r]] = c[r].finite ? sg : nan;
+        dloc2[sid[r]] = c[r].finite
+            ? make_float2((a[r] * sx) * static_cast<float>(wl[r]),
+                          (a[r] * sy) * static_cast<float>(hl[r]))
+            : make_float2(nan, nan);
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(32 * kWarps)
 msdeform_backward_value_kernel(const float* __restrict__ loc,
                                const float* __restrict__ attn,
@@ -226,6 +328,33 @@ long long launch_blocks(int B, int Q, int H, int D, int P,
   return blocks > 0x7fffffffLL ? -1 : blocks;
 }
 
+// The group kernel's launch: G lanes of V = 2 float4 chunks (8 channels)
+// a sample, G the least power of two with 8 G >= D.
+int launch_taps_group(const float* value, const float* loc, const float* attn,
+                      const float* d_out, float* d_loc, float* d_attn,
+                      const Levels& lv, int q_blocks, unsigned blocks, int S,
+                      int Q, int H, int D, int L, int P, cudaStream_t stream) {
+  const dim3 grid(blocks), block(32 * kGroupWarps);
+  switch (D <= 8 ? 1 : D <= 16 ? 2 : D <= 32 ? 4 : 8) {
+    case 1:
+      msdeform_backward_taps_group_kernel<1, 2><<<grid, block, 0, stream>>>(
+          value, loc, attn, d_out, d_loc, d_attn, lv, q_blocks, S, Q, H, D, L, P);
+      break;
+    case 2:
+      msdeform_backward_taps_group_kernel<2, 2><<<grid, block, 0, stream>>>(
+          value, loc, attn, d_out, d_loc, d_attn, lv, q_blocks, S, Q, H, D, L, P);
+      break;
+    case 4:
+      msdeform_backward_taps_group_kernel<4, 2><<<grid, block, 0, stream>>>(
+          value, loc, attn, d_out, d_loc, d_attn, lv, q_blocks, S, Q, H, D, L, P);
+      break;
+    default:
+      msdeform_backward_taps_group_kernel<8, 2><<<grid, block, 0, stream>>>(
+          value, loc, attn, d_out, d_loc, d_attn, lv, q_blocks, S, Q, H, D, L, P);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int msdeform_backward_taps_f32(
@@ -248,6 +377,34 @@ extern "C" int msdeform_backward_taps_f32(
       static_cast<float*>(d_loc), static_cast<float*>(d_attn), lv, items, S,
       Q, H, D, L, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8 on the lane-group kernel: D % 8 == 0, D <= 64, 16-byte aligned value
+// and d_out; any other call returns cudaErrorInvalidValue.
+extern "C" int msdeform_backward_taps_group_f32(
+    const void* value, const void* loc, const void* attn, const void* d_out,
+    void* d_loc, void* d_attn, int B, int S, int Q, int H, int D, int L,
+    int P, const int* level_h, const int* level_w, const int* level_start,
+    void* stream) {
+  Levels lv;
+  const auto misaligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 != 0;
+  };
+  if (B < 0 || Q < 0 || H < 1 || P < 1 || D < 8 || D % 8 != 0 ||
+      D > kGroupMaxD || misaligned(value) || misaligned(d_out) ||
+      !make_levels(L, level_h, level_w, level_start, &lv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = kGroupWarps * kGroupQueries;
+  const int q_blocks = (Q + per_block - 1) / per_block;
+  const long long blocks = static_cast<long long>(B) * q_blocks * H;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  return launch_taps_group(
+      static_cast<const float*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(attn), static_cast<const float*>(d_out),
+      static_cast<float*>(d_loc), static_cast<float*>(d_attn), lv, q_blocks,
+      static_cast<unsigned>(blocks), S, Q, H, D, L, P,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int msdeform_backward_value_f32(

@@ -35,19 +35,6 @@ osa_chain_wgmma_kernel(const __grid_constant__ osa::OsaParams p) {
   osa::osa_tile<BN, true>(p);
 }
 
-// The tile's pixel rectangle: bh x bw = 128 with the fewest pixels past
-// the image (bw = 16 on 232 x 400, 64 on 29 x 50).
-int tile_width(int H, int W) {
-  int best = 128;
-  long waste = -1;
-  for (int bw : {128, 64, 32, 16}) {
-    const int bh = osa::BM / bw;
-    const long cover = static_cast<long>((H + bh - 1) / bh) * bh * ((W + bw - 1) / bw) * bw;
-    if (waste < 0 || cover < waste) { waste = cover; best = bw; }
-  }
-  return best;
-}
-
 template <typename T>
 int osa_block(const void* x, int c0, int n_convs, int ch,
               const void* const* conv_w, const float* const* conv_s,
@@ -90,36 +77,14 @@ int osa_block(const void* x, int c0, int n_convs, int ch,
 extern "C" int osa_conv3x3_bf16_wgmma(const void* x, int C, const void* wk,
                                       const float* scale, const float* bias, void* out,
                                       int N, int H, int W, int Cout, void* stream) {
-  if (C % 8 != 0 || Cout % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bn = Cout > 128 ? 256 : 128;
   osa::OsaParams p{};
-  p.n_pieces = 1;
-  p.b_rows = Cout < bn ? Cout : bn;
-  p.width[0] = C;
-  p.bw = tile_width(H, W);
-  const uint64_t c = C;
-  const uint64_t adims[4] = {c, static_cast<uint64_t>(W), static_cast<uint64_t>(H),
-                             static_cast<uint64_t>(N)};
-  const uint64_t astrides[3] = {c * 2, c * W * 2, c * W * H * 2};
-  const uint32_t abox[4] = {osa::BK, static_cast<uint32_t>(p.bw),
-                            static_cast<uint32_t>(osa::BM / p.bw), 1};
-  const uint64_t bdims[3] = {c, 9, static_cast<uint64_t>(Cout)};
-  const uint64_t bstrides[2] = {c * 2, c * 9 * 2};
-  const uint32_t bbox[3] = {osa::BK, 1, static_cast<uint32_t>(p.b_rows)};
-  if (!hop::make_map(&p.a[0], x, 4, adims, astrides, abox) ||
-      !hop::make_map(&p.b[0], wk, 3, bdims, bstrides, bbox))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = osa::conv3x3_params(&p, x, C, wk, N, H, W, Cout, bn);
+  if (rc != 0) return rc;
   p.scale = scale;
   p.bias = bias;
   p.out = static_cast<hop::bf16*>(out);
-  p.Cout = Cout;
   p.relu = 1;
-  p.H = H;
-  p.W = W;
-  p.tiles_w = (W + p.bw - 1) / p.bw;
-  p.tiles_m = p.tiles_w * ((H + osa::BM / p.bw - 1) / (osa::BM / p.bw));
-  p.tiles_n = (Cout + bn - 1) / bn;
-  p.tiles = N * p.tiles_m * p.tiles_n;
   return bn == 256 ? osa::launch_tile<256>(osa_chain_wgmma_kernel<256>, p, stream)
                    : osa::launch_tile<128>(osa_chain_wgmma_kernel<128>, p, stream);
 }

@@ -58,37 +58,16 @@ extern "C" int osa_reduce_bf16_wgmma(int n_pieces, const void* const* pieces,
                                      const int* w_ld, const float* scale,
                                      const float* bias, void* out, float* sums, int N,
                                      int H, int W, int Cout, int relu, void* stream) {
-  if (n_pieces < 1 || n_pieces > osa::kMaxPieces || Cout % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int bn = Cout % 256 == 0 ? 256 : 128;
   osa::OsaParams p{};
-  p.n_pieces = n_pieces;
-  const uint64_t hw = static_cast<uint64_t>(H) * W;
-  for (int i = 0; i < n_pieces; ++i) {
-    const uint64_t c = widths[i];
-    if (c % 8 != 0 || w_ld[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const uint64_t adims[3] = {c, hw, static_cast<uint64_t>(N)};
-    const uint64_t astrides[2] = {c * 2, hw * c * 2};
-    const uint32_t abox[3] = {osa::BK, osa::BM, 1};
-    const uint64_t bdims[2] = {c, static_cast<uint64_t>(Cout)};
-    const uint64_t bstrides[1] = {static_cast<uint64_t>(w_ld[i]) * 2};
-    const uint32_t bbox[2] = {osa::BK, static_cast<uint32_t>(bn)};
-    if (!hop::make_map(&p.a[i], pieces[i], 3, adims, astrides, abox) ||
-        !hop::make_map(&p.b[i], weights[i], 2, bdims, bstrides, bbox))
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.width[i] = widths[i];
-  }
+  const int rc = osa::reduce_params(&p, n_pieces, pieces, weights, widths, w_ld, N, H,
+                                    W, Cout, bn);
+  if (rc != 0) return rc;
   p.scale = scale;
   p.bias = bias;
   p.out = static_cast<hop::bf16*>(out);
   p.sums = sums;
-  p.HW = H * W;
-  p.Cout = Cout;
   p.relu = relu;
-  p.b_rows = bn;
-  p.tiles_m = (H * W + osa::BM - 1) / osa::BM;
-  p.tiles_n = (Cout + bn - 1) / bn;
-  p.tiles = N * p.tiles_m * p.tiles_n;
   return bn == 256 ? osa::launch_tile<256>(osa_reduce_wgmma_kernel<256>, p, stream)
                    : osa::launch_tile<128>(osa_reduce_wgmma_kernel<128>, p, stream);
 }

@@ -1,11 +1,15 @@
-// The Hopper OSA tile: K4's concat-free reduce (osa_reduce.cu) and K5's
-// 3x3 chain conv (osa_block.cu) on one persistent wgmma kernel body, for
-// bfloat16 with every width and Cout a multiple of 8 and 16-byte aligned
-// bases (hopper_tile.cuh).
+// The Hopper OSA tile: K4's concat-free reduce (osa_reduce.cu), K5's 3x3
+// chain conv (osa_block.cu) and K6's three convs (bottleneck.cu) on one
+// persistent wgmma kernel body, for bfloat16 with every width and Cout a
+// multiple of 8 and 16-byte aligned bases (hopper_tile.cuh).
 //
-//   out[p, o] = round(relu?(acc[p, o] * scale[o] + bias[o]))
+//   out[p, o] = round(relu?(acc[p, o] * scale[o] + bias[o] + res[p, o]))
 //   reduce:  acc[p, o] = sum_i sum_c piece_i[p, c] * W_i[c, o],
-//            sums[n, o] += the float32 value before the rounding
+//            sums[n, o] += the float32 value before the rounding (where
+//            sums is not null: a uniform branch)
+//   res:     0 (kResid 0); resid[p, o] read as float32 (kResid 1, K6's
+//            identity); acc2[p, o] * scale2[o] + bias2[o] (kResid 2, K6's
+//            downsample: piece 1 goes to its own accumulator acc2)
 //   conv:    acc[p, o] = sum_{tap, c} x[n, i - 1 + tap/3, j - 1 + tap%3, c]
 //                                     * w[o, tap, c]      (zero outside)
 //
@@ -37,6 +41,20 @@
 //   are then left as they are, since they feed only output columns that are
 //   never stored.  The epilogue masks the rows past H and the columns past
 //   W; no channel sums.
+// - staged output (kStage, K6's BN = 128 instantiations): the epilogue
+//   writes the tile's bf16 values into one of two output slots in shared
+//   memory (BN / 64 boxes of [BM][64] under the 128-byte swizzle, 8 bytes
+//   a lane at the stores' own positions: two wavefronts an instruction),
+//   and the producer thread TMA-stores a slot, clipped at the image's edge
+//   and past Cout, then waits for the store to have read it before the
+//   slot takes the tile after next.  Full 128-byte lines leave the SM
+//   asynchronously, in place of 16-byte pieces of rows from every lane.
+// - residual (K6's conv3, a reduce form with no sums): kResid 1 has the
+//   producer TMA-load the tile's residual [BM, BN] box into its output
+//   slot after the tile's slices; the epilogue adds it in float32 from
+//   there and writes the output over it.  kResid 2 runs the second piece's
+//   slices into acc2 (BN = 128: 2 x 64 accumulator registers) and adds its
+//   affine, staged in shared memory, before the ReLU.
 #pragma once
 
 #include "hopper_tile.cuh"
@@ -54,21 +72,29 @@ struct OsaParams {
                                   // conv: a[0] [N, H, W, C], box [1, bh, bw, BK]
   CUtensorMap b[kMaxPieces];      // reduce: weight i [Cout, C_i], box [BN, BK]
                                   // conv: b[0] [Cout, 9, C], box [BN, 1, BK]
+  CUtensorMap o;                  // kStage: out, box [1, BM, 64] / [1, bh, bw, 64]
+  CUtensorMap r;                  // kResid 1: the residual [N, HW, Cout], box
+                                  // [1, BM, 64]
   int width[kMaxPieces];
   int n_pieces;
   const float* scale;
   const float* bias;
   hop::bf16* out;
-  float* sums;                    // reduce only
+  float* sums;                    // reduce only; null: none
+  const float* scale2;            // kResid 2: piece 1's affine
+  const float* bias2;
   int HW, Cout, relu;
   int b_rows;                     // rows of a B box: BN, or Cout where smaller
   int tiles_m, tiles_n, tiles;
   int H, W, bw, tiles_w;          // conv only: tiles_m = tiles_h * tiles_w
 };
 
-template <int BN>
+// kStage: two output slots of BM x BN, as BN / 64 boxes of [BM][64] under
+// the 128-byte swizzle, and a full / ready barrier pair for each.
+template <int BN, bool kStage = false>
 constexpr int smem_bytes() {
-  return 1024 + STAGES * (BM + BN) * BK * 2 + 2 * STAGES * 8 + 10 * BN * 4;
+  return 1024 + STAGES * (BM + BN) * BK * 2 + (kStage ? 2 * BM * BN * 2 + 4 * 8 : 0) +
+         2 * STAGES * 8 + 10 * BN * 4;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
@@ -76,16 +102,67 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// One 64-deep slice into accumulator d, waited for, then the stage freed.
+template <int BN>
+__device__ __forceinline__ void mma_stage(float* d, uint64_t da, uint64_t db) {
+  hop::fence_regs<BN / 2>(d);
+  hop::wgmma_fence();
+  hop::mma_slice<BN, 0, 0>(d, da, db);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_regs<BN / 2>(d);
+}
+
+// The BN / 64 column boxes of Cout tile nt that hold output columns.
+template <int BN>
+__device__ __forceinline__ int live_boxes(const OsaParams& p, int nt) {
+  const int left = (p.Cout - nt * BN + 63) / 64;
+  return left < BN / 64 ? left : BN / 64;
+}
+
+// kStage: TMA-store the output slot of the block's tile number seq once the
+// epilogue has staged it, then wait until the store has read the slot.
 template <int BN, bool kConv>
+__device__ __forceinline__ void store_slot(const OsaParams& p, const hop::bf16* so,
+                                           uint64_t* sready, int seq) {
+  const int tile = blockIdx.x + seq * gridDim.x;
+  const int nt = tile % p.tiles_n, rest = tile / p.tiles_n;
+  const int mt = rest % p.tiles_m, img = rest / p.tiles_m;
+  const int s = seq & 1;
+  hop::mbar_wait(&sready[s], (seq >> 1) & 1);
+  const int boxes = live_boxes<BN>(p, nt);
+  for (int h = 0; h < boxes; ++h) {
+    const hop::bf16* src = so + (s * BN / 64 + h) * BM * 64;
+    if constexpr (kConv)
+      hop::tma_store_4d(&p.o, src, nt * BN + h * 64, (mt % p.tiles_w) * p.bw,
+                        (mt / p.tiles_w) * (BM / p.bw), img);
+    else
+      hop::tma_store_3d(&p.o, src, nt * BN + h * 64, mt * BM, img);
+  }
+  hop::bulk_commit();
+  hop::bulk_wait_read<0>();
+}
+
+template <int BN, bool kConv, int kResid = 0, bool kStage = false>
 __device__ __forceinline__ void osa_tile(const OsaParams& p) {
+  static_assert(kResid == 0 || !kConv, "a residual takes the reduce form");
+  static_assert(kResid != 1 || kStage, "the residual arrives in an output slot");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   hop::bf16* sa = reinterpret_cast<hop::bf16*>(base);          // [S][BM][BK]
   hop::bf16* sb = sa + STAGES * BM * BK;                       // [S][BN][BK]
-  uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * BN * BK);
+  constexpr int kSlot = kStage ? BM * BN : 0;                  // per slot
+  hop::bf16* so = sb + STAGES * BN * BK;                       // [2][BN/64][BM][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(so + 2 * kSlot);
   uint64_t* empty = full + STAGES;
-  float* part = reinterpret_cast<float*>(empty + STAGES);      // [8 warps][BN]
+  uint64_t* sfull = empty + STAGES;                            // kStage: [2]
+  uint64_t* sready = sfull + 2;                                // kStage: [2]
+  float* part = reinterpret_cast<float*>(empty + STAGES + (kStage ? 4 : 0));
   float* sscale = part + 8 * BN;                               // [BN] this tile's
   float* sbias = sscale + BN;                                  // [BN] affine
   constexpr int taps = kConv ? 9 : 1;
@@ -96,12 +173,18 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], 2);        // both consumer warpgroups
     }
+    if constexpr (kStage) {
+      for (int s = 0; s < 2; ++s) {
+        hop::mbar_init(&sfull[s], 1);
+        hop::mbar_init(&sready[s], 1);
+      }
+    }
     hop::mbar_fence_init();
   }
   __syncthreads();
 
   if (wg == 0) {
-    // ---- producer: one thread issues every TMA load --------------------
+    // ---- producer: one thread issues every TMA load (and store) --------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (t == 0) {
       for (int i = 0; i < p.n_pieces; ++i) {
@@ -109,7 +192,8 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
         hop::tma_prefetch(&p.b[i]);
       }
       hop::Ring<STAGES> r;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      int seq = 0;                         // the block's tile number
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++seq) {
         const int nt = tile % p.tiles_n, rest = tile / p.tiles_n;
         const int mt = rest % p.tiles_m, img = rest / p.tiles_m;
         for (int i = 0; i < p.n_pieces; ++i) {
@@ -134,6 +218,26 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
             }
           }
         }
+        if constexpr (kStage) {
+          // slot seq & 1: the store of tile seq - 2 leaves it, then the
+          // residual of this tile (or the bare signal) fills it
+          const int s = seq & 1;
+          if (seq >= 2) store_slot<BN, kConv>(p, so, sready, seq - 2);
+          if constexpr (kResid == 1) {
+            const int boxes = live_boxes<BN>(p, nt);
+            hop::mbar_expect_tx(&sfull[s], boxes * BM * 64 * 2);
+            for (int h = 0; h < boxes; ++h)
+              hop::tma_load_3d(so + (s * BN / 64 + h) * BM * 64, &p.r, &sfull[s],
+                               nt * BN + h * 64, mt * BM, img);
+          } else {
+            hop::mbar_arrive(&sfull[s]);
+          }
+        }
+      }
+      if constexpr (kStage) {
+        for (int k = seq >= 2 ? seq - 2 : 0; k < seq; ++k)
+          store_slot<BN, kConv>(p, so, sready, k);
+        hop::bulk_wait<0>();
       }
     }
   } else {
@@ -141,13 +245,33 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int cw = wg - 1;
     const int warp = t / 32, lane = t % 32;
+    const int ct = threadIdx.x - 128;                   // 0 .. 255
+    const bool sums = !kConv && kResid == 0 && p.sums != nullptr;   // uniform
     float acc[BN / 2];
+    float acc2[kResid == 2 ? BN / 2 : 1];
     hop::Ring<STAGES> r;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    int seq = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++seq) {
       const int nt = tile % p.tiles_n, rest = tile / p.tiles_n;
       const int mt = rest % p.tiles_m, img = rest / p.tiles_m;
+      const int col_base = nt * BN;
+      // this tile's affine, read before the mainloop so that its latency
+      // overlaps the multiply
+      float aff[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ct < BN && col_base + ct < p.Cout) {
+        aff[0] = p.scale[col_base + ct];
+        aff[1] = p.bias[col_base + ct];
+        if constexpr (kResid == 2) {
+          aff[2] = p.scale2[col_base + ct];
+          aff[3] = p.bias2[col_base + ct];
+        }
+      }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      if constexpr (kResid == 2) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc2[i] = 0.f;
+      }
       for (int i = 0; i < p.n_pieces; ++i) {
         for (int tap = 0; tap < taps; ++tap) {
           for (int k0 = 0; k0 < p.width[i]; k0 += BK) {
@@ -155,12 +279,14 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
             const uint64_t da =
                 hop::make_desc(sa + r.stage * BM * BK + cw * 64 * BK, 0, 1024);
             const uint64_t db = hop::make_desc(sb + r.stage * BN * BK, 0, 1024);
-            hop::fence_regs<BN / 2>(acc);
-            hop::wgmma_fence();
-            hop::mma_slice<BN, 0, 0>(acc, da, db);
-            hop::wgmma_commit();
-            hop::wgmma_wait<0>();
-            hop::fence_regs<BN / 2>(acc);
+            if constexpr (kResid == 2) {
+              if (i == 1)
+                mma_stage<BN>(acc2, da, db);
+              else
+                mma_stage<BN>(acc, da, db);
+            } else {
+              mma_stage<BN>(acc, da, db);
+            }
             if (t == 0) hop::mbar_arrive(&empty[r.stage]);
             r.next();
           }
@@ -168,23 +294,26 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
       }
 
       // ---- epilogue from the accumulator registers ---------------------
-      const int col_base = nt * BN;
-      const int ct = threadIdx.x - 128;                 // 0 .. 255
+      float* sscale2 = part;                            // kResid 2 (no sums)
+      float* sbias2 = part + BN;
       if (ct < BN) {
-        const bool in = col_base + ct < p.Cout;
-        sscale[ct] = in ? p.scale[col_base + ct] : 0.f;
-        sbias[ct] = in ? p.bias[col_base + ct] : 0.f;
+        sscale[ct] = aff[0];
+        sbias[ct] = aff[1];
+        if constexpr (kResid == 2) {
+          sscale2[ct] = aff[2];
+          sbias2[ct] = aff[3];
+        }
       }
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
       // lanes of even l % 4 store 4 columns of row0, odd ones of row0 + 8
       const bool odd = lane & 1;
       const int lrow = cw * 64 + warp * 16 + lane / 4;  // and lrow + 8
+      const int srow = lrow + (odd ? 8 : 0);            // the row this lane stores
       bool ok0 = false, ok1 = false, okr;
       size_t orow;
       if constexpr (kConv) {
-        const int lr = lrow + (odd ? 8 : 0);
-        const int i = (mt / p.tiles_w) * (BM / p.bw) + lr / p.bw;
-        const int j = (mt % p.tiles_w) * p.bw + lr % p.bw;
+        const int i = (mt / p.tiles_w) * (BM / p.bw) + srow / p.bw;
+        const int j = (mt % p.tiles_w) * p.bw + srow % p.bw;
         okr = i < p.H && j < p.W;
         orow = ((static_cast<size_t>(img) * p.H + i) * p.W + j) * p.Cout + col_base +
                2 * (lane & 2);
@@ -196,6 +325,10 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
         orow = (static_cast<size_t>(img) * p.HW + row0 + (odd ? 8 : 0)) * p.Cout +
                col_base + 2 * (lane & 2);
       }
+      // kStage: this lane's 8 bytes of slot row srow in column group j sit
+      // in box j / 8 at 16-byte chunk (j % 8) ^ (srow % 8) (the swizzle)
+      hop::bf16* slot = so + (seq & 1) * kSlot + srow * 64 + 2 * (lane & 2);
+      if constexpr (kStage) hop::mbar_wait(&sfull[seq & 1], (seq >> 1) & 1);
 #pragma unroll
       for (int g = 0; g < BN / 32; ++g) {
         float cs[8];                       // column sums of this thread's 2 rows
@@ -203,15 +336,36 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
         for (int k = 0; k < 4; ++k) {
           const int j = 4 * g + k;
           const int lc = 8 * j + 2 * (lane & 3);          // column within the tile
+          uint2* sp = reinterpret_cast<uint2*>(
+              slot + (j / 8) * BM * 64 + (((j % 8) ^ (srow & 7)) << 3));
           const float2 sc = *reinterpret_cast<const float2*>(sscale + lc);
           const float2 bi = *reinterpret_cast<const float2*>(sbias + lc);
           float v[4] = {acc[4 * j] * sc.x + bi.x, acc[4 * j + 1] * sc.y + bi.y,
                         acc[4 * j + 2] * sc.x + bi.x, acc[4 * j + 3] * sc.y + bi.y};
+          if constexpr (kResid == 1) {
+            // the residual in the slot, 4 columns of srow a lane: lane ^ 1
+            // holds the other row's half of this lane's columns
+            const uint2 res = *sp;
+            const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? res.x : res.y, 1);
+            const float2 r0 = unpack_bf16(odd ? got : res.x);
+            const float2 r8 = unpack_bf16(odd ? res.y : got);
+            v[0] += r0.x;
+            v[1] += r0.y;
+            v[2] += r8.x;
+            v[3] += r8.y;
+          } else if constexpr (kResid == 2) {
+            const float2 sd = *reinterpret_cast<const float2*>(sscale2 + lc);
+            const float2 bd = *reinterpret_cast<const float2*>(sbias2 + lc);
+            v[0] += acc2[4 * j] * sd.x + bd.x;
+            v[1] += acc2[4 * j + 1] * sd.y + bd.y;
+            v[2] += acc2[4 * j + 2] * sd.x + bd.x;
+            v[3] += acc2[4 * j + 3] * sd.y + bd.y;
+          }
           if (p.relu) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) v[e] = fmaxf(v[e], 0.f);
           }
-          if constexpr (!kConv) {
+          if (sums) {
             cs[2 * k] = (ok0 ? v[0] : 0.f) + (ok1 ? v[2] : 0.f);
             cs[2 * k + 1] = (ok0 ? v[1] : 0.f) + (ok1 ? v[3] : 0.f);
           }
@@ -219,10 +373,12 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
           const uint32_t a = pack_bf16(v[0], v[1]), b = pack_bf16(v[2], v[3]);
           const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? a : b, 1);
           const uint2 w = odd ? make_uint2(got, b) : make_uint2(a, got);
-          if (okr && col_base + 8 * j < p.Cout)
+          if constexpr (kStage)
+            *sp = w;                       // TMA stores it, clipped at the edges
+          else if (okr && col_base + 8 * j < p.Cout)
             *reinterpret_cast<uint2*>(p.out + orow + 8 * j) = w;
         }
-        if constexpr (!kConv) {
+        if (sums) {
           // Sum the 8 values over the 8 lanes of one l % 4 (the warp's 16
           // rows) by a butterfly that halves what each lane keeps: after the
           // xor-4 / 8 / 16 rounds lane l holds value c = 4 b2 + 2 b3 + b4 of
@@ -243,7 +399,7 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
           part[(cw * 4 + warp) * BN + 8 * (4 * g + (c >> 1)) + 2 * (lane & 3) + (c & 1)] = h1;
         }
       }
-      if constexpr (!kConv) {
+      if (sums) {
         // the 8 warps' partial rows, then one global atomic per (tile,
         // channel)
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -254,17 +410,121 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
           atomicAdd(p.sums + static_cast<size_t>(img) * p.Cout + col_base + ct, sum);
         }
       }
+      if constexpr (kStage) hop::fence_proxy_async();   // the slot, for TMA
       // keeps the next tile's affine and partials after this tile's reads
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if constexpr (kStage) {
+        if (ct == 0) hop::mbar_arrive(&sready[seq & 1]);
+      }
     }
   }
 }
 
+// The reduce form's params over n_pieces pieces [N, H*W, widths[i]] and
+// K-major weights [Cout, .] of row stride w_ld[i] (elements), on BN-wide
+// Cout tiles; the caller sets the affine, out, sums, relu and residual.
+// Returns a cudaError_t.
+inline int reduce_params(OsaParams* p, int n_pieces, const void* const* pieces,
+                         const void* const* weights, const int* widths,
+                         const int* w_ld, int N, int H, int W, int Cout, int bn) {
+  if (n_pieces < 1 || n_pieces > kMaxPieces || Cout % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p->n_pieces = n_pieces;
+  const uint64_t hw = static_cast<uint64_t>(H) * W;
+  for (int i = 0; i < n_pieces; ++i) {
+    const uint64_t c = widths[i];
+    if (c % 8 != 0 || w_ld[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const uint64_t adims[3] = {c, hw, static_cast<uint64_t>(N)};
+    const uint64_t astrides[2] = {c * 2, hw * c * 2};
+    const uint32_t abox[3] = {BK, BM, 1};
+    const uint64_t bdims[2] = {c, static_cast<uint64_t>(Cout)};
+    const uint64_t bstrides[1] = {static_cast<uint64_t>(w_ld[i]) * 2};
+    const uint32_t bbox[2] = {BK, static_cast<uint32_t>(bn)};
+    if (!hop::make_map(&p->a[i], pieces[i], 3, adims, astrides, abox) ||
+        !hop::make_map(&p->b[i], weights[i], 2, bdims, bstrides, bbox))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p->width[i] = widths[i];
+  }
+  p->HW = H * W;
+  p->Cout = Cout;
+  p->b_rows = bn;
+  p->tiles_m = (H * W + BM - 1) / BM;
+  p->tiles_n = (Cout + bn - 1) / bn;
+  p->tiles = N * p->tiles_m * p->tiles_n;
+  return 0;
+}
+
+// The conv form's tile rectangle: bh x bw = 128 with the fewest pixels
+// past the image (bw = 16 on 232 x 400, 64 on 29 x 50).
+inline int tile_width(int H, int W) {
+  int best = 128;
+  long waste = -1;
+  for (int bw : {128, 64, 32, 16}) {
+    const int bh = BM / bw;
+    const long cover = static_cast<long>((H + bh - 1) / bh) * bh * ((W + bw - 1) / bw) * bw;
+    if (waste < 0 || cover < waste) { waste = cover; best = bw; }
+  }
+  return best;
+}
+
+// The conv form's params: x [N, H, W, C], wk [Cout, 3, 3, C] (K-major) on
+// BN-wide Cout tiles; the caller sets the affine, out and relu.  Returns a
+// cudaError_t.
+inline int conv3x3_params(OsaParams* p, const void* x, int C, const void* wk, int N,
+                          int H, int W, int Cout, int bn) {
+  if (C % 8 != 0 || Cout % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  p->n_pieces = 1;
+  p->b_rows = Cout < bn ? Cout : bn;
+  p->width[0] = C;
+  p->bw = tile_width(H, W);
+  const uint64_t c = C;
+  const uint64_t adims[4] = {c, static_cast<uint64_t>(W), static_cast<uint64_t>(H),
+                             static_cast<uint64_t>(N)};
+  const uint64_t astrides[3] = {c * 2, c * W * 2, c * W * H * 2};
+  const uint32_t abox[4] = {BK, static_cast<uint32_t>(p->bw),
+                            static_cast<uint32_t>(BM / p->bw), 1};
+  const uint64_t bdims[3] = {c, 9, static_cast<uint64_t>(Cout)};
+  const uint64_t bstrides[2] = {c * 2, c * 9 * 2};
+  const uint32_t bbox[3] = {BK, 1, static_cast<uint32_t>(p->b_rows)};
+  if (!hop::make_map(&p->a[0], x, 4, adims, astrides, abox) ||
+      !hop::make_map(&p->b[0], wk, 3, bdims, bstrides, bbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p->Cout = Cout;
+  p->H = H;
+  p->W = W;
+  p->tiles_w = (W + p->bw - 1) / p->bw;
+  p->tiles_m = p->tiles_w * ((H + BM / p->bw - 1) / (BM / p->bw));
+  p->tiles_n = (Cout + bn - 1) / bn;
+  p->tiles = N * p->tiles_m * p->tiles_n;
+  return 0;
+}
+
+// kStage's output map, or kResid 1's residual map (the same shape), over a
+// bfloat16 tensor of N images: the reduce form's [N, HW, Cout] with a box
+// of [1, BM, 64], or the conv form's [N, H, W, Cout] with a box of [1, bh,
+// bw, 64] (after conv3x3_params).  Returns false on failure.
+inline bool slot_map(CUtensorMap* map, const void* base, const OsaParams& p, bool conv,
+                     int N) {
+  const uint64_t c = p.Cout;
+  if (conv) {
+    const uint64_t dims[4] = {c, static_cast<uint64_t>(p.W), static_cast<uint64_t>(p.H),
+                              static_cast<uint64_t>(N)};
+    const uint64_t strides[3] = {c * 2, c * p.W * 2, c * p.W * p.H * 2};
+    const uint32_t box[4] = {64, static_cast<uint32_t>(p.bw),
+                             static_cast<uint32_t>(BM / p.bw), 1};
+    return hop::make_map(map, base, 4, dims, strides, box);
+  }
+  const uint64_t dims[3] = {c, static_cast<uint64_t>(p.HW), static_cast<uint64_t>(N)};
+  const uint64_t strides[2] = {c * 2, c * p.HW * 2};
+  const uint32_t box[3] = {64, BM, 1};
+  return hop::make_map(map, base, 3, dims, strides, box);
+}
+
 // Launch a kernel of this body on one block per SM (at most one per tile).
-template <int BN, typename Kernel>
+template <int BN, bool kStage = false, typename Kernel>
 int launch_tile(Kernel kernel, const OsaParams& p, void* stream) {
   if (p.tiles == 0) return 0;
-  constexpr int smem = smem_bytes<BN>();
+  constexpr int smem = smem_bytes<BN, kStage>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

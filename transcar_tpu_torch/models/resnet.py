@@ -11,7 +11,9 @@ runs every stride-1 non-DCN bottleneck through ``ops/pallas_bottleneck.py``
 downsample``; the TPU's VMEM gate ``_pick_rows`` is dropped, since it only
 sent blocks back to XLA for want of VMEM.  On ``transcar_r101`` that is
 the 6 blocks ``layer1_0..2`` (232 × 400) and ``layer2_1..3`` (116 × 200);
-``layer2_0`` (stride 2) and the DCN stages keep the layers.  The phase
+``layer2_0`` (stride 2) and the DCN stages keep the layers.  On a CUDA
+tensor the block hands K6's Hopper tile the K-major copies of its conv
+weights in the compute dtype, cached.  The phase
 stem (``stem_impl``) computes the same function and is not ported; int8
 is not ported.
 
@@ -32,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from transcar_tpu_torch.models.common import (Conv2d, ConvBN, FrozenBN,
                                               cached_copy)
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
-from transcar_tpu_torch.ops.pallas_bottleneck import bottleneck_fused
+from transcar_tpu_torch.ops.pallas_bottleneck import (bottleneck_fused,
+                                                      kmajor_weights)
 from transcar_tpu_torch.ops.pallas_dcn import fused_deform_conv, kmajor_weight
 
 RESNET_DEPTHS = {
@@ -116,17 +119,34 @@ class Bottleneck(nn.Module):
         identity = self.downsample(x) if hasattr(self, "downsample") else x
         return F.relu(out + identity)
 
+    def _jax_weights(self) -> tuple:
+        """The conv weights as the K6 wrapper takes them (JAX layout views):
+        w1 [Cin, Cm], w2 [3, 3, Cm, Cm], w3 [Cm, Cout], wd [Cin, Cout] or
+        None."""
+        mat = lambda conv: conv.conv.weight[:, :, 0, 0].t()
+        return (mat(self.conv1), self.conv2.conv.weight.permute(2, 3, 1, 0),
+                mat(self.conv3), mat(self.downsample)
+                if hasattr(self, "downsample") else None)
+
+    def _kmajor(self, dtype) -> tuple:
+        """K6's Hopper-tile weights: :func:`kmajor_weights` in ``dtype``
+        (:func:`cached_copy`)."""
+        convs = [self.conv1, self.conv2, self.conv3] + (
+            [self.downsample] if hasattr(self, "downsample") else [])
+        return cached_copy(self, "_kmajor_cache",
+                           [c.conv.weight for c in convs], dtype,
+                           lambda: kmajor_weights(*self._jax_weights(),
+                                                  dtype=dtype))
+
     def _fused(self, x):
+        w1, w2, w3, wd = self._jax_weights()
         kw = {}
-        if hasattr(self, "downsample"):
-            kw = dict(wd=self.downsample.conv.weight[:, :, 0, 0].t(),
-                      affd=self.downsample.bn.affine())
+        if wd is not None:
+            kw = dict(wd=wd, affd=self.downsample.bn.affine())
         out = bottleneck_fused(
-            x.permute(0, 2, 3, 1),
-            self.conv1.conv.weight[:, :, 0, 0].t(), self.conv1.bn.affine(),
-            self.conv2.conv.weight.permute(2, 3, 1, 0), self.conv2.bn.affine(),
-            self.conv3.conv.weight[:, :, 0, 0].t(), self.conv3.bn.affine(),
-            **kw)
+            x.permute(0, 2, 3, 1), w1, self.conv1.bn.affine(),
+            w2, self.conv2.bn.affine(), w3, self.conv3.bn.affine(), **kw,
+            kmajor=self._kmajor(x.dtype) if x.is_cuda else None)
         return out.permute(0, 3, 1, 2)
 
 

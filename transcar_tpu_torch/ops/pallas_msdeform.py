@@ -67,15 +67,36 @@ same ~5.7 GB of taps through L2 as K7) and the scatter: K9 makes
 87 040 × 8 × 16 × 4 × 32 ≈ 1.4 G float atomic adds through L2 per
 encoder call.
 
-What the design does about it: K7's layout, one warp per (batch, query,
-head) with lanes over the head's channels, so that each tap is one
-coalesced 128-byte read (K8) or one coalesced 128-byte atomic add (K9).
-K8 keeps three per-lane sums per sample (g·s, g·∂s/∂x, g·∂s/∂y), reduces
-them across the warp and writes d_attn and d_loc from one lane; K9 adds
-a·w_corner·g into d_value, which the wrapper zeroes.  The corner weights
-round as K7 and the plain version round them.  The atomics add in an
-order that changes from run to run, so d_value differs from the plain
-version by summation order only.
+What the design does about it.  K8, for a head dim D that is a multiple
+of 8 and at most 64 with 16-byte aligned rows (:func:`takes_group_kernel`:
+the pillar head's D = 32, counted in :data:`backward_taps_group_launches`),
+runs one lane group per sample (``msdeform_backward_taps_group_kernel``,
+its gather in ``csrc/msdeform_gather.cuh``): G lanes (the least power of
+two with 8·G ≥ D; 4 for D = 32) hold 8 channels each as two ``float4``,
+so a warp holds 32 / G samples and computes each sample's
+location, corners and fractions once (with the plain version's rounding),
+not once per lane.  A warp owns 4 neighbouring queries of one (batch,
+head), which in the encoder are neighbouring tokens of the BEV grid, and a
+block 8 such runs of one head; it walks their samples
+level by level, so that the corner rows that neighbouring queries share
+at one level can meet in L1.  It keeps 16 samples in flight: every lane
+issues its 16-byte corner-row loads for all of them before any
+arithmetic, then forms the four dot products
+g·v_corner over its channels, combines them with the sample's corner
+weights into g·s, g·∂s/∂x and g·∂s/∂y (the same products, summed in
+another order: within 1e-5 of max|plain|), and sums those over the
+group's lanes in log2 G shuffle rounds.  The queries' gradient rows are
+read once into shared memory; the group's first lane stores d_attn and
+d_loc, a warp's stores covering consecutive samples.  Other D keep the
+first kernel, openly: one warp per (batch, query, head) with lanes over
+the channels, three warp-wide sums a sample.
+
+K9 keeps K7's layout, one warp per (batch, query, head) with lanes over
+the head's channels, so that each tap is one coalesced 128-byte atomic
+add: it adds a·w_corner·g into d_value, which the wrapper zeroes.  The
+corner weights round as K7 and the plain version round them.  The
+atomics add in an order that changes from run to run, so d_value differs
+from the plain version by summation order only.
 
 :func:`ms_deform_attn` on a CUDA tensor always goes through
 :class:`MSDeformAttnFunction` (K7 forward, K8 and K9 backward), with or
@@ -96,6 +117,8 @@ from transcar_tpu_torch.ops.msdeform import level_starts, ms_deform_attn_core
 launches = 0
 #: K8 (d_attn, d_loc) launches since the count was last set to 0.
 backward_taps_launches = 0
+#: Of those, the launches that took the lane-group kernel.
+backward_taps_group_launches = 0
 #: K9 (d_value) launches since the count was last set to 0.
 backward_value_launches = 0
 
@@ -221,12 +244,20 @@ def kernel(value, spatial_shapes, sampling_locations, attention_weights):
     return out
 
 
+def takes_group_kernel(value: torch.Tensor, d_out: torch.Tensor) -> bool:
+    """Whether K8 takes the lane-group kernel: a head dim D that is a
+    multiple of 8 and at most 64, and 16-byte aligned value and d_out."""
+    d = value.shape[-1]
+    return (d % 8 == 0 and d <= 64 and value.data_ptr() % 16 == 0
+            and d_out.data_ptr() % 16 == 0)
+
+
 def backward_taps_kernel(value, spatial_shapes, sampling_locations,
                          attention_weights, d_out):
     """K8 on CUDA tensors: (d_loc [B, Q, H, L, P, 2], d_attn [B, Q, H, L,
     P]) of :func:`ms_deform_attn` for the output gradient ``d_out`` [B, Q,
     H·D], float32."""
-    global backward_taps_launches
+    global backward_taps_launches, backward_taps_group_launches
     _check(value, spatial_shapes, sampling_locations, attention_weights,
            d_out)
     b, s, h, d = value.shape
@@ -235,12 +266,15 @@ def backward_taps_kernel(value, spatial_shapes, sampling_locations,
         value, sampling_locations, attention_weights, d_out))
     d_loc = torch.empty_like(loc)
     d_attn = torch.empty_like(wgt)
-    _launch("msdeform_backward_taps_f32", (_P,) * 6 + _SHAPE_ARGS,
+    group = takes_group_kernel(value, d_out)
+    _launch("msdeform_backward_taps_group_f32" if group
+            else "msdeform_backward_taps_f32", (_P,) * 6 + _SHAPE_ARGS,
             value.data_ptr(), loc.data_ptr(), wgt.data_ptr(),
             d_out.data_ptr(), d_loc.data_ptr(), d_attn.data_ptr(),
             b, s, q, h, d, len(spatial_shapes), p, *_levels(spatial_shapes),
             device=value.device)
     backward_taps_launches += 1
+    backward_taps_group_launches += int(group)
     return d_loc, d_attn
 
 
