@@ -9,9 +9,9 @@ example ``git archive <commit> transcar_tpu_torch/csrc`` unpacked under
 the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K4,
 K5, K6, K7, K8 and K9 in turns with these (parent, kernel, kernel,
 parent) in phases 3, 4, 8, 13 and 15; the summary line then carries each
-one's ``parent_ms``.  ``--variants k1|k5|k6|k8|all`` runs none of the
-phases: it builds each knock-out variant of the K1 / K5 / K6 / K8 kernels
-in ``VARIANTS`` (a copy of their sources under
+one's ``parent_ms``.  ``--variants k1|k5|k6|k7|k8|k9|all`` runs none of
+the phases: it builds each knock-out variant of the K1 / K5 / K6 / K7 /
+K8 / K9 kernels in ``VARIANTS`` (a copy of their sources under
 ``transcar_tpu_torch/build/variants/`` with its patches) and prints its
 time per request or step at the main path's shapes.
 
@@ -80,21 +80,25 @@ non-zero):
      256² / 128² / 64² / 32² BEV levels) and one decoder call (300
      queries), 8 heads of 32, 4 levels × 4 points, offsets up to ±48
      cells (far past any TPU band, and off the map), softmaxed weights;
+     each call on the lane-group kernel, compared bit for bit with the
+     first kernel (and the parent's K7); the lane-group kernel's
+     ``-Xptxas -v`` line;
  14. the ObjDGCNN pillar slice through ``benchmark objdgcnn_pillar``:
      300 000 points, 512² BEV, bfloat16 SECOND and FPN, float32 head, 300
-     queries; 8 K7 launches per request and no other kernel, finite
-     outputs and decode, samples/s and peak memory, then float32 with one
-     decoder layer, kernel path against plain path;
+     queries; 8 K7 launches per request (all on the lane-group kernel)
+     and no other kernel, finite outputs and decode, samples/s and peak
+     memory, then float32 with one decoder layer, kernel path against
+     plain path;
  15. K8 (d_attn, d_loc) and K9 (d_value), the MSDeformAttn backward,
      against the plain backward (autograd of K7's plain version, chunked)
      at one encoder and one decoder call of the pillar shapes, with K7's
-     inputs and a random output gradient, K8 on its lane-group kernel;
-     per call and per step, and the lane-group kernel's ``-Xptxas -v``
-     line;
+     inputs and a random output gradient, K8 and K9 on their lane-group
+     kernels; per call and per step, and the lane-group kernels'
+     ``-Xptxas -v`` lines;
  16. ``objdgcnn_pillar`` training through ``benchmark --train`` at the
      same width (dropout 0.1, batch statistics, clip 35, AdamW with the
-     VFE and SECOND at lr × 0.1): 8 K7 + 8 K8 (all on the lane-group
-     kernel) + 8 K9 launches per step and no other kernel, finite losses, trainable elements and BN running
+     VFE and SECOND at lr × 0.1): 8 K7 + 8 K8 + 8 K9 launches per step
+     (all on the lane-group kernels) and no other kernel, finite losses, trainable elements and BN running
      statistics moved, ms/step and peak memory; then one float32 step
      with one decoder layer and dropout 0, kernel path against plain path
      (gradients per leaf);
@@ -331,7 +335,7 @@ def parent_library(csrc: str):
     return csrc_library(csrc, "parent")
 
 
-# Knock-out variants of the K1, K5, K6 and K8 kernels (``--variants``):
+# Knock-out variants of the K1, K5, K6, K7, K8 and K9 kernels (``--variants``):
 # name: (sources copied, [(file patched, old text, new text), ...]).  A
 # variant that takes out part of the work computes garbage; only its time
 # is read.  A patch whose old text is gone raises.  No patch may drop an
@@ -340,7 +344,21 @@ def parent_library(csrc: str):
 K1_SRC = ("dcn_forward.cu", "dcn_tap.cuh", "hopper_tile.cuh")
 K5_SRC = ("osa_block.cu", "osa_wgmma.cuh", "hopper_tile.cuh", "conv_tile.cuh")
 K6_SRC = ("bottleneck.cu", "osa_wgmma.cuh", "hopper_tile.cuh", "conv_tile.cuh")
+K7_SRC = ("msdeform_forward.cu", "msdeform_gather.cuh")
 K8_SRC = ("msdeform_backward.cu", "msdeform_gather.cuh")
+K9_SRC = K8_SRC
+# the lane-group gather of K7 and K8 with its corner loads replaced by
+# register values that depend on the sample
+_NO_VALUE_LOADS = (
+    "msdeform_gather.cuh",
+    "    t[0][k] = in && c.v00 ? __ldg(reinterpret_cast<const float4*>(p + t00)) : zero;\n"
+    "    t[1][k] = in && c.v01 ? __ldg(reinterpret_cast<const float4*>(p + t00 + row)) : zero;\n"
+    "    t[2][k] = in && c.v10 ? __ldg(reinterpret_cast<const float4*>(p + t10)) : zero;\n"
+    "    t[3][k] = in && c.v11 ? __ldg(reinterpret_cast<const float4*>(p + t10 + row)) : zero;\n",
+    "    for (int q = 0; q < 4; ++q)\n"
+    "      t[q][k] = in ? make_float4(c.tx + q, c.ty, c.tx, c.ty + q) : zero;\n")
+# K9's vector atomic add, and what the knock-outs put in its place
+_RED_ADD4 = "  atomicAdd(reinterpret_cast<float4*>(p), v);\n"
 _K6_BN64 = (
     "  if (bn == 64) return osa::launch_tile<64>(bottleneck_{}_wgmma_kernel<64{}>, p,"
     " stream);\n  return bn == 256\n")
@@ -455,20 +473,69 @@ VARIANTS = {
         "      const int lu = small_div(u, inv_qp), rem = u - lu * nq * P;\n"
         "      int i = small_div(rem, inv_p), s = lu * P + rem - i * P;\n",
         "      int i = small_div(u, inv_lp), s = u - i * LP;\n")]),
-    "k8 no value loads": (K8_SRC, [(
-        "msdeform_gather.cuh",
-        "    t[0][k] = in && c.v00 ? __ldg(reinterpret_cast<const float4*>(p + t00)) : zero;\n"
-        "    t[1][k] = in && c.v01 ? __ldg(reinterpret_cast<const float4*>(p + t00 + row)) : zero;\n"
-        "    t[2][k] = in && c.v10 ? __ldg(reinterpret_cast<const float4*>(p + t10)) : zero;\n"
-        "    t[3][k] = in && c.v11 ? __ldg(reinterpret_cast<const float4*>(p + t10 + row)) : zero;\n",
-        "    for (int q = 0; q < 4; ++q)\n"
-        "      t[q][k] = in ? make_float4(c.tx + q, c.ty, c.tx, c.ty + q) : zero;\n")]),
+    "k8 no value loads": (K8_SRC, [_NO_VALUE_LOADS]),
     "k8 no group sums": (K8_SRC, [(
         "msdeform_backward.cu",
         "        sg += __shfl_xor_sync(0xffffffffu, sg, o);\n"
         "        sx += __shfl_xor_sync(0xffffffffu, sx, o);\n"
         "        sy += __shfl_xor_sync(0xffffffffu, sy, o);\n", "")]),
+    "k7 base": (K7_SRC, []),
+    "k7 G = 2 lanes a query (16 channels a lane)": (K7_SRC, [(
+        "msdeform_forward.cu", "launch_forward_group<4, 2>", "launch_forward_group<2, 4>")]),
+    "k7 G = 8 lanes a query (4 channels a lane)": (K7_SRC, [(
+        "msdeform_forward.cu", "launch_forward_group<4, 2>", "launch_forward_group<8, 1>")]),
+    "k7 two samples a group in flight (16 a warp)": (K7_SRC, [(
+        "msdeform_forward.cu", "  constexpr int R = 8 / NG > 0 ? 8 / NG : 1;",
+        "  constexpr int R = 16 / NG > 0 ? 16 / NG : 1;")]),
+    "k7 8 warps a block": (K7_SRC, [(
+        "msdeform_forward.cu", "constexpr int kGroupWarps = 4;",
+        "constexpr int kGroupWarps = 8;")]),
+    "k7 next sample's location and weight loaded ahead": (K7_SRC, [(
+        "msdeform_forward.cu",
+        "  for (int s0 = 0; s0 < LP; s0 += R) {\n",
+        "  float2 uv_next = live_q ? __ldg(loc_i) : make_float2(0.f, 0.f);\n"
+        "  float a_next = live_q ? __ldg(att_i) : 0.f;\n"
+        "  for (int s0 = 0; s0 < LP; s0 += R) {\n"), (
+        "msdeform_forward.cu",
+        "      const float2 uv = live ? __ldg(loc_i + s) : make_float2(0.f, 0.f);\n"
+        "      a[r] = live ? __ldg(att_i + s) : 0.f;\n",
+        "      const float2 uv = uv_next;\n      a[r] = a_next;\n"
+        "      if (live && s + 1 < LP) {\n        uv_next = __ldg(loc_i + s + 1);\n"
+        "        a_next = __ldg(att_i + s + 1);\n      }\n")]),
+    "k7 no value loads": (K7_SRC, [_NO_VALUE_LOADS]),
+    "k9 base": (K9_SRC, []),
+    "k9 PTX red.global.add.v4.f32 in place of atomicAdd(float4 *)": (K9_SRC, [(
+        "msdeform_gather.cuh", _RED_ADD4,
+        '  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\\n" ::"l"(p),'
+        ' "f"(v.x), "f"(v.y),\n               "f"(v.z), "f"(v.w) : "memory");\n')]),
+    "k9 G = 4 lanes a query (8 channels a lane, K7's layout)": (K9_SRC, [(
+        "msdeform_backward.cu", "launch_value_group<8, 1>", "launch_value_group<4, 2>")]),
+    "k9 G = 2 lanes a query (16 channels a lane)": (K9_SRC, [(
+        "msdeform_backward.cu", "launch_value_group<8, 1>", "launch_value_group<2, 4>")]),
+    "k9 scalar atomics in the group layout": (K9_SRC, [(
+        "msdeform_gather.cuh", _RED_ADD4,
+        "  atomicAdd(p, v.x);\n  atomicAdd(p + 1, v.y);\n  atomicAdd(p + 2, v.z);\n"
+        "  atomicAdd(p + 3, v.w);\n")]),
+    # the reduction replaced by a store that no value of these inputs makes
+    "k9 no atomics (compute only)": (K9_SRC, [(
+        "msdeform_gather.cuh", _RED_ADD4,
+        "  if (v.x == 1.17549435e-38f && v.y == v.z) *p = v.w;\n")]),
+    "k9 a sample's four corners into its first corner row on the map (contention)": (
+        K9_SRC, [(
+            "msdeform_backward.cu",
+            "        if (c.v00) msd::red_add4(c00 + ch, scaled(ga, w00));\n"
+            "        if (c.v01) msd::red_add4(c00 + row + ch, scaled(ga, w01));\n"
+            "        if (c.v10) msd::red_add4(c10 + ch, scaled(ga, w10));\n"
+            "        if (c.v11) msd::red_add4(c10 + row + ch, scaled(ga, w11));\n",
+            "        float* c0 = (c.v00 ? c00 : c.v01 ? c00 + row : c.v10 ? c10 : c10 + row) + ch;\n"
+            "        if (c.v00) msd::red_add4(c0, scaled(ga, w00));\n"
+            "        if (c.v01) msd::red_add4(c0, scaled(ga, w01));\n"
+            "        if (c.v10) msd::red_add4(c0, scaled(ga, w10));\n"
+            "        if (c.v11) msd::red_add4(c0, scaled(ga, w11));\n")]),
 }
+
+
+VARIANT_KINDS = ("k1", "k5", "k6", "k7", "k8", "k9")
 
 
 def variant_library(name: str):
@@ -498,9 +565,9 @@ def _variant_calls(kind: str) -> list:
     """(label, launches per request or step, call(lib)) of the K1 entry at
     the flagship DCN shapes (offsets ±8 px and the model's), of K5's chain
     tile at the 7 VoVNet-99 block shapes (5 convs each), of K6's three
-    Hopper-tile entries at the 3 R101 bottleneck shapes, or of K8's
-    lane-group entry at one encoder and one decoder call of the pillar
-    shapes."""
+    Hopper-tile entries at the 3 R101 bottleneck shapes, or of K7's, K8's
+    or K9's lane-group entry at one encoder and one decoder call of the
+    pillar shapes."""
     from transcar_tpu_torch.ops import (pallas_bottleneck, pallas_dcn,
                                         pallas_osa_block)
 
@@ -551,21 +618,32 @@ def _variant_calls(kind: str) -> list:
                      vp(k[3]), vp(a[6]), vp(a[7]), vp(o), *d, cout,
                      stream()))]
         return calls
-    if kind == "k8":
+    if kind in ("k7", "k8", "k9"):
         g = torch.Generator(device="cuda").manual_seed(18)
         s = sum(h * w for h, w in BEV_LEVELS)
         levels = [(ctypes.c_int * 4)(*v) for v in (
             [h for h, _ in BEV_LEVELS], [w for _, w in BEV_LEVELS],
             [sum(h * w for h, w in BEV_LEVELS[:i]) for i in range(4)])]
-        for name, q, per_step in (("encoder", s, 2), ("decoder", 300, 6)):
+        for name, q, per_call in (("encoder", s, 2), ("decoder", 300, 6)):
             value, loc, wgt = msdeform_case(g, q, name == "encoder")
             d_out = torch.randn(1, q, 256, device="cuda", generator=g)
-            t = (value, loc, wgt, d_out, torch.empty_like(loc),
-                 torch.empty_like(wgt))
-            calls.append((f"{name} Q={q}", per_step,
-                          lambda lib, t=t, q=q: lib.msdeform_backward_taps_group_f32(
-                              *map(vp, t), 1, s, q, 8, 32, 4, 4, *levels,
-                              stream())))
+            shape = (1, s, q, 8, 32, 4, 4, *levels)
+            if kind == "k7":
+                t = (value, loc, wgt, torch.empty_like(d_out))
+                call = (lambda lib, t=t, d=shape:
+                        lib.msdeform_forward_group_f32(*map(vp, t), *d, stream()))
+            elif kind == "k8":
+                t = (value, loc, wgt, d_out, torch.empty_like(loc),
+                     torch.empty_like(wgt))
+                call = (lambda lib, t=t, d=shape:
+                        lib.msdeform_backward_taps_group_f32(*map(vp, t), *d,
+                                                             stream()))
+            else:       # with the zero-fill of d_value that its wrapper makes
+                t = (loc, wgt, d_out, torch.zeros_like(value))
+                call = (lambda lib, t=t, d=shape: (
+                    t[3].zero_(), lib.msdeform_backward_value_group_f32(
+                        *map(vp, t), *d, stream()))[1])
+            calls.append((f"{name} Q={q}", per_call, call))
         return calls
     g = torch.Generator(device="cuda").manual_seed(12)
     for h, w, c0, ch, _, per_req in VOV_BLOCKS:
@@ -584,9 +662,10 @@ def _variant_calls(kind: str) -> list:
 
 
 def phase_variants(kinds, smi: str) -> None:
-    """Each knock-out variant of ``kinds`` ("k1", "k5", "k6", "k8"): ms per
-    request or step (CUDA events) at the main path's shapes, by offsets
-    for K1 and by call for K8, timed in turns with the unpatched kernel
+    """Each knock-out variant of ``kinds`` ("k1", "k5", "k6", "k7", "k8",
+    "k9"): ms per request or step (CUDA events) at the main path's shapes,
+    by offsets for K1 and by call for K7-K9, timed in turns with the
+    unpatched kernel
     ("<kind> base"; base, variant, variant, base at every call, each the
     better of its two turns) so that every reading has a paired one."""
     for kind in kinds:
@@ -606,13 +685,13 @@ def phase_variants(kinds, smi: str) -> None:
                          for f in (lambda: call(base), var, var,
                                    lambda: call(base))]
                 ms, base_ms = min(turns[1:3]), min(turns[0], turns[3])
-                key = {"k1": label.rsplit(" ", 1)[-1],
-                       "k6": label.rsplit(" ", 1)[-1],
-                       "k8": label.split(" ", 1)[0]}.get(kind, "all")
+                key = (label.rsplit(" ", 1)[-1] if kind in ("k1", "k6")
+                       else label.split(" ", 1)[0]
+                       if kind in ("k7", "k8", "k9") else "all")
                 per_req[key] = per_req.get(key, 0.0) + n * ms
                 base_req[key] = base_req.get(key, 0.0) + n * base_ms
                 parts.append(f"{label} {ms:.4f} (base {base_ms:.4f})")
-            unit = "step" if kind == "k8" else "request"
+            unit = "step" if kind in ("k8", "k9") else "request"
             print(f"{name}: per {unit} "
                   + ", ".join(f"{k} {v:.3f} ms (base {base_req[k]:.3f})"
                               for k, v in per_req.items())
@@ -1726,10 +1805,11 @@ def _zero_counts() -> None:
     pallas_osa.wgmma_launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
     pallas_osa_block.wgmma_launches = pallas_bottleneck.wgmma_launches = 0
-    pallas_msdeform.launches = 0
+    pallas_msdeform.launches = pallas_msdeform.group_launches = 0
     pallas_msdeform.backward_taps_launches = 0
     pallas_msdeform.backward_taps_group_launches = 0
     pallas_msdeform.backward_value_launches = 0
+    pallas_msdeform.backward_value_group_launches = 0
 
 
 def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
@@ -2019,11 +2099,20 @@ def msdeform_entry(lib, name: str, tensors, value, q: int):
     return run
 
 
+def group_entry(lib, name: str) -> str:
+    """The lane-group form of the MSDeformAttn entry ``name`` where ``lib``
+    has one (a parent commit's library may not), else ``name``."""
+    group = name.replace("_f32", "_group_f32")
+    return group if hasattr(lib, group) else name
+
+
 def phase_k7(parent=None) -> dict:
-    """K7 at one encoder and one decoder call of the pillar slice; per
-    request (2 encoder + 6 decoder launches), beside the parent commit's
-    K7 (``parent``) when given, both timed through their bare entries."""
-    from transcar_tpu_torch.ops import pallas_msdeform
+    """K7 at one encoder and one decoder call of the pillar slice, each on
+    the lane-group kernel, bit for bit against the first kernel (and the
+    parent's K7); per request (2 encoder + 6 decoder launches), beside the
+    parent commit's K7 (``parent``) when given, both timed through their
+    bare entries."""
+    from transcar_tpu_torch.ops import kernel_lib, pallas_msdeform
     from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -2036,22 +2125,34 @@ def phase_k7(parent=None) -> dict:
                                     ("decoder", 300, 6, 0)):
         value, loc, wgt = msdeform_case(g, q, name == "encoder")
         off_map = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+        before = pallas_msdeform.group_launches
         out = pallas_msdeform.ms_deform_attn(value, BEV_LEVELS, loc, wgt)
+        group = pallas_msdeform.group_launches - before
         ref = ms_deform_attn_core(value, BEV_LEVELS, loc, wgt, chunk)
+        # the first kernel, and the parent's K7, on the same inputs
+        same = {}
+        for tag, lib in (("first kernel", own), ("parent", parent)):
+            if lib is not None:
+                other = torch.empty_like(out)
+                msdeform_entry(lib, "msdeform_forward_f32",
+                               (value, loc, wgt, other), value, q)()
+                same[tag] = torch.equal(out, other)
         torch.cuda.synchronize()
         err, rel = _rel_err(out, ref)
-        ok = math.isfinite(rel) and rel <= MSDEFORM_TOL
+        ok = group == 1 and math.isfinite(rel) and rel <= MSDEFORM_TOL
         scratch = torch.empty_like(out)
-        kern = msdeform_entry(own, "msdeform_forward_f32",
+        kern = msdeform_entry(own, "msdeform_forward_group_f32",
                               (value, loc, wgt, scratch), value, q)
         if parent is not None:
             ms, old_ms, turns = in_turns(kern, msdeform_entry(
-                parent, "msdeform_forward_f32", (value, loc, wgt, scratch),
-                value, q))
+                parent, group_entry(parent, "msdeform_forward_f32"),
+                (value, loc, wgt, scratch), value, q))
             res["parent_ms"] += per_req * old_ms
             turns = f" ({turns})"
         else:
             ms, turns = cuda_ms(kern), ""
+        wrap_ms = cuda_ms(lambda: pallas_msdeform.ms_deform_attn(
+            value, BEV_LEVELS, loc, wgt))
         plain_ms = cuda_ms(lambda: ms_deform_attn_core(
             value, BEV_LEVELS, loc, wgt, chunk), iters=5, warmup=1)
         # 4 taps (multiply-add each) and the weight (multiply-add) per
@@ -2064,14 +2165,17 @@ def phase_k7(parent=None) -> dict:
                                nbytes(loc, wgt, out)
                                + min(nbytes(value), taps))
         print(f"K7 msdeform {name} Q={q} S={s} 8 heads x 32, 4 levels x 4 "
-              f"points: samples off the map {off_map:.3f}; max_abs_err "
-              f"{err:.3e} max_rel_err {rel:.3e} (tol {MSDEFORM_TOL:.0e} of "
-              f"max|plain|); kernel {ms:.4f} ms{turns}, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {kind} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"points: samples off the map {off_map:.3f}; lane-group kernel "
+              f"{group} of 1; max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+              f"(tol {MSDEFORM_TOL:.0e} of max|plain|); bit for bit "
+              + ", ".join(f"with the {k} {v}" for k, v in same.items())
+              + f"; kernel {ms:.4f} ms{turns} (through the wrapper "
+              f"{wrap_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms by {kind} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K7 {name} disagrees with its plain "
-                                 f"version: rel err {rel}")
+                                 f"version (rel err {rel}) or missed the "
+                                 f"lane-group kernel ({group})")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["ms"] += per_req * ms
         res["plain_ms"] += per_req * plain_ms
@@ -2087,6 +2191,10 @@ def phase_k7(parent=None) -> dict:
           + f" (no single PyTorch call "
           f"computes MSDeformAttn: F.grid_sample samples but does not reduce "
           f"with the weights)")
+    log = kernel_lib.library_path().with_suffix(".log").read_text()
+    print("K7 lane-group kernel ptxas -v: " + " | ".join(
+        ln for ln in ptxas_lines(log)
+        if ln.startswith("msdeform_forward_group_kernel")))
     return res
 
 
@@ -2101,8 +2209,11 @@ def phase_pillar(smi: str) -> int:
     cfg = get_preset(preset)
     head = cfg.model.head
     per_req = 2 + head.num_decoder_layers                              # 8
+    from transcar_tpu_torch.ops import pallas_msdeform
+
     _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
+    group = (pallas_msdeform.group_launches, pallas_msdeform.launches)
     want = {k: 0 for k in rec["kernel_launches"]}
     want["msdeform_forward"] = per_req * rec["requests"]
     shape = (head.num_decoder_layers, 1, head.num_query, 10)
@@ -2117,10 +2228,14 @@ def phase_pillar(smi: str) -> int:
           f" requests, launches {rec['kernel_launches']} (want {want}); "
           f"outputs {shape} finite {finite}; decode finite {finite_dec}, "
           f"{int(dec['valid'].sum())}/{head.max_detections} valid boxes; "
-          f"pillars {rec['pillar_audit']}")
+          f"pillars {rec['pillar_audit']}; K7 on the lane-group kernel "
+          f"{group[0]} of {group[1]}")
     if rec["kernel_launches"] != want:
         raise AssertionError(f"pillar slice launches {rec['kernel_launches']}"
                              f" != {want}")
+    if group[0] != group[1]:
+        raise AssertionError(f"pillar slice: {group[1] - group[0]} K7 "
+                             "launches missed the lane-group kernel")
     if not (finite and finite_dec):
         raise AssertionError("pillar slice: non-finite outputs or decode")
     print(f"pillar slice bf16 kernel path: {rec['samples_per_sec']:.3f} "
@@ -2188,17 +2303,20 @@ def phase_k8_k9(parent=None) -> tuple:
             return ms_deform_attn_backward(value, BEV_LEVELS, loc, wgt,
                                            d_out, chunk)
 
-        before = pallas_msdeform.backward_taps_group_launches
+        before = (pallas_msdeform.backward_taps_group_launches,
+                  pallas_msdeform.backward_value_group_launches)
         d_loc, d_attn = taps()
-        group = pallas_msdeform.backward_taps_group_launches - before
         d_value = dvalue()
+        group = (pallas_msdeform.backward_taps_group_launches - before[0],
+                 pallas_msdeform.backward_value_group_launches - before[1])
         ref_value, ref_loc, ref_attn = plain()
         torch.cuda.synchronize()
         errs = {k: _rel_err(a, b) for k, (a, b) in {
             "d_attn": (d_attn, ref_attn), "d_loc": (d_loc, ref_loc),
             "d_value": (d_value, ref_value)}.items()}
-        ok = group == 1 and all(math.isfinite(rel) and rel <= MSDEFORM_BWD_TOL
-                                for _, rel in errs.values())
+        ok = group == (1, 1) and all(
+            math.isfinite(rel) and rel <= MSDEFORM_BWD_TOL
+            for _, rel in errs.values())
         del ref_value, ref_loc, ref_attn
         # the bare entries, timed as the parent's are (the wrappers' host
         # time would pass a decoder call's device time); K9 with the
@@ -2210,13 +2328,12 @@ def phase_k8_k9(parent=None) -> tuple:
         for tag, lib in (("kernel", own), ("parent", parent)):
             if lib is None:
                 continue
-            taps_name = ("msdeform_backward_taps_group_f32"
-                         if hasattr(lib, "msdeform_backward_taps_group_f32")
-                         else "msdeform_backward_taps_f32")
-            run_value = msdeform_entry(lib, "msdeform_backward_value_f32",
-                                       (loc, wgt, d_out, dv), value, q)
-            runs[tag] = (msdeform_entry(lib, taps_name, tensors, value, q),
-                         lambda run=run_value: (dv.zero_(), run()))
+            run_value = msdeform_entry(
+                lib, group_entry(lib, "msdeform_backward_value_f32"),
+                (loc, wgt, d_out, dv), value, q)
+            runs[tag] = (msdeform_entry(
+                lib, group_entry(lib, "msdeform_backward_taps_f32"), tensors,
+                value, q), lambda run=run_value: (dv.zero_(), run()))
         if parent is not None:
             ms_taps, old_taps, t_taps = in_turns(runs["kernel"][0],
                                                  runs["parent"][0])
@@ -2229,6 +2346,7 @@ def phase_k8_k9(parent=None) -> tuple:
             t_taps = t_value = ""
         del tensors, dv, runs
         wrap_ms = cuda_ms(taps)
+        wrap_value_ms = cuda_ms(dvalue)
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         # K8: the value (no more than the taps of every sample), the
         # locations, the weights and the gradient in, d_loc and d_attn out;
@@ -2251,10 +2369,11 @@ def phase_k8_k9(parent=None) -> tuple:
               + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}"
                           for k, (e, r) in errs.items())
               + f" (tol {MSDEFORM_BWD_TOL:.0e} of max|plain|); K8 on the "
-              f"lane-group kernel {group} of 1; per call K8 {ms_taps:.4f} ms"
-              f"{t_taps} (through the wrapper {wrap_ms:.4f} ms; bound "
-              f"{b_taps:.4f} ms by {k_taps}), K9 "
-              f"{ms_value:.4f} ms{t_value} (bound {b_value:.4f} ms by "
+              f"lane-group kernel {group[0]} of 1, K9 {group[1]} of 1; per "
+              f"call K8 {ms_taps:.4f} ms{t_taps} (through the wrapper "
+              f"{wrap_ms:.4f} ms; bound {b_taps:.4f} ms by {k_taps}), K9 "
+              f"{ms_value:.4f} ms{t_value} (through the wrapper "
+              f"{wrap_value_ms:.4f} ms; bound {b_value:.4f} ms by "
               f"{k_value}); per step ({per_step} calls) K8 "
               f"{per_step * ms_taps:.3f} ms, K9 {per_step * ms_value:.3f} ms"
               + (f", parent K8 {per_step * old_taps:.3f} ms, parent K9 "
@@ -2263,8 +2382,8 @@ def phase_k8_k9(parent=None) -> tuple:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K8/K9 {name} disagree with the plain "
-                                 f"backward ({errs}) or K8 missed the "
-                                 f"lane-group kernel ({group})")
+                                 f"backward ({errs}) or missed the "
+                                 f"lane-group kernels ({group})")
         for key, ms, old_ms, bound, kind, err in (
                 ("taps", ms_taps, old_taps, b_taps, k_taps,
                  max(errs["d_attn"][0], errs["d_loc"][0])),
@@ -2293,9 +2412,10 @@ def phase_k8_k9(parent=None) -> tuple:
           f"ms, and stands in both rows (no single PyTorch call computes the "
           f"MSDeformAttn backward)")
     log = kernel_lib.library_path().with_suffix(".log").read_text()
-    print("K8 lane-group kernel ptxas -v: " + " | ".join(
+    print("K8 / K9 lane-group kernels ptxas -v: " + " | ".join(
         ln for ln in ptxas_lines(log)
-        if ln.startswith("msdeform_backward_taps_group_kernel")))
+        if ln.startswith(("msdeform_backward_taps_group_kernel",
+                          "msdeform_backward_value_group_kernel"))))
     return res["taps"], res["value"]
 
 
@@ -2315,7 +2435,9 @@ def phase_pillar_train(smi: str) -> dict:
     counts = (pallas_msdeform.launches,
               pallas_msdeform.backward_taps_launches,
               pallas_msdeform.backward_value_launches)
-    group = pallas_msdeform.backward_taps_group_launches
+    group = (pallas_msdeform.group_launches,
+             pallas_msdeform.backward_taps_group_launches,
+             pallas_msdeform.backward_value_group_launches)
     steps = rec["steps"]
     want = {k: 0 for k in rec["kernel_launches"]}
     for k in ("msdeform_forward", "msdeform_backward_taps",
@@ -2334,8 +2456,9 @@ def phase_pillar_train(smi: str) -> dict:
     print(f"pillar train {preset} {rec['max_points']} points, 512x512 BEV "
           f"bs1 (bf16 SECOND and FPN, fp32 head, dropout 0.1, batch "
           f"statistics): {steps} steps, launches {rec['kernel_launches']} "
-          f"(want {want}: K7, K8, K9 {per_step} per step), K8 on the "
-          f"lane-group kernel {group} of {counts[1]}; loss total first "
+          f"(want {want}: K7, K8, K9 {per_step} per step), on the "
+          f"lane-group kernels K7 {group[0]} of {counts[0]}, K8 {group[1]} of "
+          f"{counts[1]}, K9 {group[2]} of {counts[2]}; loss total first "
           f"{rec['loss_first']['total']:.4f} last "
           f"{rec['loss_last']['total']:.4f}, finite {finite}; trainable "
           f"elements moved {moved}/{total} ({moved / total:.4f}); BN "
@@ -2346,9 +2469,9 @@ def phase_pillar_train(smi: str) -> dict:
     if rec["kernel_launches"] != want or counts != (per_step * steps,) * 3:
         raise AssertionError(f"pillar train launches {rec['kernel_launches']}"
                              f" / {counts} != {want}")
-    if group != counts[1]:
-        raise AssertionError(f"pillar train: {counts[1] - group} K8 launches "
-                             "missed the lane-group kernel")
+    if group != counts:
+        raise AssertionError(f"pillar train: K7 / K8 / K9 launches {counts}, "
+                             f"on the lane-group kernels {group}")
     if not finite:
         raise AssertionError("pillar train: non-finite loss")
     if moved <= 0.9 * total or bufs_moved != n_bufs:
@@ -2432,15 +2555,15 @@ def main(argv=None) -> None:
                     help="an earlier commit's transcar_tpu_torch/csrc: build "
                          "it too and time its K1, K3, K4, K5, K6, K7, K8 and "
                          "K9 in turns with these (their phases)")
-    ap.add_argument("--variants", choices=("k1", "k5", "k6", "k8", "all"),
-                    default=None,
+    ap.add_argument("--variants", default=None,
+                    choices=(*VARIANT_KINDS, "all"),
                     help="instead of the phases: build and time the knock-out "
-                         "variants of the K1, K5, K6 or K8 kernels "
+                         "variants of the K1, K5, K6, K7, K8 or K9 kernels "
                          "(VARIANTS), then exit")
     args = ap.parse_args(argv)
     smi = phase_device()
     if args.variants:
-        phase_variants(["k1", "k5", "k6", "k8"] if args.variants == "all"
+        phase_variants(VARIANT_KINDS if args.variants == "all"
                        else [args.variants], smi)
         return
     phase_build()

@@ -654,3 +654,122 @@ def test_msdeform_backward_taps_non_finite_locations(dev, d):
                                                    d_out)
     for got, ref in ((d_attn[ok], ref_attn[ok]), (d_loc[ok], ref_loc[ok])):
         assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# The cases of test_msdeform_kernel and test_msdeform_backward_kernels: D =
+# 16, 32 and 48 take the lane-group kernels of K7 (G = 2, 4 and 8 lanes a
+# query) and K9 (G = 4, 8 and 16), D = 12 and 72 their first kernels; Q =
+# 37, 301 and 129 end off the group kernels' blocks of 8 to 64 queries
+_GROUP_CASES = [
+    (1, 37, 6, 16, [(7, 9), (4, 5), (2, 3), (1, 1)], 4),
+    (2, 300, 8, 32, [(16, 16), (8, 8), (4, 4), (2, 2)], 4),
+    (1, 5, 3, 48, [(5, 3)], 3),
+    (1, 129, 8, 32, [(1, 1), (3, 70)], 2),
+    (2, 129, 6, 48, [(16, 16), (8, 8), (4, 4), (1, 1)], 4),
+    (1, 301, 8, 32, [(32, 32), (16, 16), (8, 8), (4, 4)], 4),   # pillar-like
+    (1, 45, 4, 12, [(6, 7), (3, 4)], 4),
+    (1, 33, 3, 72, [(5, 6)], 3),
+]
+
+
+@pytest.mark.parametrize("b,q,heads,d,shapes,p", _GROUP_CASES)
+def test_msdeform_group_kernels_take_their_domain(dev, b, q, heads, d,
+                                                  shapes, p):
+    """K7 and K9 take their lane-group kernels for D % 8 == 0 and D <= 64
+    (the counters rise by one), their first kernels otherwise (the
+    counters stay), within 1e-5 of max|plain| either way."""
+    value, loc, wgt = _msdeform_case(dev, b, q, heads, d, shapes, p)
+    d_out = torch.randn(b, q, heads * d, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    before = (pallas_msdeform.group_launches,
+              pallas_msdeform.backward_value_group_launches)
+    out = pallas_msdeform.ms_deform_attn(value, shapes, loc, wgt)
+    d_value = pallas_msdeform.backward_value_kernel(value, shapes, loc, wgt,
+                                                    d_out)
+    torch.cuda.synchronize()
+    assert (pallas_msdeform.group_launches - before[0],
+            pallas_msdeform.backward_value_group_launches - before[1]) == (
+                (int(_takes_group(d)),) * 2)
+    ref = ms_deform_attn_core(value, shapes, loc, wgt)
+    ref_value = ms_deform_attn_backward(value, shapes, loc, wgt, d_out)[0]
+    for got, want in ((out, ref), (d_value, ref_value)):
+        assert got.shape == want.shape
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_msdeform_group_kernel_far_and_non_finite_locations(dev):
+    """K7's lane-group kernel: NaN rows where the plain version has them
+    (a NaN or infinite location), far-off locations read nothing."""
+    shapes = [(6, 7), (3, 4)]
+    value, loc, wgt = _msdeform_case(dev, 1, 40, 4, 32, shapes, 2)
+    loc[0, 0, 0, 0, 0] = torch.tensor([0.5, 40.0])      # far below the map
+    loc[0, 9, 1, 1, 1] = torch.tensor([-1e20, 0.5])     # far left
+    loc[0, 17, 2, 0, 1, 0] = float("nan")
+    loc[0, 33, 3, 1, 0, 1] = float("inf")
+    before = pallas_msdeform.group_launches
+    out = pallas_msdeform.ms_deform_attn(value, shapes, loc, wgt)
+    assert pallas_msdeform.group_launches == before + 1
+    ref = ms_deform_attn_core(value, shapes, loc, wgt)
+    assert torch.equal(out.isnan(), ref.isnan()) and ref.isnan().any()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("d", [32, 12])
+def test_msdeform_backward_value_non_finite_locations(dev, d):
+    """K9 on both kernels: a NaN or infinite location adds nothing to
+    d_value (the plain backward with that sample's weight set to 0)."""
+    shapes = [(6, 7), (3, 4)]
+    value, loc, wgt = _msdeform_case(dev, 1, 40, 4, d, shapes, 4)
+    loc[0, 2, 1, 0, 3, 0] = float("nan")
+    loc[0, 33, 3, 1, 0, 1] = float("inf")
+    loc[0, 34, 0, 0, 2] = float("-inf")
+    bad = ~loc.isfinite().all(-1)
+    d_out = torch.randn(1, 40, 4 * d, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+    before = pallas_msdeform.backward_value_group_launches
+    d_value = pallas_msdeform.backward_value_kernel(value, shapes, loc, wgt,
+                                                    d_out)
+    assert pallas_msdeform.backward_value_group_launches - before == int(
+        _takes_group(d))
+    loc_ok = torch.where(bad[..., None], torch.zeros_like(loc), loc)
+    wgt_ok = torch.where(bad, torch.zeros_like(wgt), wgt)
+    ref = ms_deform_attn_backward(value, shapes, loc_ok, wgt_ok, d_out)[0]
+    assert d_value.isfinite().all()
+    assert (d_value - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_msdeform_misaligned_rows_skip_the_group_kernels(dev):
+    """A value (K7) or d_out (K9) 4 bytes past a 16-byte boundary takes the
+    first kernel through the wrapper, with the plain result, and the
+    lane-group entries refuse it, and a misaligned K7 output, with an
+    error."""
+    shapes = [(4, 5)]
+    value, loc, wgt = _msdeform_case(dev, 1, 9, 2, 32, shapes, 2)
+    d_out = torch.randn(1, 9, 64, device=dev)
+    shift = lambda t: torch.empty(t.numel() + 1, device=dev)[1:].view_as(
+        t).copy_(t)
+    args = (1, 20, 9, 2, 32, 1, 2, *pallas_msdeform._levels(shapes))
+    sig = (pallas_msdeform._P,) * 4 + pallas_msdeform._SHAPE_ARGS
+    ref = ms_deform_attn_core(value, shapes, loc, wgt)
+    v = shift(value)
+    before = pallas_msdeform.group_launches
+    out = pallas_msdeform.kernel(v, shapes, loc, wgt)
+    assert pallas_msdeform.group_launches == before
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for src, dst in ((v, out), (value, shift(out))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pallas_msdeform._launch(
+                "msdeform_forward_group_f32", sig,
+                *(t.data_ptr() for t in (src, loc, wgt, dst)), *args,
+                device=dev)
+    ref_value = ms_deform_attn_backward(value, shapes, loc, wgt, d_out)[0]
+    g = shift(d_out)
+    before = pallas_msdeform.backward_value_group_launches
+    d_value = pallas_msdeform.backward_value_kernel(value, shapes, loc, wgt, g)
+    assert pallas_msdeform.backward_value_group_launches == before
+    assert (d_value - ref_value).abs().max() <= 1e-5 * ref_value.abs().max()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pallas_msdeform._launch(
+            "msdeform_backward_value_group_f32", sig,
+            *(t.data_ptr() for t in (loc, wgt, g, d_value)), *args,
+            device=dev)

@@ -221,9 +221,9 @@ KERNEL_GROUPS = (
     ("K4 osa_reduce", ("osa_reduce_wgmma", "conv_gemm_kernel<4,")),
     ("K5 osa_block", ("osa_chain_wgmma", "conv_gemm_kernel<5,")),
     ("K6 bottleneck", ("bottleneck_", "conv_gemm_kernel<6,")),
-    ("K7 msdeform_forward", ("msdeform_forward_kernel",)),
+    ("K7 msdeform_forward", ("msdeform_forward_",)),
     ("K8 msdeform_backward_taps", ("msdeform_backward_taps_",)),
-    ("K9 msdeform_backward_value", ("msdeform_backward_value_kernel",)),
+    ("K9 msdeform_backward_value", ("msdeform_backward_value_",)),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),

@@ -43,8 +43,24 @@
 // - msdeform_backward_taps_kernel, for other D: one warp per (b, q, h);
 //   lane i holds channels d = i, i + 32, ..., so every tap is one
 //   coalesced read of D floats, and three warp-wide reductions a sample.
-// K9: one warp per (b, q, h), lanes over the channels; every tap is one
-// coalesced atomic add of D floats.
+// K9 has two kernels:
+// - msdeform_backward_value_group_kernel, for D % 8 == 0, D <= 64 and
+//   16-byte aligned d_out and d_value: one lane group per query, as K7,
+//   but one float4 a lane (G = 8 lanes of 4 channels for D = 32, 4
+//   neighbouring queries of one (batch, head) a warp), so that each
+//   instruction of a group adds a whole 128-byte row, one L2 request a
+//   row where K7's layout makes two.  The group reads its query's
+//   gradient row once (V float4 a lane) and walks the query's samples
+//   level by level, the locations and weights of R samples loaded ahead;
+//   for each sample it computes the corners and their weights once and
+//   adds (g a) w_corner into each corner row on the map with 16-byte
+//   vector atomic adds (atomicAdd(float4 *, float4)): V a lane a corner,
+//   where the first kernel makes 4 V scalar atomic adds.  The L2 adds
+//   one 32-byte sector per operation either way, so those sector
+//   operations, not instructions, pace it.
+// - msdeform_backward_value_kernel, for other D: one warp per (b, q, h),
+//   lanes over the channels; every tap is one coalesced atomic add of D
+//   floats.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +73,7 @@ using msd::Corners;
 using msd::kMaxLevels;
 using msd::Levels;
 using msd::make_levels;
+using msd::small_div;
 
 constexpr int kWarps = 8;          // warps per block
 
@@ -142,13 +159,6 @@ constexpr int kGroupWarps = 8;     // warps per block of the group kernel
 constexpr int kGroupQueries = 4;   // most neighbouring queries a warp owns
 constexpr int kGroupMaxD = 64;
 
-// a / b for small non-negative ints, by the float reciprocal inv = 1 / b:
-// (a + 0.5) / b lies at least 0.5 / b from an integer, far past the
-// rounding of the product for a < 2^20
-__device__ __forceinline__ int small_div(int a, float inv) {
-  return static_cast<int>((static_cast<float>(a) + 0.5f) * inv);
-}
-
 // K8 with one lane group of G lanes per sample (V float4 chunks a lane);
 // a warp owns up to kGroupQueries neighbouring queries of one (batch,
 // head) and walks their samples level by level.  Up to 16 samples in
@@ -169,14 +179,7 @@ msdeform_backward_taps_group_kernel(const float* __restrict__ value,
   constexpr int QW = kGroupQueries;
   __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
   __shared__ float4 s_g[kGroupWarps][QW * kGroupMaxD / 4];
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l) {
-      s_h[l] = lv.h[l];
-      s_w[l] = lv.w[l];
-      s_start[l] = lv.start[l];
-    }
-  }
+  msd::stage_levels(lv, s_h, s_w, s_start);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -318,6 +321,103 @@ msdeform_backward_value_kernel(const float* __restrict__ loc,
   }
 }
 
+constexpr int kValueWarps = 4;     // warps per block of K9's group kernel
+
+// (g a) w, channel by channel: the value one corner of a sample adds
+__device__ __forceinline__ float4 scaled(float4 ga, float w) {
+  return make_float4(ga.x * w, ga.y * w, ga.z * w, ga.w * w);
+}
+
+// K9 with one lane group of G lanes per query (V float4 chunks a lane): a
+// warp owns 32 / G neighbouring queries of one (batch, head); each group
+// scatters its query's samples, R at a time, the locations and weights of
+// the R loaded first.
+template <int G, int V>
+__global__ void __launch_bounds__(32 * kValueWarps)
+msdeform_backward_value_group_kernel(const float* __restrict__ loc,
+                                     const float* __restrict__ attn,
+                                     const float* __restrict__ d_out,
+                                     float* __restrict__ d_value, Levels lv,
+                                     int q_blocks, int S, int Q, int H, int D,
+                                     int L, int P) {
+  constexpr int NG = 32 / G;                  // queries a warp holds
+  constexpr int R = 4;                        // samples loaded ahead
+  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
+  msd::stage_levels(lv, s_h, s_w, s_start);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane / G, j = lane % G;
+  // block -> (b, run of kValueWarps * NG queries, head), head fastest
+  const int h = static_cast<int>(blockIdx.x % H);
+  const int rest = static_cast<int>(blockIdx.x / H);
+  const long long b = rest / q_blocks;
+  const int q0 = ((rest % q_blocks) * kValueWarps + warp) * NG;
+  if (q0 >= Q) return;                       // whole warps leave together
+  const bool live_q = q0 + gi < Q;
+  const long long item = (b * Q + (live_q ? q0 + gi : q0)) * H + h;
+  float4 g[V];                               // the query's gradient, read once
+  msd::load_row<G, V>(d_out + item * D, live_q, j, D, g);
+  const long long row = static_cast<long long>(H) * D;       // token stride
+  float* db = d_value + b * S * row + static_cast<long long>(h) * D;
+  const int LP = L * P;
+  const float2* loc_i = reinterpret_cast<const float2*>(loc) + item * LP;
+  const float* att_i = attn + item * LP;
+  const float inv_p = 1.f / P;
+
+  for (int s0 = 0; s0 < LP; s0 += R) {
+    float2 uv[R];
+    float a[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool live = live_q && s0 + r < LP;
+      uv[r] = live ? __ldg(loc_i + s0 + r) : make_float2(0.f, 0.f);
+      a[r] = live ? __ldg(att_i + s0 + r) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int s = s0 + r;
+      if (s >= LP) break;                     // uniform over the warp
+      const int l = small_div(s, inv_p), wl = s_w[l];
+      const Corners c = corners(uv[r], s_h[l], wl);
+      // a non-finite location, and a query past Q, add nothing
+      if (!(live_q && c.finite)) continue;
+      const float tx = c.tx, ty = c.ty;
+      const float w00 = (1.f - ty) * (1.f - tx), w01 = (1.f - ty) * tx;
+      const float w10 = ty * (1.f - tx), w11 = ty * tx;
+      float* c00 = db + static_cast<long long>(s_start[l]) * row + c.tok * row;
+      float* c10 = c00 + wl * row;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int ch = msd::chunk_channel<G>(k, j);
+        if (ch >= D) continue;
+        const float4 ga = make_float4(g[k].x * a[r], g[k].y * a[r], g[k].z * a[r],
+                                      g[k].w * a[r]);
+        if (c.v00) msd::red_add4(c00 + ch, scaled(ga, w00));
+        if (c.v01) msd::red_add4(c00 + row + ch, scaled(ga, w01));
+        if (c.v10) msd::red_add4(c10 + ch, scaled(ga, w10));
+        if (c.v11) msd::red_add4(c10 + row + ch, scaled(ga, w11));
+      }
+    }
+  }
+}
+
+// K9's group kernel launch for G lanes of V float4 chunks a query.
+template <int G, int V>
+int launch_value_group(const float* loc, const float* attn, const float* d_out,
+                       float* d_value, const Levels& lv, int B, int S, int Q, int H,
+                       int D, int L, int P, cudaStream_t stream) {
+  const int per_block = kValueWarps * (32 / G);
+  const int q_blocks = (Q + per_block - 1) / per_block;
+  const long long blocks = static_cast<long long>(B) * q_blocks * H;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  msdeform_backward_value_group_kernel<G, V>
+      <<<static_cast<unsigned>(blocks), 32 * kValueWarps, 0, stream>>>(
+          loc, attn, d_out, d_value, lv, q_blocks, S, Q, H, D, L, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The launch shape shared by K8 and K9: blocks of kWarps warps over the
 // B*Q*H items; 0 blocks for no items, -1 for an invalid shape.
 long long launch_blocks(int B, int Q, int H, int D, int P,
@@ -425,4 +525,36 @@ extern "C" int msdeform_backward_value_f32(
       static_cast<const float*>(d_out), static_cast<float*>(d_value), lv,
       items, S, Q, H, D, L, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9 on the lane-group kernel: D % 8 == 0, D <= 64, 16-byte aligned d_out
+// and d_value; any other call returns cudaErrorInvalidValue.  G is the
+// least power of two with 4 G >= D (V = 1 chunk, 4 channels a lane), so
+// that one instruction of a group adds a whole row: at D = 32 that took
+// 0.85x the time of K7's G = 4 lanes of 8 channels, which add a row in
+// two instructions of half a row each (H100).
+extern "C" int msdeform_backward_value_group_f32(
+    const void* loc, const void* attn, const void* d_out, void* d_value,
+    int B, int S, int Q, int H, int D, int L, int P, const int* level_h,
+    const int* level_w, const int* level_start, void* stream) {
+  Levels lv;
+  if (B < 0 || Q < 0 || H < 1 || P < 1 || D < 8 || D % 8 != 0 ||
+      D > kGroupMaxD || !msd::aligned16(d_out) || !msd::aligned16(d_value) ||
+      !make_levels(L, level_h, level_w, level_start, &lv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto lc = static_cast<const float*>(loc);
+  const auto at = static_cast<const float*>(attn);
+  const auto g = static_cast<const float*>(d_out);
+  const auto dv = static_cast<float*>(d_value);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (D <= 8 ? 2 : D <= 16 ? 4 : D <= 32 ? 8 : 16) {
+    case 2:
+      return launch_value_group<2, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
+    case 4:
+      return launch_value_group<4, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
+    case 8:
+      return launch_value_group<8, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
+    default:
+      return launch_value_group<16, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
+  }
 }

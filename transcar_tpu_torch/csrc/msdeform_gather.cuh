@@ -1,18 +1,22 @@
 // The per-sample arithmetic of the multi-scale deformable attention
 // kernels, float32: the level table, the bilinear footprint of one sample
-// (corners()) and the lane-group gather of its four corner rows.
+// (corners()), a lane group's channel ownership and the lane-group gather
+// and scatter of a sample's four corner rows.
 //
-// K8 (msdeform_backward.cu, msdeform_backward_taps_group_kernel) reads its
-// corners through load_taps(); K9 calls corners() as before.  K7
-// (msdeform_forward.cu) keeps its own inline copy of the same arithmetic:
-// shared as a function, it took K7 from 80 to 100 registers and 1.56x the
-// time on an H100.
+// The lane-group kernels of K7 (msdeform_forward.cu), K8 and K9
+// (msdeform_backward.cu) read their corners through corners() and
+// load_taps() (K7, K8) or add into them with red_add4() (K9).  The first
+// K7 kernel keeps its own inline copy of corners(): shared as a function,
+// it took that kernel from 80 to 100 registers and 1.56x the time on an
+// H100; the group kernels compute it once for 8 channels a lane, where
+// the first kernels compute it once a channel.
 //
 // Lane-group layout: G lanes own one sample (a warp holds 32 / G samples at
 // a time); lane j of a group holds the float4 chunks k < V of the head's
-// channels 4 (k G + j) .. 4 (k G + j) + 3, so each load instruction of a
-// group reads G x 16 contiguous bytes of one corner row and a row of D = 4
-// G V channels takes V instructions.  A chunk at or past D holds zeros.
+// channels 4 (k G + j) .. 4 (k G + j) + 3 (chunk_channel()), so each load
+// instruction of a group reads G x 16 contiguous bytes of one corner row
+// and a row of D = 4 G V channels takes V instructions.  A chunk at or
+// past D holds zeros.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,6 +79,60 @@ inline bool make_levels(int L, const int* level_h, const int* level_w,
   return true;
 }
 
+// Whether a pointer is 16-byte aligned (rows read or written as float4).
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// The first channel of lane j's chunk k in a group of G lanes.
+template <int G>
+__device__ __forceinline__ int chunk_channel(int k, int j) {
+  return 4 * (k * G + j);
+}
+
+// The level table of a launch, copied into shared memory by thread 0 for
+// the group kernels, which index it by a level known only at run time;
+// the caller synchronises.
+__device__ __forceinline__ void stage_levels(const Levels& lv, int* s_h, int* s_w,
+                                             int* s_start) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      s_h[l] = lv.h[l];
+      s_w[l] = lv.w[l];
+      s_start[l] = lv.start[l];
+    }
+  }
+}
+
+// a / b for small non-negative ints, by the float reciprocal inv = 1 / b:
+// (a + 0.5) / b lies at least 0.5 / b from an integer, far past the
+// rounding of the product for a < 2^20
+__device__ __forceinline__ int small_div(int a, float inv) {
+  return static_cast<int>((static_cast<float>(a) + 0.5f) * inv);
+}
+
+// Lane j's V chunks of one row of D channels (zero past D); the row must
+// be 16-byte aligned.
+template <int G, int V>
+__device__ __forceinline__ void load_row(const float* row, bool live, int j, int D,
+                                         float4 (&r)[V]) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int ch = chunk_channel<G>(k, j);
+    r[k] = live && ch < D ? __ldg(reinterpret_cast<const float4*>(row + ch))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// One 16-byte vector atomic add into float32 global memory, its result
+// unused (CUDA's atomicAdd(float4 *, float4), compute capability 9.x,
+// global memory only): the four floats are added, each one atomically.
+// p must be 16-byte aligned.
+__device__ __forceinline__ void red_add4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
 // Issue lane j's loads of the four corner rows of one sample: t[corner][k]
 // (corners 00, 01, 10, 11) is chunk k, zero where the corner is off the
 // map, the chunk past D, the sample dead or its location non-finite.  vl:
@@ -89,7 +147,7 @@ __device__ __forceinline__ void load_taps(const float* vl, long long row, int wl
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    const int ch = 4 * (k * G + j);
+    const int ch = chunk_channel<G>(k, j);
     const bool in = ok && ch < D;
     const float* p = vl + ch;
     t[0][k] = in && c.v00 ? __ldg(reinterpret_cast<const float4*>(p + t00)) : zero;

@@ -29,15 +29,34 @@ bound by bytes.  The gather itself reads 4 taps × 16 samples × 128 B per
 (query, head), about 5.7 GB per encoder layer, served mostly from L2;
 that, not device memory, is what this first kernel feels.
 
-What the design does about it: one warp per (batch, query, head); its
-lanes hold the head's channels (D = 32: one channel per lane; other D
-loop d += 32), so each bilinear tap is one coalesced 128-byte read of
-the [B, S, H, D] value, and the locations and weights of the warp's
-L·P samples are warp-wide broadcast loads.  Level shapes and starts
-travel as a small argument struct.  Coordinates round as the plain
-version's (one multiply, one subtract, no contraction), far-off
-locations contribute zero without forming an index, and a non-finite
-location gives NaN, as in the plain version.
+What the design does about it.  For a head dim D that is a multiple of
+8 and at most 64, with 16-byte aligned value and output rows
+(:func:`takes_group_kernel`: the pillar head's D = 32, counted in
+:data:`group_launches`), K7 runs one lane group per query
+(``msdeform_forward_group_kernel``, its gather in
+``csrc/msdeform_gather.cuh``, shared with K8): G lanes (the least power
+of two with 8·G ≥ D; 4 for D = 32) own one (batch, query, head), lane j
+holding 8 channels as two ``float4``, so a warp holds 32 / G neighbouring
+queries of one head, which in the encoder are neighbouring BEV cells, and
+a block 4 such runs of one head, head fastest, so that corner rows the
+queries share at a level can meet in L1.  The warp walks its queries'
+L·P samples together, level by level: it computes each sample's
+location, corners and fractions once a group (with the plain version's
+rounding: one multiply, then one subtract), not once per lane, and
+issues the 16-byte loads of the sample's four corner rows (8 samples in
+flight a warp at D = 32: two a group, at 108 registers in place of 63,
+ran 1.15× the time on an H100) before any arithmetic.  Each lane then adds
+a·Σ w_corner·v_corner into its 8 accumulators, with the first kernel's
+expression in its (level, point) order, so that each channel sums as
+the first kernel sums it; the group stores its query's 128-byte output
+row as two ``float4`` a lane, with no sum across lanes.  Far-off
+locations form no out-of-range index, a non-finite location gives NaN in
+its row and an off-map sample still meets its weight (0·NaN = NaN), as
+in the plain version.  Other D, and misaligned rows, keep the first
+kernel, openly: one warp per (batch, query, head), lanes over the
+channels, each tap one coalesced 128-byte read, the locations and
+weights warp-wide broadcast loads.  Level shapes and starts travel as a
+small argument struct.
 
 The backward is two kernels of ``csrc/msdeform_backward.cu``, one for
 each TPU kernel it replaces:
@@ -91,12 +110,28 @@ d_loc, a warp's stores covering consecutive samples.  Other D keep the
 first kernel, openly: one warp per (batch, query, head) with lanes over
 the channels, three warp-wide sums a sample.
 
-K9 keeps K7's layout, one warp per (batch, query, head) with lanes over
-the head's channels, so that each tap is one coalesced 128-byte atomic
-add: it adds a·w_corner·g into d_value, which the wrapper zeroes.  The
-corner weights round as K7 and the plain version round them.  The
-atomics add in an order that changes from run to run, so d_value differs
-from the plain version by summation order only.
+K9, for the same D and 16-byte aligned d_out and d_value
+(:func:`takes_group_kernel`, counted in
+:data:`backward_value_group_launches`), runs one lane group per query as
+K7 does, but with one ``float4`` a lane (``msdeform_backward_value_group_kernel``:
+G the least power of two with 4·G ≥ D, 8 lanes for D = 32, so a warp
+holds 4 neighbouring queries): the group reads its query's gradient row
+once and, for each sample, computes the corners and their four weights
+once and adds (g·a)·w_corner into each corner row on the map with one
+16-byte vector atomic add a lane (``atomicAdd(float4 *, float4)``), in
+place of four scalar atomics: 0.36 G in place of 1.43 G an encoder call.
+That cuts instructions; what paces K9 is the L2's atomic work on the
+4.7 GB of corner rows an encoder call adds, which grows with the
+requests a row takes: a group adds a whole 128-byte row in one
+instruction, where K7's 8 channels a lane take two of half a row (1.17×
+the time on an H100) and scalar adds four times as many (3.8×).  Other D
+keep the first K9: one warp per (batch, query, head) with lanes over the
+channels, each tap one coalesced 128-byte scalar atomic add.  d_value is
+zeroed by the wrapper (``torch.zeros``, so 16-byte aligned); a
+non-finite location and an off-map corner add nothing.  The corner
+weights round as K7 and the plain version round them.  The atomics add
+in an order that changes from run to run, so d_value differs from the
+plain version by summation order only.
 
 :func:`ms_deform_attn` on a CUDA tensor always goes through
 :class:`MSDeformAttnFunction` (K7 forward, K8 and K9 backward), with or
@@ -115,12 +150,16 @@ from transcar_tpu_torch.ops.msdeform import level_starts, ms_deform_attn_core
 
 #: K7 launches since the count was last set to 0.
 launches = 0
+#: Of those, the launches that took the lane-group kernel.
+group_launches = 0
 #: K8 (d_attn, d_loc) launches since the count was last set to 0.
 backward_taps_launches = 0
 #: Of those, the launches that took the lane-group kernel.
 backward_taps_group_launches = 0
 #: K9 (d_value) launches since the count was last set to 0.
 backward_value_launches = 0
+#: Of those, the launches that took the lane-group kernel.
+backward_value_group_launches = 0
 
 MAX_LEVELS = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -229,27 +268,31 @@ _SHAPE_ARGS = (_I,) * 7 + (_P,) * 4     # B S Q H D L P, 3 level tables, stream
 
 def kernel(value, spatial_shapes, sampling_locations, attention_weights):
     """K7 on CUDA tensors (see :func:`ms_deform_attn`)."""
-    global launches
+    global launches, group_launches
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, h, d = value.shape
     q, p = sampling_locations.shape[1], sampling_locations.shape[4]
     value, loc, wgt = (t.contiguous() for t in
                        (value, sampling_locations, attention_weights))
     out = torch.empty((b, q, h * d), dtype=torch.float32, device=value.device)
-    _launch("msdeform_forward_f32", (_P,) * 4 + _SHAPE_ARGS,
+    group = takes_group_kernel(d, value, out)
+    _launch("msdeform_forward_group_f32" if group else "msdeform_forward_f32",
+            (_P,) * 4 + _SHAPE_ARGS,
             value.data_ptr(), loc.data_ptr(), wgt.data_ptr(), out.data_ptr(),
             b, s, q, h, d, len(spatial_shapes), p, *_levels(spatial_shapes),
             device=value.device)
     launches += 1
+    group_launches += int(group)
     return out
 
 
-def takes_group_kernel(value: torch.Tensor, d_out: torch.Tensor) -> bool:
-    """Whether K8 takes the lane-group kernel: a head dim D that is a
-    multiple of 8 and at most 64, and 16-byte aligned value and d_out."""
-    d = value.shape[-1]
-    return (d % 8 == 0 and d <= 64 and value.data_ptr() % 16 == 0
-            and d_out.data_ptr() % 16 == 0)
+def takes_group_kernel(head_dim: int, *rows: torch.Tensor) -> bool:
+    """Whether K7, K8 or K9 takes its lane-group kernel: a head dim that is
+    a multiple of 8 and at most 64, and 16-byte aligned ``rows`` (the
+    tensors the kernel reads or writes as ``float4``: K7 value and output,
+    K8 value and d_out, K9 d_out and d_value)."""
+    return (head_dim % 8 == 0 and head_dim <= 64
+            and all(t.data_ptr() % 16 == 0 for t in rows))
 
 
 def backward_taps_kernel(value, spatial_shapes, sampling_locations,
@@ -266,7 +309,7 @@ def backward_taps_kernel(value, spatial_shapes, sampling_locations,
         value, sampling_locations, attention_weights, d_out))
     d_loc = torch.empty_like(loc)
     d_attn = torch.empty_like(wgt)
-    group = takes_group_kernel(value, d_out)
+    group = takes_group_kernel(d, value, d_out)
     _launch("msdeform_backward_taps_group_f32" if group
             else "msdeform_backward_taps_f32", (_P,) * 6 + _SHAPE_ARGS,
             value.data_ptr(), loc.data_ptr(), wgt.data_ptr(),
@@ -283,7 +326,7 @@ def backward_value_kernel(value, spatial_shapes, sampling_locations,
     """K9 on CUDA tensors: d_value [B, S, H, D] of :func:`ms_deform_attn`
     for the output gradient ``d_out`` [B, Q, H·D], float32 (``value``
     gives the shape and device; its numbers are not read)."""
-    global backward_value_launches
+    global backward_value_launches, backward_value_group_launches
     _check(value, spatial_shapes, sampling_locations, attention_weights,
            d_out)
     b, s, h, d = value.shape
@@ -292,9 +335,12 @@ def backward_value_kernel(value, spatial_shapes, sampling_locations,
         sampling_locations, attention_weights, d_out))
     d_value = torch.zeros((b, s, h, d), dtype=torch.float32,
                           device=value.device)
-    _launch("msdeform_backward_value_f32", (_P,) * 4 + _SHAPE_ARGS,
+    group = takes_group_kernel(d, d_out, d_value)
+    _launch("msdeform_backward_value_group_f32" if group
+            else "msdeform_backward_value_f32", (_P,) * 4 + _SHAPE_ARGS,
             loc.data_ptr(), wgt.data_ptr(), d_out.data_ptr(),
             d_value.data_ptr(), b, s, q, h, d, len(spatial_shapes), p,
             *_levels(spatial_shapes), device=value.device)
     backward_value_launches += 1
+    backward_value_group_launches += int(group)
     return d_value
