@@ -6,14 +6,15 @@ Run from the repository root with no arguments::
 
 ``--parent-csrc DIR`` also builds an earlier commit's kernel sources (for
 example ``git archive <commit> transcar_tpu_torch/csrc`` unpacked under
-the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K4,
-K5, K6, K7, K8 and K9 in turns with these (parent, kernel, kernel,
-parent) in phases 3, 4, 8, 13 and 15; the summary line then carries each
-one's ``parent_ms``.  ``--variants k1|k5|k6|k7|k8|k9|all`` runs none of
-the phases: it builds each knock-out variant of the K1 / K5 / K6 / K7 /
-K8 / K9 kernels in ``VARIANTS`` (a copy of their sources under
-``transcar_tpu_torch/build/variants/`` with its patches) and prints its
-time per request or step at the main path's shapes.
+the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K2,
+K4, K5, K6, K7, K8 and K9 in turns with these (parent, kernel, kernel,
+parent) in phases 3, 4, 5, 8, 13 and 15; the summary line then carries
+each one's ``parent_ms``.  ``--variants k1|k2|k5|k6|k7|k8|k9|all`` runs
+none of the phases: it builds each knock-out variant of the K1 / K2 / K5
+/ K6 / K7 / K8 / K9 kernels in ``VARIANTS`` (a copy of their sources
+under ``transcar_tpu_torch/build/variants/`` with its patches) and prints
+its time per request or step at the main path's shapes (and K2's error
+against its plain version).
 
 Phases, one line each (a failing phase raises and the script exits
 non-zero):
@@ -31,11 +32,16 @@ non-zero):
      and whole-pixel, and in bfloat16 at the model's offset scale; its two
      device kernels, (a) d_x + d_om and (b) d_W, timed apart;
   5. K2 (masked attention core) against its plain version at 900 × 1500,
-     8 heads of 32, beside ``F.scaled_dot_product_attention``;
+     8 heads of 32, at batch 1 and 4 on the ``split_heads`` views of the
+     main path, every row (fully masked ones too), on the tensor-core
+     kernel; per request (3 launches, queued back to back) beside
+     ``F.scaled_dot_product_attention``, its bound as three TF32 products
+     and as float32 FMAs, and the parent's K2 with its error;
   6. the flagship slice through ``transcar_tpu_torch.cli.benchmark``:
      TransCAR-R101 batch-1 inference on 6 × 928 × 1600 with 900 queries
      and 1500 radar tokens, seeded random weights; launch counts (every K1
-     launch on the Hopper tile), finite
+     launch on the Hopper tile, every K2 launch on the tensor-core
+     kernel), finite
      outputs, kernel path against plain path in float32 (one decoder
      layer, see phase_slice), samples/s of the kernel and the plain path
      in bfloat16;
@@ -60,7 +66,8 @@ non-zero):
      reference line), and the K6 tile's ``-Xptxas -v`` lines;
   9. the VoVNet-99 slice through ``benchmark transcar_vovnet_trainval``:
      16 K4 + 3 K2 + 0 K1 launches per request, every K4 launch on the
-     wgmma tile, finite outputs and decode,
+     wgmma tile and every K2 launch on the tensor-core kernel, finite
+     outputs and decode,
      float32 kernel path against plain path (one decoder layer),
      samples/s and peak memory of the kernel and the plain path in
      bfloat16;
@@ -142,6 +149,7 @@ MODEL_OFFSET_PX = 2.0
 # Published dense peaks of one H100 SXM at 700 W (FLOP/s) and its memory
 # rate (bytes/s), for the bound of each kernel's work
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12     # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 ATTN_TOL = 2e-4          # as tests/test_pallas_attention.py
 SLICE_TOL = 1e-3         # float32 slice, kernel path vs plain path
@@ -335,7 +343,8 @@ def parent_library(csrc: str):
     return csrc_library(csrc, "parent")
 
 
-# Knock-out variants of the K1, K5, K6, K7, K8 and K9 kernels (``--variants``):
+# Knock-out variants of the K1, K2, K5, K6, K7, K8 and K9 kernels
+# (``--variants``):
 # name: (sources copied, [(file patched, old text, new text), ...]).  A
 # variant that takes out part of the work computes garbage; only its time
 # is read.  A patch whose old text is gone raises.  No patch may drop an
@@ -347,6 +356,7 @@ K6_SRC = ("bottleneck.cu", "osa_wgmma.cuh", "hopper_tile.cuh", "conv_tile.cuh")
 K7_SRC = ("msdeform_forward.cu", "msdeform_gather.cuh")
 K8_SRC = ("msdeform_backward.cu", "msdeform_gather.cuh")
 K9_SRC = K8_SRC
+K2_SRC = ("masked_attention.cu", "hopper_tile.cuh")
 # the lane-group gather of K7 and K8 with its corner loads replaced by
 # register values that depend on the sample
 _NO_VALUE_LOADS = (
@@ -363,6 +373,82 @@ _K6_BN64 = (
     "  if (bn == 64) return osa::launch_tile<64>(bottleneck_{}_wgmma_kernel<64{}>, p,"
     " stream);\n  return bn == 256\n")
 VARIANTS = {
+    "k2 base": (K2_SRC, []),
+    "k2 one-pass TF32 (hi.hi only)": (K2_SRC, [
+        ("masked_attention.cu", "  lo = tf32(x - __uint_as_float(hi));\n",
+         "  lo = 0u;\n"),
+        ("masked_attention.cu", "    klo[swz(rk, c)] = lo;\n", ""),
+        ("masked_attention.cu", "    vlo[swz(rv, 2 * j + h)] = lo;\n", ""),
+        ("masked_attention.cu",
+         "    wgmma_ss(s, hop::desc_add(dql, off), hop::desc_add(dkh, off), kk > 0);\n"
+         "    wgmma_ss(s, hop::desc_add(dqh, off), hop::desc_add(dkl, off), 1);\n"
+         "    wgmma_ss(s, hop::desc_add(dqh, off), hop::desc_add(dkh, off), 1);\n",
+         "    wgmma_ss(s, hop::desc_add(dqh, off), hop::desc_add(dkh, off), kk > 0);\n"),
+        ("masked_attention.cu",
+         "    wgmma_rs(os, al[j], hop::desc_add(dvh, off), j > 0);\n"
+         "    wgmma_rs(os, ah[j], hop::desc_add(dvl, off), 1);\n"
+         "    wgmma_rs(os, ah[j], hop::desc_add(dvh, off), 1);\n",
+         "    wgmma_rs(os, ah[j], hop::desc_add(dvh, off), j > 0);\n")]),
+    "k2 P V summed into O over all tokens (no chunk sums)": (K2_SRC, [
+        ("masked_attention.cu",
+         "  float os[4][4] = {};             // this chunk's P V\n",
+         "  float os[4][4];\n#pragma unroll\n  for (int n = 0; n < 4; ++n)\n"
+         "#pragma unroll\n    for (int i = 0; i < 4; ++i) os[n][i] = o[n][i] * alpha[i >> 1];\n"),
+        ("masked_attention.cu",
+         "    wgmma_rs(os, al[j], hop::desc_add(dvh, off), j > 0);\n",
+         "    wgmma_rs(os, al[j], hop::desc_add(dvh, off), 1);\n"),
+        ("masked_attention.cu",
+         "      o[n][i] = fmaf(o[n][i], alpha[i >> 1], os[n][i]);\n",
+         "      o[n][i] = os[n][i];\n")]),
+    "k2 Q, K and V tiles not split (raw bits as TF32; numerics off)": (K2_SRC, [(
+        "masked_attention.cu",
+        "  for (int i = 0; i < 4; ++i) split(x[i], h[i], l[i]);\n",
+        "  for (int i = 0; i < 4; ++i) h[i] = l[i] = __float_as_uint(x[i]);\n")]),
+    "k2 no token split (one warpgroup a block)": (K2_SRC, [(
+        "masked_attention.cu", "constexpr int TW = 4;",
+        "constexpr int TW = 1;")]),
+    "k2 two token warpgroups a block": (K2_SRC, [(
+        "masked_attention.cu", "constexpr int TW = 4;",
+        "constexpr int TW = 2;")]),
+    "k2 three token warpgroups a block": (K2_SRC, [(
+        "masked_attention.cu", "constexpr int TW = 4;",
+        "constexpr int TW = 3;")]),
+    "k2 2-stage rings": (K2_SRC, [(
+        "masked_attention.cu", "constexpr int NS = 3;",
+        "constexpr int NS = 2;")]),
+    "k2 synchronous staging (no ring)": (K2_SRC, [(
+        "masked_attention.cu",
+        "#pragma unroll\n  for (int s = 0; s < NS - 1; ++s) {\n"
+        "    if (s < mine) issue_chunk(p, ring, kb, vb, mb, q0, th + TW * s, s, tid);\n"
+        "    cp_async_commit();\n  }\n", ""), (
+        "masked_attention.cu",
+        "    cp_async_wait<NS - 2>();\n"
+        "    wg_sync(th);                  // chunk s landed; slot (s - 1) % NS free\n"
+        "    if (s + NS - 1 < mine)\n"
+        "      issue_chunk(p, ring, kb, vb, mb, q0, ci + TW * (NS - 1), s + NS - 1,\n"
+        "                  tid);\n"
+        "    cp_async_commit();\n",
+        "    wg_sync(th);                  // every warp done with the slot\n"
+        "    issue_chunk(p, ring, kb, vb, mb, q0, ci, s, tid);\n"
+        "    cp_async_commit();\n"
+        "    cp_async_wait<0>();\n"
+        "    wg_sync(th);\n")]),
+    "k2 no split pass (tiles left stale)": (K2_SRC, [(
+        "masked_attention.cu", "    split_chunk(st, tiles, tid);\n", "")]),
+    "k2 no S products": (K2_SRC, [(
+        "masked_attention.cu", "wgmma_ss(s, ", "if (p.T < 0) wgmma_ss(s, ")]),
+    "k2 no P V products": (K2_SRC, [(
+        "masked_attention.cu", "wgmma_rs(os, ", "if (p.T < 0) wgmma_rs(os, ")]),
+    "k2 no loads (rings never filled)": (K2_SRC, [
+        ("masked_attention.cu",
+         "    if (s < mine) issue_chunk(p, ring, kb, vb, mb, q0, th + TW * s, s, tid);\n",
+         ""),
+        ("masked_attention.cu",
+         "      issue_chunk(p, ring, kb, vb, mb, q0, ci + TW * (NS - 1), s + NS - 1,\n"
+         "                  tid);\n", "      ;\n")]),
+    "k2 products only (no mask, no softmax)": (K2_SRC, [(
+        "masked_attention.cu",
+        "  softmax_chunk(p, ms, tok_w, qw, g, t, s, m, l, alpha);\n", "")]),
     "k1 base": (K1_SRC, []),
     "k1 3-stage ring": (K1_SRC, [(
         "dcn_forward.cu", "constexpr int F_STAGES = 2;", "constexpr int F_STAGES = 3;")]),
@@ -535,7 +621,7 @@ VARIANTS = {
 }
 
 
-VARIANT_KINDS = ("k1", "k5", "k6", "k7", "k8", "k9")
+VARIANT_KINDS = ("k1", "k2", "k5", "k6", "k7", "k8", "k9")
 
 
 def variant_library(name: str):
@@ -562,7 +648,9 @@ def variant_library(name: str):
 
 
 def _variant_calls(kind: str) -> list:
-    """(label, launches per request or step, call(lib)) of the K1 entry at
+    """(label, launches per request or step, call(lib)[, check(lib)]) of
+    the K2 entry at a batch-1 fusion layer (check: its error against the
+    plain version), of the K1 entry at
     the flagship DCN shapes (offsets ±8 px and the model's), of K5's chain
     tile at the 7 VoVNet-99 block shapes (5 convs each), of K6's three
     Hopper-tile entries at the 3 R101 bottleneck shapes, or of K7's, K8's
@@ -574,6 +662,28 @@ def _variant_calls(kind: str) -> list:
     vp = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     calls = []
+    if kind == "k2":
+        from transcar_tpu_torch.ops.attention import attention_core
+
+        g = torch.Generator(device="cuda").manual_seed(22)
+        case = k2_case(g, 1)
+        ref = attention_core(*case[:3], ~case[3])
+        gate = case[3].any(-1)
+        entries = {}                   # a library's (call, out)
+
+        def call(lib):
+            if lib not in entries:
+                entries[lib] = k2_entry(lib, *case)
+            return entries[lib][0]()
+
+        def check(lib):
+            call(lib)
+            diff = (entries[lib][1] - ref).abs().transpose(1, 2)
+            torch.cuda.synchronize()
+            return (f" max_abs_err {diff[gate].max().item():.3e} gated, "
+                    f"{diff[~gate].max().item():.3e} fully masked")
+        return [(f"[1x{K2_SHAPE[0]}, {K2_SHAPE[1]}x{K2_SHAPE[2]}]",
+                 K2_PER_REQ, call, check)]
     if kind == "k1":
         g = torch.Generator(device="cuda").manual_seed(11)
         for n, h, w, cin, cout, per_req in FLAGSHIP_DCN:
@@ -662,12 +772,13 @@ def _variant_calls(kind: str) -> list:
 
 
 def phase_variants(kinds, smi: str) -> None:
-    """Each knock-out variant of ``kinds`` ("k1", "k5", "k6", "k7", "k8",
-    "k9"): ms per request or step (CUDA events) at the main path's shapes,
-    by offsets for K1 and by call for K7-K9, timed in turns with the
-    unpatched kernel
+    """Each knock-out variant of ``kinds`` ("k1", "k2", "k5", "k6", "k7",
+    "k8", "k9"): ms per request or step (CUDA events; K2's launches queued
+    behind a spin kernel) at the main path's shapes, by offsets for K1 and
+    by call for K7-K9, timed in turns with the unpatched kernel
     ("<kind> base"; base, variant, variant, base at every call, each the
-    better of its two turns) so that every reading has a paired one."""
+    better of its two turns) so that every reading has a paired one; K2's
+    variants also print their error against the plain version."""
     for kind in kinds:
         calls = _variant_calls(kind)
         base = variant_library(f"{kind} base")
@@ -676,21 +787,23 @@ def phase_variants(kinds, smi: str) -> None:
                 continue
             lib = base if name == f"{kind} base" else variant_library(name)
             per_req, base_req, parts = {}, {}, []
-            for label, n, call in calls:
+            for label, n, call, *check in calls:
                 if call(lib) != 0:
                     raise RuntimeError(f"{name} failed at {label}")
                 iters = 20 if kind == "k1" else 10
+                timer = (queued_ms if kind == "k2"
+                         else lambda f: cuda_ms(f, iters=iters))
                 var = lambda: call(lib)
-                turns = [cuda_ms(f, iters=iters)
-                         for f in (lambda: call(base), var, var,
-                                   lambda: call(base))]
+                turns = [timer(f) for f in (lambda: call(base), var, var,
+                                            lambda: call(base))]
                 ms, base_ms = min(turns[1:3]), min(turns[0], turns[3])
                 key = (label.rsplit(" ", 1)[-1] if kind in ("k1", "k6")
                        else label.split(" ", 1)[0]
                        if kind in ("k7", "k8", "k9") else "all")
                 per_req[key] = per_req.get(key, 0.0) + n * ms
                 base_req[key] = base_req.get(key, 0.0) + n * base_ms
-                parts.append(f"{label} {ms:.4f} (base {base_ms:.4f})")
+                parts.append(f"{label} {ms:.4f} (base {base_ms:.4f})"
+                             + (check[0](lib) if check else ""))
             unit = "step" if kind in ("k8", "k9") else "request"
             print(f"{name}: per {unit} "
                   + ", ".join(f"{k} {v:.3f} ms (base {base_req[k]:.3f})"
@@ -719,13 +832,13 @@ def parent_dcn_forward(lib, x, om, wt):
     return out
 
 
-def in_turns(kern, old) -> tuple:
+def in_turns(kern, old, timer=cuda_ms) -> tuple:
     """(kernel ms, parent ms, the line's text): timed parent, kernel,
     kernel, parent; each the better of its two turns."""
-    turns = [cuda_ms(f) for f in (old, kern, kern, old)]
+    turns = [timer(f) for f in (old, kern, kern, old)]
     return (min(turns[1:3]), min(turns[0], turns[3]),
-            f"parent {turns[0]:.3f} / {turns[3]:.3f} ms, kernel "
-            f"{turns[1]:.3f} / {turns[2]:.3f} ms")
+            f"parent {turns[0]:.4f} / {turns[3]:.4f} ms, kernel "
+            f"{turns[1]:.4f} / {turns[2]:.4f} ms")
 
 
 def phase_k1(parent=None) -> dict:
@@ -994,49 +1107,207 @@ def phase_k3(parent=None) -> dict:
     return result
 
 
-def phase_k2() -> dict:
-    from transcar_tpu_torch.ops import pallas_attention
+K2_SHAPE = (8, 900, 1500)      # heads, queries, radar tokens of a fusion layer
+K2_PER_REQ = 3                  # fusion layers a request
+
+
+def k2_case(g, b: int):
+    """Seeded K2 inputs in the main path's layout: q, k and v the
+    ``split_heads`` views of [B, L, 256] projections; keep of density 0.2
+    with a fully visible row and two fully masked ones."""
+    from transcar_tpu_torch.ops.attention import split_heads
+
+    heads, nq, t = K2_SHAPE
+    qh, kh, vh = (split_heads(torch.randn(b, n, heads * 32, device="cuda",
+                                          generator=g), heads)
+                  for n in (nq, t, t))
+    keep = torch.rand(b, nq, t, device="cuda", generator=g) < 0.2
+    keep[:, 0] = True
+    keep[:, 1] = False
+    keep[:, nq - 1] = False
+    return qh, kh, vh, keep
+
+
+def k2_entry(lib, qh, kh, vh, keep):
+    """(call, out): ``lib``'s K2 C entry on these inputs with its arguments
+    made once, so that a call is one ctypes call returning the CUDA error.
+    The tensor-core entry ``masked_attention_wgmma_f32`` reads the views
+    in place; an earlier commit's ``masked_attention_f32`` takes contiguous
+    [B·H, L, 32] copies, made here, outside the timed calls."""
+    from transcar_tpu_torch.ops import pallas_attention as pa
+
+    b, h, nq, hd = qh.shape
+    t = kh.shape[2]
+    vp = lambda x: ctypes.c_void_p(x.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    scale = ctypes.c_float(1.0 / math.sqrt(hd))
+    if hasattr(lib, "masked_attention_wgmma_f32"):
+        fn = lib.masked_attention_wgmma_f32
+        fn.argtypes, fn.restype = list(pa.ENTRY_ARGTYPES), ctypes.c_int
+        out = torch.empty((b, nq, h, hd), device="cuda").transpose(1, 2)
+        rows = pa.keep_rows(keep)
+        held = (qh, kh, vh, rows, out)
+        args = (*map(vp, held), (ctypes.c_longlong * 14)(
+            *pa.kernel_strides(qh, kh, vh, out), *rows.stride()[:2]),
+            b, h, nq, t, rows.shape[-1], hd, scale, stream)
+    else:
+        fn = lib.masked_attention_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = torch.empty((b, h, nq, hd), device="cuda")
+        held = (qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                keep.contiguous().view(torch.uint8), out)
+        args = (*map(vp, held), b * h, h, nq, t, hd, scale, stream)
+    return (lambda held=held: fn(*args)), out
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Device ms of ``fn()`` launched ``iters`` times back to back (CUDA
+    events): the launches queue up behind a ~10 ms spin kernel, so the
+    host's time per launch (a wrapper's checks, ctypes) stays out of a
+    reading of a ~35 µs kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host µs per call of ``fn()`` (``time.perf_counter``): what the
+    calls cost the host, whatever the device does meanwhile (a launch
+    returns at once until ~1000 are queued)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    took = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return 1e6 * took / iters
+
+
+def k2_bounds(qh, kh, vh, keep, out) -> tuple:
+    """(bound ms, "operations" or "bytes", float32 FMA bound ms) of one K2
+    launch: the two products as three TF32 products at 495 TFLOP/s, or as
+    float32 FMAs at 67, over q, k, v and keep read once and out written
+    once."""
+    b, h, nq, hd = qh.shape
+    flops = 4.0 * b * h * nq * kh.shape[2] * hd
+    moved = nbytes(qh, kh, vh, keep, out)
+    t_ops, t_mem = 3 * flops / TF32_FLOPS, moved / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem
+            else "bytes", bound_ms(flops, torch.float32, moved)[0])
+
+
+def phase_k2(parent=None) -> dict:
+    """K2 against its plain version at the fusion layers' shape (8 heads ×
+    900 queries × 1500 tokens, hd 32) at batch 1 and 4, on the main path's
+    strided views, every row (fully masked ones too); per request (3
+    launches) through the bare entry and the wrapper, beside
+    ``F.scaled_dot_product_attention``, both bounds and, when given, the
+    parent commit's K2 (``parent``: its kernel library) in turns; at
+    batch 1 also the host µs a call of the wrapper, the bare entry and
+    the wrapper's parts, and both timed back to back with no queue."""
+    from transcar_tpu_torch.ops import kernel_lib, pallas_attention
     from transcar_tpu_torch.ops.attention import attention_core
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    b, heads, nq, t, hd = 1, 8, 900, 1500, 32
-    qh = torch.randn(b, heads, nq, hd, device="cuda", generator=g)
-    kh = torch.randn(b, heads, t, hd, device="cuda", generator=g)
-    vh = torch.randn(b, heads, t, hd, device="cuda", generator=g)
-    keep = torch.rand(b, nq, t, device="cuda", generator=g) < 0.2
-    keep[:, 0] = True                  # a fully-visible row
-    keep[:, 1] = False                 # fully-masked rows
-    keep[:, 899] = False
-    out = pallas_attention.masked_attention(qh, kh, vh, keep)
-    ref = attention_core(qh, kh, vh, ~keep)
-    torch.cuda.synchronize()
-    gate = keep.any(-1)                # rows with ≥ 1 visible token
-    diff = (out - ref).abs().transpose(1, 2)[gate]
-    err = diff.max().item()
-    rel = (diff / (ref.abs().transpose(1, 2)[gate] + 1.0)).max().item()
-    finite = bool(torch.isfinite(out).all())
-    ms = cuda_ms(lambda: pallas_attention.masked_attention(qh, kh, vh, keep))
-    plain_ms = cuda_ms(lambda: attention_core(qh, kh, vh, ~keep))
-    # the library yardstick: one PyTorch call over the same inputs (its
-    # fully-masked rows come out NaN; it is timed, not checked)
-    sdpa_mask = keep[:, None]
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=sdpa_mask))
-    bound, bound_by = bound_ms(4.0 * b * heads * nq * t * hd, torch.float32,
-                               nbytes(qh, kh, vh, keep, out))
-    ok = finite and err <= ATTN_TOL
-    print(f"K2 attention [{b}x{heads}, {nq}x{t}, hd {hd}] keep density "
-          f"{keep.float().mean().item():.3f}, gated rows "
-          f"{int(gate.sum())}/{nq}: max_abs_err {err:.3e} max_rel_err "
-          f"{rel:.3e} (tol {ATTN_TOL:.0e}), all finite {finite}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-          f"{library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("K2 disagrees with its plain version")
-    return {"max_abs_err": err, "ms": 3 * ms, "plain_ms": 3 * plain_ms,
-            "bound_ms": 3 * bound, "bound_by": bound_by,
-            "library_ms": 3 * library_ms}
+    result = _kernel_result()
+    heads, nq, t = K2_SHAPE
+    n = K2_PER_REQ
+    for b in (1, 4):
+        qh, kh, vh, keep = k2_case(g, b)
+        before = pallas_attention.mma_launches
+        out = pallas_attention.masked_attention(qh, kh, vh, keep)
+        took = pallas_attention.mma_launches - before
+        ref = attention_core(qh, kh, vh, ~keep)
+        torch.cuda.synchronize()
+        gate = keep.any(-1)
+        diff = (out - ref).abs().transpose(1, 2)          # [B, Q, H, hd]
+        err, masked_err = diff[gate].max().item(), diff[~gate].max().item()
+        finite = bool(torch.isfinite(out).all())
+        call, _ = k2_entry(kernel_lib.library(), qh, kh, vh, keep)
+        line = (f"K2 attention [{b}x{heads}, {nq}x{t}, hd 32] on split_heads "
+                f"views, keep density {keep.float().mean().item():.3f}: "
+                f"max_abs_err {err:.3e} on {int(gate.sum())} gated rows, "
+                f"{masked_err:.3e} on {int((~gate).sum())} fully masked "
+                f"(tol {ATTN_TOL:.0e}), all finite {finite}, {took} mma "
+                f"launch")
+        if parent is not None:
+            old, old_out = k2_entry(parent, qh, kh, vh, keep)
+            if old() != 0:
+                raise RuntimeError("parent K2 failed")
+            torch.cuda.synchronize()
+            old_err = (old_out.view(b, heads, nq, 32) - ref).abs().transpose(
+                1, 2)[gate].max().item()
+            ms, old_ms, text = in_turns(call, old, queued_ms)
+            line += (f"; parent max_abs_err {old_err:.3e} on the gated rows "
+                     f"(kernel / parent {err / old_err:.2f}); {text} a launch")
+        else:
+            ms, old_ms = queued_ms(call), None
+            line += f"; kernel {ms:.4f} ms a launch"
+        wrap = lambda: pallas_attention.masked_attention(qh, kh, vh, keep)
+        wrap_ms = queued_ms(wrap)
+        if b == 1:
+            # what a launch costs the host, and the calls back to back with
+            # no queue ahead of them (as the model issues them when the
+            # host is behind): the device then waits for the slower side
+            lib = kernel_lib.library()
+            rows = pallas_attention.keep_rows(keep)
+            entry = lib["masked_attention_wgmma_f32"]
+            host = {"wrapper": host_us(wrap), "entry": host_us(call),
+                    "typing the entry": host_us(lambda: setattr(
+                        entry, "argtypes",
+                        list(pallas_attention.ENTRY_ARGTYPES))),
+                    "stride array": host_us(
+                        lambda: (ctypes.c_longlong * 14)(
+                            *pallas_attention.kernel_strides(qh, kh, vh, out),
+                            *rows.stride()[:2])),
+                    "empty ctypes call": host_us(
+                        lambda: lib.tck_error_string(0))}
+            if parent is not None:
+                host["parent entry"] = host_us(old)
+            print(f"K2 host µs a call [1x{heads}, {nq}x{t}]: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+                  + f"; back to back, no queue ahead: wrapper "
+                  f"{cuda_ms(wrap, iters=50):.4f} ms, entry "
+                  f"{cuda_ms(call, iters=50):.4f} ms a launch", flush=True)
+        plain_ms = cuda_ms(lambda: attention_core(qh, kh, vh, ~keep),
+                           iters=5, warmup=1)
+        library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=keep[:, None]))
+        bound, bound_by, fp32_bound = k2_bounds(qh, kh, vh, keep, out)
+        line += (f"; per request of {b} ({n} launches): kernel {n * ms:.4f}"
+                 + (f" ms, parent {n * old_ms:.4f} ms (kernel / parent "
+                    f"{ms / old_ms:.3f})" if parent is not None else " ms")
+                 + f", through the wrapper {n * wrap_ms:.4f} ms, plain "
+                 f"{n * plain_ms:.4f} ms, scaled_dot_product_attention "
+                 f"{n * library_ms:.4f} ms, bound {n * bound:.4f} ms by "
+                 f"{bound_by} (three TF32 products; float32 FMA bound "
+                 f"{n * fp32_bound:.4f} ms, kernel at {fp32_bound / ms:.0%} "
+                 f"of it)")
+        ok = (finite and max(err, masked_err) <= ATTN_TOL and took == 1)
+        print(line + (" ok" if ok else " FAIL"), flush=True)
+        if not ok:
+            raise AssertionError(f"K2 at batch {b} disagrees with its plain "
+                                 f"version or missed the mma kernel")
+        if b == 1:
+            result.update(max_abs_err=max(err, masked_err), ms=n * ms,
+                          plain_ms=n * plain_ms, bound_ms=n * bound,
+                          bound_by=bound_by, library_ms=n * library_ms,
+                          parent_ms=None if parent is None else n * old_ms)
+        del qh, kh, vh, keep, out, ref, diff
+        torch.cuda.empty_cache()
+    return result
 
 
 def phase_slice(smi: str) -> dict:
@@ -1054,19 +1325,21 @@ def phase_slice(smi: str) -> dict:
              "model.head.use_pallas_attention=false"]
 
     # the main path: bfloat16 backbone, float32 head, through the kernels
-    from transcar_tpu_torch.ops import pallas_dcn
+    from transcar_tpu_torch.ops import pallas_attention, pallas_dcn
 
     _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
     k1_wgmma = pallas_dcn.wgmma_launches
+    k2_mma = pallas_attention.mma_launches
     want = {k: per_req.get(k, 0) * rec["requests"]
             for k in rec["kernel_launches"]}
     valid = _check_outputs("slice", out, cfg)
     print(f"slice {preset} 6x928x1600 bs1 (bf16 backbone, fp32 head): "
           f"{rec['requests']} requests, launches {rec['kernel_launches']} "
           f"(want {per_req} per request, no other kernel), K1 on the wgmma "
-          f"tile {k1_wgmma} of {rec['kernel_launches']['dcn_forward']}; "
-          f"outputs finite; "
+          f"tile {k1_wgmma} of {rec['kernel_launches']['dcn_forward']}, K2 "
+          f"on the mma kernel {k2_mma} of "
+          f"{rec['kernel_launches']['masked_attention']}; outputs finite; "
           f"decode {valid}/300 valid boxes; DCN taps with |dy|>5 px "
           f"{rec['dcn_taps_past_5px']:.4f}; fusion keeps "
           f"{rec['fusion_keep_share']:.3e} of (query, token) pairs")
@@ -1076,6 +1349,9 @@ def phase_slice(smi: str) -> dict:
     if k1_wgmma != want["dcn_forward"]:
         raise AssertionError(f"slice: {want['dcn_forward'] - k1_wgmma} K1 "
                              "launches missed the wgmma tile")
+    if k2_mma != want["masked_attention"]:
+        raise AssertionError(f"slice: {want['masked_attention'] - k2_mma} "
+                             "K2 launches missed the mma kernel")
 
     # float32 backbone: the kernel path against the plain path.  The
     # random-weight decoder amplifies any perturbation about 10x per layer
@@ -1801,7 +2077,8 @@ def _zero_counts() -> None:
 
     pallas_dcn.launches = pallas_dcn.backward_launches = 0
     pallas_dcn.wgmma_launches = 0
-    pallas_attention.launches = pallas_osa.launches = 0
+    pallas_attention.launches = pallas_attention.mma_launches = 0
+    pallas_osa.launches = 0
     pallas_osa.wgmma_launches = 0
     pallas_osa_block.launches = pallas_bottleneck.launches = 0
     pallas_osa_block.wgmma_launches = pallas_bottleneck.wgmma_launches = 0
@@ -1857,18 +2134,20 @@ def phase_vovnet_slice(smi: str) -> dict:
     per_req = {"osa_reduce": sum(V99_SPEC["block_per_stage"]),       # 16
                "masked_attention": cfg.model.head.num_fusion_layers,   # 3
                "dcn_forward": 0}
-    from transcar_tpu_torch.ops import pallas_osa
+    from transcar_tpu_torch.ops import pallas_attention, pallas_osa
 
     _zero_counts()
     rec, out = benchmark.run([preset, "--samples", "10", "--warmup", "3"])
     got = {k: rec["kernel_launches"][k] for k in per_req}
     want = {k: v * rec["requests"] for k, v in per_req.items()}
     wgmma = pallas_osa.wgmma_launches
+    k2_mma = pallas_attention.mma_launches
     valid = _check_outputs("vovnet slice", out, cfg)
     print(f"vovnet slice {preset} 6x928x1600 bs1 (V-99-eSE bf16 backbone, "
           f"FPN from stage 2, fp32 head): {rec['requests']} requests, "
           f"launches {got} (want {want}), K4 on the wgmma tile {wgmma} of "
-          f"{got['osa_reduce']}; outputs finite; decode {valid}/300 "
+          f"{got['osa_reduce']}, K2 on the mma kernel {k2_mma} of "
+          f"{got['masked_attention']}; outputs finite; decode {valid}/300 "
           f"valid boxes; DCN audit {rec['dcn_taps_past_5px']} (no DCN); "
           f"fusion keeps {rec['fusion_keep_share']:.3e} of (query, token) "
           f"pairs")
@@ -1879,6 +2158,10 @@ def phase_vovnet_slice(smi: str) -> dict:
     if wgmma != got["osa_reduce"]:
         raise AssertionError(f"vovnet slice: {got['osa_reduce'] - wgmma} K4 "
                              "launches missed the wgmma tile")
+    if k2_mma != got["masked_attention"]:
+        missed = got["masked_attention"] - k2_mma
+        raise AssertionError(f"vovnet slice: {missed} K2 launches missed "
+                             "the mma kernel")
     plain = ["model.backbone.osa_reduce_impl=xla",
              "model.head.use_pallas_attention=false"]
     worst = _fp32_vs_plain(preset, [], plain)
@@ -2553,13 +2836,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", default=None,
                     help="an earlier commit's transcar_tpu_torch/csrc: build "
-                         "it too and time its K1, K3, K4, K5, K6, K7, K8 and "
-                         "K9 in turns with these (their phases)")
+                         "it too and time its K1, K3, K2, K4, K5, K6, K7, K8 "
+                         "and K9 in turns with these (their phases)")
     ap.add_argument("--variants", default=None,
                     choices=(*VARIANT_KINDS, "all"),
                     help="instead of the phases: build and time the knock-out "
-                         "variants of the K1, K5, K6, K7, K8 or K9 kernels "
-                         "(VARIANTS), then exit")
+                         "variants of the K1, K2, K5, K6, K7, K8 or K9 "
+                         "kernels (VARIANTS), then exit")
     args = ap.parse_args(argv)
     smi = phase_device()
     if args.variants:
@@ -2570,7 +2853,7 @@ def main(argv=None) -> None:
     parent = parent_library(args.parent_csrc) if args.parent_csrc else None
     k1 = phase_k1(parent)
     k3 = phase_k3(parent)
-    k2 = phase_k2()
+    k2 = phase_k2(parent)
     launches = phase_slice(smi)
     train = phase_train(smi)
     phase_train_check()

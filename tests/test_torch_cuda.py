@@ -18,7 +18,8 @@ from transcar_tpu_torch.models.common import disable_tf32
 from transcar_tpu_torch.ops import (dcn, pallas_attention, pallas_bottleneck,
                                     pallas_dcn, pallas_msdeform, pallas_osa,
                                     pallas_osa_block)
-from transcar_tpu_torch.ops.attention import attention_core
+from transcar_tpu_torch.ops.attention import (attention_core, merge_heads,
+                                              split_heads)
 from transcar_tpu_torch.ops.msdeform import (ms_deform_attn_backward,
                                              ms_deform_attn_core)
 
@@ -213,21 +214,42 @@ def test_dcn_autograd_function(dev):
             2e-2 * b.float().abs().max())
 
 
-@pytest.mark.parametrize("b,nq,nt", [(2, 150, 200), (1, 33, 1)])
+# ragged Q and T (T % 4 != 0 pads the keep rows; T = 1 leaves the second
+# token warp idle), the flagship 8 x 900 x 1500 at batch 1 and 4; q, k, v
+# as the strided views split_heads makes of [B, L, 256] projections
+@pytest.mark.parametrize("b,nq,nt", [(2, 150, 200), (1, 33, 1), (1, 37, 150),
+                                     (1, 900, 1500), (4, 900, 1500)])
 def test_masked_attention_kernel(dev, b, nq, nt):
     g = torch.Generator(device=dev).manual_seed(1)
-    qh, kh, vh = (torch.randn(b, 8, n, 32, device=dev, generator=g)
-                  for n in (nq, nt, nt))
+    qh, kh, vh = (split_heads(torch.randn(b, n, 256, device=dev, generator=g),
+                              8) for n in (nq, nt, nt))
     keep = torch.rand(b, nq, nt, device=dev, generator=g) < 0.3
     keep[:, 0] = True
-    keep[:, -1] = False
+    keep[:, -1] = False                 # fully masked
+    before = pallas_attention.launches, pallas_attention.mma_launches
     out = pallas_attention.masked_attention(qh, kh, vh, keep)
+    assert (pallas_attention.launches, pallas_attention.mma_launches) == (
+        before[0] + 1, before[1] + 1)
     ref = attention_core(qh, kh, vh, ~keep)
-    gate = keep.any(-1)
     assert torch.isfinite(out).all()
-    torch.testing.assert_close(out.transpose(1, 2)[gate],
-                               ref.transpose(1, 2)[gate],
-                               rtol=2e-4, atol=2e-4)
+    # every row: a fully-masked one is the uniform average of v over T
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
+    assert merge_heads(out).data_ptr() == out.data_ptr()    # a view
+
+
+def test_masked_attention_kernel_rejects_what_it_does_not_take(dev):
+    qh = torch.zeros(1, 8, 10, 32, device=dev)
+    keep = torch.ones(1, 10, 10, dtype=torch.bool, device=dev)
+    strided = torch.zeros(1, 8, 32, 10, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride"):
+        pallas_attention.masked_attention(qh, strided, qh, keep)
+    with pytest.raises(ValueError, match="head dim 32"):
+        pallas_attention.masked_attention(*(torch.zeros(1, 2, 10, 16,
+                                                        device=dev),) * 3, keep)
+    with pytest.raises(TypeError, match="float32"):
+        pallas_attention.masked_attention(qh.double(), qh, qh, keep)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pallas_attention.masked_attention(qh, qh, qh, keep.cpu())
 
 
 # --- K4, K5, K6: ragged shapes ---------------------------------------------

@@ -233,6 +233,32 @@ def test_cli_benchmark_cpu(capsys, tmp_path):
     assert 0 <= rec["dcn_taps_past_5px"] <= 1
 
 
+def test_trace_summary_groups_leads_and_gaps(tmp_path):
+    # three kernels (µs): a GEMM launched at 0 runs 100-200; K2 launched
+    # at 150 runs 200-230 (queued: lead 50); an elementwise kernel
+    # launched at 260 runs 270-280 (lead 10), after 40 idle
+    kernels = [("sm90_xmma_gemm", 100, 100, 1, 0),
+               ("masked_attention_wgmma_kernel", 200, 30, 2, 150),
+               ("vectorized_elementwise_kernel", 270, 10, 3, 260)]
+    events = []
+    for name, ts, dur, corr, at in kernels:
+        events.append({"cat": "kernel", "name": name, "ts": ts, "dur": dur,
+                       "args": {"correlation": corr}})
+        events.append({"cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                       "ts": at, "dur": 5, "args": {"correlation": corr}})
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    s = benchmark.trace_summary(str(path), wall_s=400e-6, count=1)
+    assert s["device_busy_ms_per_iter"] == pytest.approx(0.14)
+    assert s["device_idle_share"] == pytest.approx(1 - 140 / 400)
+    assert s["kernels_per_iter"] == 3
+    k2, gemm = "K2 masked_attention", "GEMM / convolution (cuBLAS, cuDNN)"
+    assert s["ms_per_iter_by_group"][k2] == pytest.approx(0.03)
+    assert s["host_lead_ms_by_group"] == pytest.approx(
+        {gemm: 0.1, k2: 0.05, "elementwise / reduce / copy": 0.01})
+    assert s["idle_after_ms_by_group"] == pytest.approx({gemm: 0.0, k2: 0.04})
+
+
 def test_cli_rejects_unported_presets():
     # ObjDGCNN serves and trains with the pillar encoder only
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):

@@ -58,6 +58,22 @@ def _attn_case(seed, b=2, q=150, t_=200):
     return params, qx, kv, keep
 
 
+def test_kernel_lib_types_an_entry_once_per_argument_list(monkeypatch):
+    # the C library's stand-in is libc: a typed entry is cached, and one
+    # name typed two ways keeps two objects with their own argtypes
+    import ctypes
+
+    from transcar_tpu_torch.ops import kernel_lib
+
+    monkeypatch.setattr(kernel_lib, "_lib", ctypes.CDLL(None))
+    monkeypatch.setattr(kernel_lib, "_functions", {})
+    fn = kernel_lib.function("labs", ctypes.c_long)
+    assert fn(-3) == 3 and kernel_lib.function("labs", ctypes.c_long) is fn
+    other = kernel_lib.function("labs", ctypes.c_int)
+    assert other is not fn and fn.argtypes == [ctypes.c_long]
+    assert other.argtypes == [ctypes.c_int] and other(-4) == 4
+
+
 def test_masked_mha_matches_jax_xla_and_pallas():
     params, qx, kv, keep = _attn_case(0)
     ours = pallas_attention.masked_mha(

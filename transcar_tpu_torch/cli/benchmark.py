@@ -63,6 +63,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
@@ -114,7 +115,9 @@ def parse_args(argv=None):
                     help="capture a torch.profiler trace of the timed loop "
                          "into this directory (chrome trace, a table of "
                          "device time by kernel, and summary.json: device "
-                         "busy time, idle share, time by kernel group)")
+                         "busy time, idle share, and by kernel group the "
+                         "time, the host's lead at launch and the idle "
+                         "time after)")
     ap.add_argument("--cfg-options", nargs="*", default=[],
                     help="dotted deep overrides, as for the JAX CLIs")
     args = ap.parse_args(argv)
@@ -241,14 +244,22 @@ def trace_summary(trace_path: str, wall_s: float, count: int) -> dict:
     ``wall_s`` seconds: the union of the kernels' intervals (busy), the
     idle share of the wall time, kernels per iteration, and time per
     iteration by kernel group (summed kernel durations, so overlapping
-    kernels count twice there)."""
+    kernels count twice there).  Per group also the median host lead (a
+    kernel's device start less its launch call's host start: how far the
+    host was ahead of the device there; ~0.01 ms means the device waited
+    for the launch) and the mean device idle time right after a kernel
+    of the group (to the next kernel's start)."""
     with open(trace_path) as f:
         events = json.load(f).get("traceEvents", [])
-    ks = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    ks = sorted((e["ts"], e["ts"] + e["dur"], e["name"],
+                 e.get("args", {}).get("correlation")) for e in events
                 if e.get("cat") == "kernel" and "dur" in e)
-    busy_us, groups = 0.0, {}
+    busy_us, groups, leads, idle_after = 0.0, {}, {}, {}
     end = None
-    for s, e, name in ks:
+    for i, (s, e, name, corr) in enumerate(ks):
         if end is None or s > end:
             busy_us += e - s
             end = e
@@ -258,16 +269,24 @@ def trace_summary(trace_path: str, wall_s: float, count: int) -> dict:
         group = next((g for g, pats in KERNEL_GROUPS
                       if any(p in name for p in pats)), "other")
         groups[group] = groups.get(group, 0.0) + (e - s)
+        if corr in launched:
+            leads.setdefault(group, []).append(s - launched[corr])
+        if i + 1 < len(ks):
+            idle_after.setdefault(group, []).append(
+                max(ks[i + 1][0] - end, 0.0))
     per = max(count, 1)
+    order = sorted(groups, key=lambda g: -groups[g])
     return {
         "iterations": count,
         "wall_ms_per_iter": 1e3 * wall_s / per,
         "device_busy_ms_per_iter": busy_us / 1e3 / per,
         "device_idle_share": (1.0 - busy_us / 1e6 / wall_s) if ks else None,
         "kernels_per_iter": len(ks) / per,
-        "ms_per_iter_by_group": {g: v / 1e3 / per for g, v in
-                                 sorted(groups.items(),
-                                        key=lambda kv: -kv[1])},
+        "ms_per_iter_by_group": {g: groups[g] / 1e3 / per for g in order},
+        "host_lead_ms_by_group": {g: statistics.median(leads[g]) / 1e3
+                                  for g in order if g in leads},
+        "idle_after_ms_by_group": {g: statistics.fmean(idle_after[g]) / 1e3
+                                   for g in order if g in idle_after},
     }
 
 

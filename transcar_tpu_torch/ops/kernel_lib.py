@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+_functions: dict = {}
 
 
 def _nvcc() -> str:
@@ -107,10 +108,15 @@ def library() -> ctypes.CDLL:
 
 
 def function(name: str, *argtypes):
-    """A C entry point of the library; every one returns a cudaError_t."""
-    fn = getattr(library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    """A C entry point of the library; every one returns a cudaError_t.
+    Looked up and typed once per argument list, not at every launch."""
+    key = (name, argtypes)
+    fn = _functions.get(key)
+    if fn is None:
+        fn = library()[name]           # an object of its own per key
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
     return fn
 
 
