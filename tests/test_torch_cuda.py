@@ -795,3 +795,71 @@ def test_msdeform_misaligned_rows_skip_the_group_kernels(dev):
             "msdeform_backward_value_group_f32", sig,
             *(t.data_ptr() for t in (loc, wgt, g, d_value)), *args,
             device=dev)
+
+
+# --- the voxel model's sparse encoder (plain PyTorch, no kernel of its own)
+
+def _sparse_case(g, counts, cin, v=192, grid=(8, 12, 12)):
+    """Unique random sites per sample in [B, V] buffers, on the CPU."""
+    b = len(counts)
+    cells = grid[0] * grid[1] * grid[2]
+    feats = torch.zeros(b, v, cin)
+    coords = torch.zeros(b, v, 3, dtype=torch.int32)
+    for bi, n in enumerate(counts):
+        lin = torch.randperm(cells, generator=g)[:n]
+        coords[bi, :n] = torch.stack([lin // (grid[1] * grid[2]),
+                                      (lin // grid[2]) % grid[1],
+                                      lin % grid[2]], 1).int()
+        feats[bi, :n] = torch.randn(n, cin, generator=g)
+    return feats, coords, torch.tensor(counts, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("out_max", [192, 40])
+def test_sparse_ops_on_the_card_match_the_cpu(dev, out_max):
+    """The submanifold and strided convs (float32, TF32 off) on the card
+    against the same ops on the CPU: site sets, coords, counts and the
+    dropped count exactly, features to 1e-5 of their scale (the card's
+    GEMM sums in another order)."""
+    from transcar_tpu_torch.ops import sparse
+
+    g = torch.Generator().manual_seed(0)
+    grid = (8, 12, 12)
+    feats, coords, counts = _sparse_case(g, [60, 23], 8)
+    w = torch.randn(27, 8, 16, generator=g) * 0.2
+    cpu = (sparse.subm_conv(feats, coords, counts, w, grid),
+           *sparse.sparse_conv_down(feats, coords, counts, w, grid, out_max))
+    args = [a.to(dev) for a in (feats, coords, counts, w)]
+    card = (sparse.subm_conv(*args, grid),
+            *sparse.sparse_conv_down(*args, grid, out_max))
+    for a, b in zip(card, cpu):
+        if b.is_floating_point():
+            assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert (card[4] > 0).all() if out_max == 40 else (card[4] == 0).all()
+
+
+@pytest.mark.parametrize("impl", ["gather", "dense"])
+def test_sparse_encoder_makes_no_host_sync(dev, impl):
+    """The middle encoder, warm, on the card, under
+    ``set_sync_debug_mode("error")`` (train mode, batch statistics: the
+    running statistics update on the device too), against the CPU."""
+    from transcar_tpu_torch.models.sparse_encoder import SparseEncoder
+
+    g = torch.Generator().manual_seed(1)
+    feats, coords, counts = _sparse_case(g, [24, 17], 5)
+    enc = SparseEncoder(5, (8, 12, 12), impl=impl)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    ref = enc.train()(feats, coords, counts)
+    enc = enc.to(dev)
+    args = [a.to(dev) for a in (feats, coords, counts)]
+    enc(*args)                                             # warmup
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = enc(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (out.cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()

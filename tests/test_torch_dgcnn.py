@@ -385,14 +385,16 @@ def test_build_model_objdgcnn_pillar():
     bias = attn.sampling_offsets.bias.detach().reshape(8, 4, 4, 2)
     np.testing.assert_allclose(bias[0, 0, :, 0].numpy(), [1, 2, 3, 4])
     np.testing.assert_allclose(bias[2, 0, 0].numpy(), [0, 1], atol=1e-6)
-    # encoder_band_rows stays a validated no-op, and the voxel model waits
+    # encoder_band_rows stays a validated no-op, and the voxel model
+    # builds with the same head (tests/test_torch_voxel.py holds it)
     for bad in (3, 2, 128):
         with pytest.raises(ValueError, match="encoder_band_rows"):
             build_model(get_preset("objdgcnn_pillar",
                                    {"model.encoder_band_rows": bad}),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_model(get_preset("objdgcnn_voxel"), device="cpu")
+    voxel = build_model(get_preset("objdgcnn_voxel"), device="cpu")
+    assert voxel.encoder == "voxel" and not hasattr(voxel, "vfe")
+    assert voxel.head.state_dict().keys() == model.head.state_dict().keys()
     # training builds a train-mode model with the dropout rate at every
     # site: after each MSDeformAttention and DGCNNAttn, twice in each FFN
     model = build_model(cfg, device="cpu", training=True, dropout=0.25)

@@ -175,11 +175,13 @@ def test_decoder_layer():
                                atol=1e-4)
 
 
-def test_fusion_stage():
+def _fusion_parity(**cfg_kw):
+    """The fusion stage of the port's head against the JAX head's, from
+    the same seeded inputs and weights; returns the port's outputs."""
     from transcar_tpu_torch.models.head import TransCARHead
 
     rng = np.random.default_rng(3)
-    cfg = _head_cfg()
+    cfg = _head_cfg(**cfg_kw)
     query = rng.normal(size=(B, Q, 256)).astype(np.float32)
     ref01 = rng.uniform(0.3, 0.7, (B, Q, 3)).astype(np.float32)
     coord = rng.normal(size=(B, Q, 10)).astype(np.float32)
@@ -208,6 +210,25 @@ def test_fusion_stage():
     for key in ("all_cls_scores", "all_bbox_preds"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]),
                                    rtol=1e-4, atol=1e-4, err_msg=key)
+    return out
+
+
+def test_fusion_stage():
+    _fusion_parity()
+
+
+def test_fusion_stage_without_strict_reference_compat():
+    """``strict_reference_compat=False``: the fusion layers take the
+    denormalized z as their base, where the reference's quirk adds the
+    normalized one; both heads agree, and the z the branch feeds differs
+    from the default's."""
+    out = _fusion_parity(strict_reference_compat=False)
+    strict = _fusion_parity()
+    z = 4                                     # (cx, cy, w, l, cz, ...)
+    assert not torch.allclose(out["all_bbox_preds"][..., z],
+                              strict["all_bbox_preds"][..., z])
+    torch.testing.assert_close(out["all_cls_scores"],
+                               strict["all_cls_scores"])
 
 
 TINY_CLI = ["--device", "cpu", "--samples", "1", "--warmup", "1",
@@ -260,11 +281,19 @@ def test_trace_summary_groups_leads_and_gaps(tmp_path):
 
 
 def test_cli_rejects_unported_presets():
-    # ObjDGCNN serves and trains with the pillar encoder only
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        benchmark.run(["objdgcnn_voxel", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        benchmark.run_train(["objdgcnn_voxel", "--train", "--device", "cpu"])
+    # every preset serves and trains: objdgcnn_voxel too, here at a tiny
+    # size (tests/test_torch_voxel.py holds it); int8 is still refused
+    tiny = ["--device", "cpu", "--samples", "1", "--warmup", "0",
+            "--cfg-options", "model.voxel_size=[2.0,2.0,1.0]",
+            "model.sparse_shape=[9,32,32]",
+            "model.head.pc_range=[-32.0,-32.0,-5.0,32.0,32.0,3.0]",
+            "data.max_points=1000", "model.max_voxels=128",
+            "model.head.num_query=8", "model.head.num_decoder_layers=1"]
+    rec, out = benchmark.run(["objdgcnn_voxel", *tiny])
+    assert rec["voxel_audit"]["voxels"] == 128
+    assert out["all_cls_scores"].shape == (1, 1, 8, 10)
+    rec, _ = benchmark.run_train(["objdgcnn_voxel", "--train", *tiny])
+    assert np.isfinite(rec["loss_last"]["total"])
     with pytest.raises(NotImplementedError, match="int8"):
         benchmark.run(["transcar_vovnet_trainval", "--device", "cpu",
                        "--cfg-options", "model.backbone.quantize=int8"])

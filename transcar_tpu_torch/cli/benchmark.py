@@ -40,6 +40,17 @@ ground-truth boxes (``data/synthetic.fake_lidar_batch``): 8 K7 launches
 in the forward and 8 K8 + 8 K9 in the backward of every step, its line
 holding ``max_points`` in place of ``img_hw``.
 
+``objdgcnn_voxel`` (0.1 × 0.1 × 0.2 m voxels, 90 000 of them, the sparse
+3D encoder on a (41, 1024, 1024) grid, SECOND (5, 5) and the same head)
+serves and trains the same way, with the same launches; its sparse
+encoder is plain PyTorch (``model.sparse_impl``: ``gather``, the
+preset's, or ``dense``).  Its line holds a ``voxel_audit`` in place of
+the ``pillar_audit``, from the first cloud, outside the timed loop: the
+voxels kept against ``max_voxels``, the z layers they reach against the
+grid's, and for each stride-2 downsample of the last request's encoder
+the sites before and after its cap (``max_voxels`` for ``gather``; the
+dense encoder keeps every site).
+
 ``--train`` times ``--samples`` train steps (forward, loss with Hungarian
 targets, backward, clip, AdamW; ``train/step.py``) after ``--warmup``
 steps on one synthetic batch, and prints steps/s, ms/step, the kernel
@@ -328,6 +339,26 @@ def pillar_audit(cfg, batch) -> dict:
             "bev_rows_reached": rows, "bev_rows": m.bev_hw[0]}
 
 
+def voxel_audit(cfg, model, batch) -> dict:
+    """Voxels the voxelizer keeps and the z layers they reach, and for
+    each stride-2 downsample of the middle encoder's last forward the
+    sites it marked and the sites it kept (under the gather encoder's cap
+    of ``max_voxels``; the dense one has none), for the first cloud of
+    the batch."""
+    m = cfg.model
+    pc, vs = m.head.pc_range, m.voxel_size
+    _, coords, _, nv = hard_voxelize(
+        batch["points"][:1], batch["num_points"][:1], vs, pc,
+        m.max_points_per_voxel, m.max_voxels)
+    n = int(nv[0])
+    return {"voxels": n, "max_voxels": m.max_voxels,
+            "z_layers_reached": int(coords[0, :n, 0].max()) + 1 if n else 0,
+            "z_layers": round((pc[5] - pc[2]) / vs[2]),
+            "downsamples": [{"sites": int(marked[0]), "kept": int(kept[0])}
+                            for marked, kept in
+                            model.middle_encoder.downsample_sites]}
+
+
 def _device_name(dev) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
@@ -426,7 +457,10 @@ def run(argv=None):
     }
     if lidar:
         with torch.inference_mode():
-            record["pillar_audit"] = pillar_audit(cfg, batch)
+            if cfg.model.lidar_encoder == "voxel":
+                record["voxel_audit"] = voxel_audit(cfg, model, batch)
+            else:
+                record["pillar_audit"] = pillar_audit(cfg, batch)
     if stats["fusion_pairs"]:
         record["fusion_keep_share"] = float(stats["fusion_kept"]
                                             / stats["fusion_pairs"])

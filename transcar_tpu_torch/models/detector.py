@@ -31,6 +31,7 @@ from transcar_tpu_torch.models.dgcnn import MSDeformAttention, ObjDGCNN
 from transcar_tpu_torch.models.fpn import FPN
 from transcar_tpu_torch.models.head import TransCARHead
 from transcar_tpu_torch.models.resnet import DCNConv, ResNet
+from transcar_tpu_torch.models.sparse_encoder import SparseConvBlock
 from transcar_tpu_torch.models.vovnet import VoVNet
 
 
@@ -187,8 +188,9 @@ def resolve_encoder_band(cfg) -> None:
 def build_model(cfg, device="cuda", training: bool = False,
                 seed: int = 0, dropout: float = 0.1) -> nn.Module:
     """Camera/fusion presets → TransCARDetector, ``lidar_encoder`` presets
-    (``objdgcnn_pillar``) → ObjDGCNN, on ``device`` with seeded random
-    weights (load real ones with ``load_state_dict``), in train mode when
+    (``objdgcnn_pillar``, ``objdgcnn_voxel``) → ObjDGCNN, on ``device``
+    with seeded random weights (load real ones with ``load_state_dict``),
+    in train mode when
     ``training`` (GridMask, ``dropout`` in the head; for ObjDGCNN, batch
     statistics in every BatchNorm) and eval mode otherwise.  The model
     goes to the card unless the caller passes ``device="cpu"``; without
@@ -198,7 +200,9 @@ def build_model(cfg, device="cuda", training: bool = False,
     ``osa_reduce_impl`` (:func:`resolve_osa_reduce_impl`) and
     ``block_impl`` (:func:`resolve_block_impl`); ObjDGCNN's deformable
     attention always takes the kernel wrapper (K7, and K8 / K9 in the
-    backward).  TPU-only knobs change no math and are accepted as no-ops:
+    backward); ``objdgcnn_voxel``'s sparse encoder is plain PyTorch in
+    either ``sparse_impl`` (the JAX package runs it as XLA too).
+    TPU-only knobs change no math and are accepted as no-ops:
     ``dcn_band_rows``, ``dcn_rows_per_step`` and ``dcn_variant`` (the
     kernels are exact for any offset, so full-backbone training needs no
     band widening), ``stem_impl`` and ``encoder_band_rows`` (validated as
@@ -218,14 +222,15 @@ def build_model(cfg, device="cuda", training: bool = False,
                          max_points=m.max_points_per_voxel,
                          max_voxels=m.max_voxels, bev_hw=m.bev_hw,
                          compute_dtype=m.lidar_compute_dtype,
-                         dropout=dropout)
+                         dropout=dropout, sparse_shape=m.sparse_shape,
+                         sparse_impl=m.sparse_impl)
         init_weights(model, torch.Generator().manual_seed(seed))
         model = model.to(device=device, memory_format=torch.channels_last)
         return model.train(training)
     if m.backbone.quantize != "none" and not training:
         raise NotImplementedError(
             f"quantize={m.backbone.quantize!r} changes the numbers and "
-            "waits for ops/int8.py (ROADMAP.md Queue 1 item 11)")
+            "waits for ops/int8.py (ROADMAP.md Queue 1 item 6)")
     disable_tf32()
     model = TransCARDetector(m, dcn_impl=resolve_dcn_impl(cfg),
                              remat=resolve_remat(cfg),
@@ -240,8 +245,9 @@ def build_model(cfg, device="cuda", training: bool = False,
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init after the JAX package's flax initializers:
-    lecun-normal convs and linears with zero biases, he-normal DCN
-    weights, zero DCN offset convs (mmcv) and cross-attention weights,
+    lecun-normal convs and linears with zero biases, he-normal DCN and
+    sparse-conv weights (a sparse conv's [27, Cin, Cout] has fan-in
+    27·Cin), zero DCN offset convs (mmcv) and cross-attention weights,
     xavier-uniform attention and reference-point projections, N(0, 1)
     query and level embeddings, and for MSDeformAttn mmcv's zero
     ``sampling_offsets`` kernel with the circle bias; norms keep their
@@ -259,6 +265,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(mod.conv_offset.weight)
                 nn.init.zeros_(mod.conv_offset.bias)
                 normal_(mod.weight, math.sqrt(2.0 / mod.weight[0].numel()))
+            elif isinstance(mod, SparseConvBlock):
+                fan_in = mod.weight[:, :, 0].numel()
+                normal_(mod.weight, math.sqrt(2.0 / fan_in))
             elif isinstance(mod, Conv2d) and not name.endswith("conv_offset"):
                 normal_(mod.weight, math.sqrt(1.0 / mod.weight[0].numel()))
                 if mod.bias is not None:

@@ -1,9 +1,9 @@
-"""ObjDGCNN: LiDAR pillars → BEV deformable-DETR detector
+"""ObjDGCNN: LiDAR pillars or voxels → BEV deformable-DETR detector
 (``transcar_tpu/models/dgcnn.py``).
 
 Parity targets, as in the JAX package:
   * ``ObjDGCNN`` (models/detectors/obj_dgcnn.py): voxelize → VFE →
-    scatter → SECOND → FPN → head.
+    scatter (or the sparse encoder) → SECOND → FPN → head.
   * ``DGCNN3DHead`` (models/dense_heads/dgcnn3d_head.py): BEV sine
     positional encodings over all-valid masks, a 2-layer deformable-DETR
     encoder and a 6-layer decoder with 2D reference points, xy-only
@@ -21,10 +21,15 @@ deformable attention, the encoder's 2 and the decoder's 6, goes through
 the kernel wrapper (``ops/pallas_msdeform.py``: K7 forward, K8 and K9
 backward) unless its ``impl`` is set to "xla", the plain version on any
 device.  In train mode every BatchNorm takes batch statistics (the VFE's
-masked to real pillars) and ``dropout`` applies where the JAX modules
-place it: after each MSDeformAttention and DGCNNAttn, and twice in each
-FFN.  Only the pillar encoder is ported; the voxel encoder waits
-(ROADMAP.md Queue 1 item 10).
+masked to real pillars, the sparse encoder's to active sites) and
+``dropout`` applies where the JAX modules place it: after each
+MSDeformAttention and DGCNNAttn, and twice in each FFN.
+
+Two LiDAR encoders, as in JAX: ``"pillar"`` (PillarFeatureNet, scatter,
+SECOND (3, 5, 5) / (2, 2, 2) / (64, 128, 256)) and ``"voxel"``
+(HardSimpleVFE, the sparse 3D middle encoder of
+``models/sparse_encoder.py``, SECOND (5, 5) / (1, 2) / (128, 256) on its
+256-channel BEV).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from transcar_tpu_torch.core.boxes import inverse_sigmoid
 from transcar_tpu_torch.core.device import const
 from transcar_tpu_torch.models.common import FFN, LN_EPS, MLP, BatchNorm
 from transcar_tpu_torch.models.second import BNFPN, SECOND
+from transcar_tpu_torch.models.sparse_encoder import SparseEncoder
 from transcar_tpu_torch.ops import pallas_msdeform
 from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
 from transcar_tpu_torch.ops.voxelize import hard_voxelize, pillar_scatter
@@ -310,12 +316,15 @@ class DGCNN3DHead(nn.Module):
 
 
 class ObjDGCNN(nn.Module):
-    """LiDAR detector: pillars → SECOND → FPN → DGCNN head.
+    """LiDAR detector: pillars or voxels → SECOND → FPN → DGCNN head.
 
     ``encoder="pillar"``: PillarFeatureNet + scatter (the pillar config).
-    The BEV convolutions run in ``compute_dtype`` (bfloat16 on the preset;
-    None = float32) and the head in float32; ``dropout`` is the head's
-    rate in training.
+    ``encoder="voxel"``: HardSimpleVFE (the per-voxel mean of its points)
+    + the sparse 3D encoder on ``sparse_shape`` in ``sparse_impl``
+    ("gather" | "dense"), float32, or for "dense" its convs in
+    ``compute_dtype`` (the voxel config).  The BEV convolutions run in
+    ``compute_dtype`` (bfloat16 on the presets; None = float32) and the
+    head in float32; ``dropout`` is the head's rate in training.
     """
 
     def __init__(self, cfg, encoder: str = "pillar",
@@ -323,21 +332,28 @@ class ObjDGCNN(nn.Module):
                  max_points: int = 20, max_voxels: int = 30000,
                  bev_hw: Tuple[int, int] = (512, 512),
                  compute_dtype: Optional[str] = "bfloat16",
-                 dropout: float = 0.1):
+                 dropout: float = 0.1,
+                 sparse_shape: Tuple[int, int, int] = (41, 1024, 1024),
+                 sparse_impl: str = "gather"):
         """cfg: a ``HeadConfig``."""
         super().__init__()
-        if encoder != "pillar":
-            raise NotImplementedError(
-                f"ObjDGCNN encoder {encoder!r} is not ported yet (ROADMAP.md "
-                "Queue 1 item 10: the voxel model, ops/sparse.py and "
-                "models/sparse_encoder.py)")
-        self.cfg = cfg
+        self.cfg, self.encoder = cfg, encoder
         self.voxel_size, self.max_points = voxel_size, max_points
         self.max_voxels, self.bev_hw = max_voxels, bev_hw
         self.compute_dtype = compute_dtype
-        self.vfe = PillarFeatureNet(5, 64, voxel_size[:2], cfg.pc_range)
-        self.backbone = SECOND(64)
-        self.neck = BNFPN((64, 128, 256), cfg.embed_dims, cfg.num_levels)
+        if encoder == "pillar":
+            self.vfe = PillarFeatureNet(5, 64, voxel_size[:2], cfg.pc_range)
+            self.backbone = SECOND(64)
+            bev_channels = (64, 128, 256)
+        elif encoder == "voxel":
+            self.middle_encoder = SparseEncoder(
+                5, sparse_shape, impl=sparse_impl,
+                compute_dtype=compute_dtype)
+            self.backbone = SECOND(256, (5, 5), (1, 2), (128, 256))
+            bev_channels = (128, 256)
+        else:
+            raise ValueError(f"unknown encoder {encoder!r}")
+        self.neck = BNFPN(bev_channels, cfg.embed_dims, cfg.num_levels)
         self.head = DGCNN3DHead(cfg, dropout=dropout)
 
     def bev_features(self, points, num_points):
@@ -346,19 +362,34 @@ class ObjDGCNN(nn.Module):
         dtype: a float64 model, as the CPU parity tests build, promotes
         them as flax's ``Dense`` does)."""
         b = points.shape[0]
-        voxels, coords, counts, nv = hard_voxelize(
-            points, num_points, self.voxel_size, self.cfg.pc_range,
-            self.max_points, self.max_voxels)
-        pv, m, f = voxels.shape[1:]
-        feats = self.vfe(voxels.reshape(b * pv, m, f),
-                         coords.reshape(b * pv, 3), counts.reshape(b * pv))
-        canvas = pillar_scatter(feats.reshape(b, pv, -1), coords, nv,
-                                self.bev_hw)                   # [B, H, W, 64]
+        if self.encoder == "voxel":
+            canvas = self.middle_encoder(*self.voxel_features(
+                points, num_points))                        # [B, H', W', 256]
+        else:
+            voxels, coords, counts, nv = hard_voxelize(
+                points, num_points, self.voxel_size, self.cfg.pc_range,
+                self.max_points, self.max_voxels)
+            pv, m, f = voxels.shape[1:]
+            feats = self.vfe(voxels.reshape(b * pv, m, f),
+                             coords.reshape(b * pv, 3),
+                             counts.reshape(b * pv))
+            canvas = pillar_scatter(feats.reshape(b, pv, -1), coords, nv,
+                                    self.bev_hw)             # [B, H, W, 64]
         dt = getattr(torch, self.compute_dtype or "float32")
         x = canvas.to(dt).permute(0, 3, 1, 2)          # NCHW, channels last
         feats = self.neck(self.backbone(x))
         head_dt = self.head.level_embeds.dtype
         return [f.permute(0, 2, 3, 1).float().to(head_dt) for f in feats]
+
+    def voxel_features(self, points, num_points):
+        """Hard voxelization and HardSimpleVFE (the mean of a voxel's
+        points): the middle encoder's inputs, features [B, V, 5], coords
+        [B, V, 3] (z, y, x) and the voxel count [B]."""
+        voxels, coords, counts, nv = hard_voxelize(
+            points, num_points, self.voxel_size, self.cfg.pc_range,
+            self.max_points, self.max_voxels)
+        denom = counts.clamp(min=1)[..., None].to(voxels.dtype)
+        return voxels.sum(2) / denom, coords, nv
 
     def forward(self, points, num_points):
         """points: [B, N_max, 5]; num_points: [B] → the head's dict."""
