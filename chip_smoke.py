@@ -133,7 +133,22 @@ non-zero):
      ``torch.cuda.set_sync_debug_mode("error")``, after a positive control
      (a pageable host-to-device copy must raise), the same reported for
      ``objdgcnn_pillar`` and ``objdgcnn_voxel``, and the warm voxel
-     middle encoder alone on its voxelized inputs (asserted).
+     middle encoder alone on its voxelized inputs (asserted);
+ 20. the data pipeline, checkpoints, train loop, eval hook and the train
+     / test CLIs (``cli.train``, ``cli.test``, called in-process) on a
+     nuScenes-layout fixture written to a temporary directory
+     (:func:`write_fixture`, :func:`write_reference_pth`): the host's
+     JPEG decode and radar featurizer routes (each asserted against what
+     the host offers), the camera loader's host ms a sample (decode,
+     radar tokens, the rest) and its wire bytes, ``normalize_batch_images``
+     on the card against the CPU; ``detr3d_r101`` (2 steps, photometric
+     on the uint8 wire), ``transcar_r101`` warm-started from the reference
+     ``.pth`` (6 steps, a traced window, the eval hook on the 2 val
+     samples), its resume to step 7, ``cli.test`` on the hook's
+     checkpoint (equal to the hook's rows), and ``objdgcnn_pillar`` (2
+     steps and the hook on one sample); launches per run against the
+     wants, finite losses, ms a step, the loader wait, peak memory and the
+     traced window's device idle share.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA the
@@ -144,6 +159,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -2979,6 +2995,700 @@ def voxel_layers_ms(model, batch) -> dict:
     return {k: round(v, 3) for k, v in ms.items()}
 
 
+# ---------------------------------------------------------------------------
+# the data pipeline phase: a nuScenes-layout fixture on disk, then the
+# train / test CLIs on it
+# ---------------------------------------------------------------------------
+
+#: cameras in the order of data/infos.py (the ring of data/synthetic.py:
+#: camera i faces azimuth 2πi/6)
+FIXTURE_CAMS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT",
+                "CAM_BACK", "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+#: radar channel → (mounting x, y, z in the ego frame, yaw)
+FIXTURE_RADARS = {"RADAR_FRONT": (3.4, 0.0, 0.5, 0.0),
+                  "RADAR_FRONT_LEFT": (2.4, 0.8, 0.5, math.pi / 2),
+                  "RADAR_FRONT_RIGHT": (2.4, -0.8, 0.5, -math.pi / 2),
+                  "RADAR_BACK_LEFT": (-0.6, 0.8, 0.5, math.pi * 0.75),
+                  "RADAR_BACK_RIGHT": (-0.6, -0.8, 0.5, -math.pi * 0.75)}
+FIXTURE_T0 = 1_531_883_530_000_000          # µs, nuScenes' magnitude
+
+
+def _yaw_quat(yaw: float) -> list:
+    return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+
+def _fixture_image(rng, h: int, w: int):
+    """A smooth seeded RGB picture (small as a JPEG): a coarse random
+    grid upsampled bicubically."""
+    import numpy as np
+    from PIL import Image
+
+    coarse = rng.integers(0, 256, (max(h // 60, 2), max(w // 60, 2), 3),
+                          dtype=np.uint8)
+    return Image.fromarray(coarse).resize((w, h), Image.BICUBIC)
+
+
+def _fixture_radar_sweep(rng, n: int):
+    """[18, n] radar points in the sensor frame that pass the devkit's
+    default filters: 5-80 m ahead within ±45°, every column in its
+    on-disk dtype's range."""
+    import numpy as np
+
+    pts = np.zeros((18, n), np.float64)
+    r = rng.uniform(5.0, 80.0, n)
+    az = rng.uniform(-math.pi / 4, math.pi / 4, n)
+    pts[0] = (r * np.cos(az)).astype(np.float32)
+    pts[1] = (r * np.sin(az)).astype(np.float32)
+    pts[2] = rng.uniform(-0.5, 1.5, n).astype(np.float32)
+    pts[3] = rng.integers(0, 7, n)                            # dyn_prop
+    pts[4] = rng.integers(0, 100, n)                          # id
+    pts[5] = rng.uniform(-10, 30, n).astype(np.float32)       # rcs
+    pts[6:10] = rng.uniform(-15, 15, (4, n)).astype(np.float32)
+    pts[10] = 1                                               # quality
+    pts[11] = 3                                               # ambig
+    pts[12:14] = rng.integers(0, 5, (2, n))
+    pts[14] = 0                                               # invalid
+    pts[15] = rng.integers(0, 8, n)                           # pdh0
+    pts[16:18] = rng.integers(0, 5, (2, n))
+    return pts
+
+
+def write_fixture(root: str, n_train: int = 4, n_val: int = 2,
+                  hw=(900, 1600), lidar_points: int = 300_000,
+                  radar_points: int = 60, radar_sweeps: int = 5,
+                  lidar_sweeps: int = 9, seed: int = 0) -> dict:
+    """Write a nuScenes-layout dataset under ``root``: the infos pkls
+    (``nuscenes_infos_{train,val}.pkl``), six ``hw`` camera JPEGs a
+    sample, LiDAR ``.bin`` files (a key frame and ``lidar_sweeps``
+    sweeps, ``lidar_points`` points in all), and the nuScenes tables of
+    ``v1.0-trainval`` with ``radar_sweeps`` ``.pcd`` sweeps of
+    ``radar_points`` points for each of the 5 radars.  Three boxes a
+    sample (car, bus, pedestrian), as the JAX package's loop tests make.
+    Returns the train and val sample tokens."""
+    import pickle
+
+    import numpy as np
+
+    from transcar_tpu_torch.data.radar_io import write_radar_pcd
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    root = str(root)
+    version = os.path.join(root, "v1.0-trainval")
+    for sub in ("samples", "sweeps", "v1.0-trainval"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    fx = 0.8 * w
+    k = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    tables = {t: [] for t in ("sample", "sample_data", "ego_pose",
+                              "calibrated_sensor", "sensor")}
+    for chan, (x, y, z, yaw) in (("LIDAR_TOP", (0.9, 0.0, 1.8, 0.0)),
+                                 *FIXTURE_RADARS.items()):
+        tables["sensor"].append({"token": f"sen_{chan}", "channel": chan,
+                                 "modality": chan.split("_")[0].lower()})
+        tables["calibrated_sensor"].append({
+            "token": f"cs_{chan}", "sensor_token": f"sen_{chan}",
+            "translation": [x, y, z], "rotation": _yaw_quat(yaw)})
+    per_file = lidar_points // (lidar_sweeps + 1)
+    infos = []
+    for i in range(n_train + n_val):
+        tok = f"sample{i}"
+        ts = FIXTURE_T0 + i * 500_000
+        cams = {}
+        for ci, cam in enumerate(FIXTURE_CAMS):
+            path = os.path.join(root, "samples", f"{tok}_{cam}.jpg")
+            _fixture_image(rng, h, w).save(path, quality=90)
+            a = 2 * np.pi * ci / 6
+            fwd = np.array([np.cos(a), np.sin(a), 0.0])
+            right = np.array([-np.sin(a), np.cos(a), 0.0])
+            rot = np.stack([right, [0.0, 0.0, -1.0], fwd])  # lidar → cam
+            cams[cam] = {"data_path": path, "sensor2lidar_rotation": rot.T,
+                         "sensor2lidar_translation": np.zeros(3),
+                         "cam_intrinsic": k}
+
+        def cloud(n):
+            r = 2.0 + 68.0 * rng.random(n) ** 1.5
+            az = rng.uniform(-np.pi, np.pi, n)
+            pts = np.stack([r * np.cos(az), r * np.sin(az),
+                            rng.uniform(-2.5, 1.5, n),
+                            rng.uniform(0, 255, n),
+                            rng.integers(0, 32, n)], 1)
+            return pts.astype(np.float32)
+
+        lidar_path = os.path.join(root, "samples", f"{tok}_LIDAR_TOP.bin")
+        cloud(per_file).tofile(lidar_path)
+        sweeps = []
+        for s in range(lidar_sweeps):
+            path = os.path.join(root, "sweeps", f"{tok}_LIDAR_TOP_{s}.bin")
+            cloud(per_file).tofile(path)
+            a = 0.01 * (s + 1)
+            sweeps.append({
+                "data_path": path,
+                "sensor2lidar_rotation": np.array(
+                    [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1]]),
+                "sensor2lidar_translation": np.array(
+                    [-0.5 * (s + 1), 0.0, 0.0]),
+                "timestamp": ts - (s + 1) * 50_000})
+        g = 3
+        boxes = np.zeros((g, 7))
+        boxes[:, :2] = rng.uniform(-30, 30, (g, 2))
+        boxes[:, 2] = rng.uniform(-1, 1, g)
+        boxes[:, 3:6] = rng.uniform(1, 4, (g, 3))
+        boxes[:, 6] = rng.uniform(-np.pi, np.pi, g)
+        infos.append({
+            "token": tok, "timestamp": ts, "lidar_path": lidar_path,
+            "sweeps": sweeps, "cams": cams,
+            "lidar2ego_rotation": [1, 0, 0, 0],
+            "lidar2ego_translation": [0.9, 0.0, 1.8],
+            "ego2global_rotation": [1, 0, 0, 0],
+            "ego2global_translation": [10.0 * i, 0.0, 0.0],
+            "gt_boxes": boxes, "gt_names": ["car", "bus", "pedestrian"],
+            "gt_velocity": rng.uniform(-2, 2, (g, 2)),
+            "num_lidar_pts": np.array([50, 50, 50]),
+            "num_radar_pts": np.array([3, 3, 3]),
+            "valid_flag": np.array([True, True, True])})
+
+        # the nuScenes tables: the key frame's LIDAR_TOP and every
+        # radar's chain of sweeps (newest first, linked by "prev")
+        tables["sample"].append({"token": tok, "timestamp": ts,
+                                 "scene_token": "scene0", "prev": "",
+                                 "next": ""})
+        chans = [("LIDAR_TOP", 1)] + [(c, radar_sweeps)
+                                      for c in FIXTURE_RADARS]
+        for ci, (chan, n_chain) in enumerate(chans):
+            toks = [f"{tok}_{chan}_{s}" for s in range(n_chain)]
+            for s, sd_tok in enumerate(toks):
+                sd_ts = ts - s * 75_000 + ci * 5_000
+                tables["ego_pose"].append({
+                    "token": f"pose_{sd_tok}", "timestamp": sd_ts,
+                    "translation": [10.0 * i + 8.0 * (sd_ts - ts) / 1e6,
+                                    0.0, 0.0],
+                    "rotation": _yaw_quat(0.02 * (sd_ts - ts) / 1e6)})
+                fname = f"sweeps/{sd_tok}.pcd"
+                tables["sample_data"].append({
+                    "token": sd_tok, "sample_token": tok,
+                    "ego_pose_token": f"pose_{sd_tok}",
+                    "calibrated_sensor_token": f"cs_{chan}",
+                    "filename": fname, "timestamp": sd_ts,
+                    "is_key_frame": s == 0,
+                    "prev": toks[s + 1] if s + 1 < n_chain else "",
+                    "next": toks[s - 1] if s > 0 else ""})
+                if chan != "LIDAR_TOP":
+                    write_radar_pcd(os.path.join(root, fname),
+                                    _fixture_radar_sweep(rng, radar_points))
+    for name, rows in tables.items():
+        with open(os.path.join(version, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    for name, part in (("nuscenes_infos_train.pkl", infos[:n_train]),
+                       ("nuscenes_infos_val.pkl", infos[n_train:])):
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump({"infos": part, "metadata": {"version": "fixture"}},
+                        f)
+    return {"train": [i["token"] for i in infos[:n_train]],
+            "val": [i["token"] for i in infos[n_train:]]}
+
+
+def write_reference_pth(path: str, blocks=(3, 4, 23, 3),
+                        with_dcn=(False, False, True, True),
+                        num_layers: int = 6, num_query: int = 900,
+                        seed: int = 0) -> int:
+    """A camera-only DETR3D checkpoint in the reference's key layout
+    (mmdet ResNet / FPN, ``pts_bbox_head``; the keys and shapes of
+    ``tests/test_convert.py``'s synthetic state_dict without its
+    ``rf_*`` / ``radar_*`` / ``final_*`` heads), saved with
+    ``torch.save`` as ``{"state_dict": ...}``.  Its values are scaled so
+    that a forward stays finite: convs and linears N(0, 1/fan_in), BN
+    statistics with positive variances, offset convs that move taps by
+    about a pixel.  Returns the number of tensors."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    e = 256
+    sd = {}
+
+    def add(k, arr):
+        sd[k] = torch.from_numpy(np.asarray(arr, np.float32))
+
+    def add_bn(k, c, gain=1.0):
+        add(f"{k}.weight", gain * rng.uniform(0.5, 1.0, c))
+        add(f"{k}.bias", rng.normal(0, 0.1, c))
+        add(f"{k}.running_mean", rng.normal(0, 0.1, c))
+        add(f"{k}.running_var", rng.uniform(0.5, 1.5, c))
+
+    def add_conv(k, o, i, kh, kw, bias=False, std=None):
+        std = std if std is not None else (i * kh * kw) ** -0.5
+        add(f"{k}.weight", rng.normal(0, std, (o, i, kh, kw)))
+        if bias:
+            add(f"{k}.bias", rng.normal(0, 0.1, o))
+
+    def add_lin(k, o, i):
+        add(f"{k}.weight", rng.normal(0, i ** -0.5, (o, i)))
+        add(f"{k}.bias", rng.normal(0, 0.02, o))
+
+    def add_ln(k, c):
+        add(f"{k}.weight", 1.0 + rng.normal(0, 0.1, c))
+        add(f"{k}.bias", rng.normal(0, 0.1, c))
+
+    p = "img_backbone"
+    add_conv(f"{p}.conv1", 64, 3, 7, 7)
+    add_bn(f"{p}.bn1", 64)
+    planes, inc = 64, 64
+    for s, nb in enumerate(blocks):
+        for b in range(nb):
+            tp = f"{p}.layer{s + 1}.{b}"
+            add_conv(f"{tp}.conv1", planes, inc if b == 0 else planes * 4,
+                     1, 1)
+            add_bn(f"{tp}.bn1", planes)
+            add_conv(f"{tp}.conv2", planes, planes, 3, 3)
+            if with_dcn[s]:
+                add_conv(f"{tp}.conv2.conv_offset", 27, planes, 3, 3,
+                         bias=True, std=0.5 / (9 * planes) ** 0.5)
+            add_bn(f"{tp}.bn2", planes)
+            add_conv(f"{tp}.conv3", planes * 4, planes, 1, 1)
+            add_bn(f"{tp}.bn3", planes * 4, gain=0.3)
+            if b == 0:
+                add_conv(f"{tp}.downsample.0", planes * 4,
+                         inc if s == 0 else planes * 2, 1, 1)
+                add_bn(f"{tp}.downsample.1", planes * 4)
+        inc = planes * 4
+        planes *= 2
+    for i, c in enumerate((512, 1024, 2048)):
+        add_conv(f"img_neck.lateral_convs.{i}.conv", 256, c, 1, 1,
+                 bias=True)
+    for i in range(4):
+        add_conv(f"img_neck.fpn_convs.{i}.conv", 256, 256, 3, 3, bias=True)
+    h = "pts_bbox_head"
+    add(f"{h}.query_embedding.weight", rng.normal(0, 1, (num_query, 2 * e)))
+    add_lin(f"{h}.transformer.reference_points", 3, e)
+    for layer in range(num_layers):
+        dl = f"{h}.transformer.decoder.layers.{layer}"
+        add(f"{dl}.attentions.0.attn.in_proj_weight",
+            rng.normal(0, e ** -0.5, (3 * e, e)))
+        add(f"{dl}.attentions.0.attn.in_proj_bias", np.zeros(3 * e))
+        add_lin(f"{dl}.attentions.0.attn.out_proj", e, e)
+        add_lin(f"{dl}.attentions.1.attention_weights", 24, e)
+        add_lin(f"{dl}.attentions.1.output_proj", e, e)
+        add_lin(f"{dl}.attentions.1.position_encoder.0", e, 3)
+        add_ln(f"{dl}.attentions.1.position_encoder.1", e)
+        add_lin(f"{dl}.attentions.1.position_encoder.3", e, e)
+        add_ln(f"{dl}.attentions.1.position_encoder.4", e)
+        add_lin(f"{dl}.ffns.0.layers.0.0", 512, e)
+        add_lin(f"{dl}.ffns.0.layers.1", e, 512)
+        for ni in range(3):
+            add_ln(f"{dl}.norms.{ni}", e)
+        cb = f"{h}.cls_branches.{layer}"
+        add_lin(f"{cb}.0", e, e)
+        add_ln(f"{cb}.1", e)
+        add_lin(f"{cb}.3", e, e)
+        add_ln(f"{cb}.4", e)
+        add_lin(f"{cb}.6", 10, e)
+        rb = f"{h}.reg_branches.{layer}"
+        add_lin(f"{rb}.0", e, e)
+        add_lin(f"{rb}.2", e, e)
+        add_lin(f"{rb}.4", 10, e)
+    torch.save({"state_dict": sd, "meta": {"fixture": True}}, path)
+    return len(sd)
+
+
+#: card against CPU for the photometric normalize, on the 0-255 scale
+#: (tests/test_device_normalize.py:93)
+PHOTOMETRIC_TOL = 2e-2
+#: ``cli.test`` against the eval hook, the same checkpoint
+HOOK_TOL = 1e-5
+
+
+class _Tee:
+    """stdout copied into a string as it is printed."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _run_cli(main, argv) -> tuple:
+    """``main(argv)`` with its printed lines captured; (result, text)."""
+    import contextlib
+    import sys
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    return result, tee.text()
+
+
+def _train_records(work_dir: str) -> list:
+    """Every json-log record of ``work_dir``, oldest log first."""
+    recs = []
+    for path in sorted(pathlib.Path(work_dir).glob("*.log.json")):
+        recs += [json.loads(line) for line in path.read_text().splitlines()]
+    return recs
+
+
+def _step_stats(recs: list) -> dict:
+    """Of the train records (one a step): steps, ms a step after the
+    first, loader wait (s), peak memory (GiB), every loss finite."""
+    train = [r for r in recs if r.get("mode") == "train" and "total" in r]
+    later = [r["time"] for r in train[1:]]
+    return {"steps": len(train), "ms_each": [round(1e3 * r["time"], 1)
+                                             for r in train],
+            "wait_ms_each": [round(1e3 * r["data_time"], 1) for r in train],
+            "ms_per_step": 1e3 * sum(later) / max(len(later), 1),
+            "loader_wait_s": sum(r["data_time"] for r in train),
+            "peak_gib": max(r.get("memory", 0) for r in train) / 1024,
+            "finite": all(math.isfinite(v) for r in train
+                          for k, v in r.items()
+                          if k.startswith("loss") or k == "total"),
+            "first_step": train[0]["step"] if train else None}
+
+
+def _probe_routes() -> tuple:
+    """The decode and featurizer routes this host should take: native
+    decode where libjpeg's header compiles (else PIL, if installed, else
+    none), the native featurizer where g++ and make are on the path."""
+    import importlib.util
+    import shutil
+
+    headers = subprocess.run(
+        ["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+        capture_output=True, text=True).returncode == 0 \
+        if shutil.which("g++") else False
+    pil = importlib.util.find_spec("PIL") is not None
+    decode = "native" if headers and pil else ("pil" if pil else None)
+    featurize = ("native" if shutil.which("g++") and shutil.which("make")
+                 else "numpy")
+    return decode, featurize, {"jpeglib.h": headers, "PIL": pil}
+
+
+def _loader_ms(cfg, nusc, dataset) -> dict:
+    """Host ms a sample of the camera loader on the fixture's train
+    samples (one thread, outside the loop, after one untimed sample):
+    decode, radar tokens, the rest of ``prepare_sample``; its wire bytes,
+    uint8 against the float32 wire; and the seconds the first use took to
+    build (or fail to build) the two native libraries."""
+    import numpy as np
+
+    from transcar_tpu_torch import native
+    from transcar_tpu_torch.data import pipeline
+    from transcar_tpu_torch.data.loader import prepare_sample
+    from transcar_tpu_torch.data.radar import load_radar_tokens
+
+    t0 = time.perf_counter()
+    built = {}
+    for name in native.SOURCES:
+        try:
+            native.build(name)
+            built[name] = True
+        except RuntimeError:
+            built[name] = False
+    build_s = time.perf_counter() - t0
+    dec, rad, rest = [], [], []
+    for i in [0] + list(range(len(dataset))):
+        s = dataset.get_sample(i)
+        t0 = time.perf_counter()
+        pipeline.load_multiview_stack_u8(s.img_paths, cfg.data.pad_divisor)
+        t1 = time.perf_counter()
+        tokens = load_radar_tokens(nusc, s.token,
+                                   nsweeps=cfg.data.radar_sweeps,
+                                   num_tokens=cfg.model.head.num_radar_tokens)
+        t2 = time.perf_counter()
+        out = prepare_sample(s, cfg.data, True, np.random.default_rng(i),
+                             lambda token: tokens)
+        t3 = time.perf_counter()
+        dec.append(t1 - t0)
+        rad.append(t2 - t1)
+        rest.append(t3 - t2 - (t1 - t0))
+    dec, rad, rest = dec[1:], rad[1:], rest[1:]           # warm
+    wire = sum(v.nbytes for v in out.values())
+    n = len(dec)
+    return {"decode_ms": 1e3 * sum(dec) / n, "radar_ms": 1e3 * sum(rad) / n,
+            "rest_ms": 1e3 * sum(rest) / n, "wire_u8_mb": wire / 1e6,
+            "wire_f32_mb": (wire + 3 * out["images"].nbytes) / 1e6,
+            "native_build_s": build_s, "native_built": built}
+
+
+def _normalize_check(cfg, dataset, tokens_fn) -> tuple:
+    """One fixture train batch through ``normalize_batch_images`` on the
+    card and on the CPU: (bit-equal without photometric, max |diff| with
+    it on the 0-255 scale)."""
+    import numpy as np
+
+    from transcar_tpu_torch.data.loader import collate, prepare_sample
+    from transcar_tpu_torch.train.step import normalize_batch_images
+
+    batch = collate([prepare_sample(dataset.get_sample(0), cfg.data, True,
+                                    np.random.default_rng(7), tokens_fn)])
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    plain = {k: v for k, v in tensors.items() if not k.startswith("photo")}
+    outs = []
+    for b in (plain, tensors):
+        cpu = normalize_batch_images(b, cfg.data)["images"]
+        gpu = normalize_batch_images({k: v.cuda() for k, v in b.items()},
+                                     cfg.data)["images"].cpu()
+        outs.append((cpu, gpu))
+    (c0, g0), (c1, g1) = outs
+    if torch.equal(c0, c1):       # else the photometric check is idle
+        raise AssertionError("pipeline: no photometric draw in the batch")
+    return torch.equal(c0, g0), (c1 - g1).abs().max().item()
+
+
+def phase_pipeline(smi: str) -> None:
+    """The data pipeline, checkpoints, train loop, eval hook and the
+    train / test CLIs at full width on a nuScenes-layout fixture
+    (:func:`write_fixture`: 4 train and 2 val samples, six 900 × 1600
+    JPEGs, 5 radars × 5 sweeps, LiDAR key frame + 9 sweeps of 300 000
+    points; :func:`write_reference_pth` at full R101 depth)."""
+    import shutil
+    import tempfile
+
+    from transcar_tpu_torch.cli import train as cli_train
+    from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.data import pipeline, radar
+    from transcar_tpu_torch.data.infos import NuScenesInfos
+    from transcar_tpu_torch.data.radar_io import NuScenesTables
+    from transcar_tpu_torch.models.resnet import RESNET_DEPTHS
+
+    t_phase = time.perf_counter()
+    want_decode, want_featurize, probe = _probe_routes()
+    tmp = tempfile.mkdtemp(prefix="transcar_pipeline_")
+    try:
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        tokens = write_fixture(root)
+        ref = os.path.join(tmp, "detr3d_ref.pth")
+        n_ref = write_reference_pth(ref)
+        print(f"pipeline fixture: {len(tokens['train'])} train + "
+              f"{len(tokens['val'])} val samples, 6 x 900x1600 JPEGs, 5 "
+              f"radars x 5 sweeps, LiDAR key frame + 9 sweeps of 300000 "
+              f"points, reference .pth of {n_ref} tensors, in "
+              f"{time.perf_counter() - t0:.1f} s; host probe {probe}: want "
+              f"decode route {want_decode}, featurizer {want_featurize}")
+        data = [f"data.data_root={root}"]
+        camera = want_decode is not None
+        cams = get_preset("transcar_r101", {"data.data_root": root})
+        if camera:
+            train_ds = NuScenesInfos(
+                os.path.join(root, cams.data.ann_train), data_root=root)
+            nusc = NuScenesTables(root, version=cams.data.version)
+            radar_fn = cli_train._try_radar_fn(cams)
+            host = _loader_ms(cams, nusc, train_ds)
+            same, photo_err = _normalize_check(cams, train_ds, radar_fn)
+            print(f"pipeline native libraries {host['native_built']} "
+                  f"(built or refused in {host['native_build_s']:.2f} s); "
+                  f"loader (one thread, warm, host of {smi}): "
+                  f"{host['decode_ms']:.1f} ms decode + "
+                  f"{host['radar_ms']:.1f} ms radar tokens + "
+                  f"{host['rest_ms']:.1f} ms rest a sample; wire "
+                  f"{host['wire_u8_mb']:.2f} MB a sample uint8 against "
+                  f"{host['wire_f32_mb']:.2f} MB float32; normalize on the "
+                  f"card against the CPU: bit-equal without photometric "
+                  f"{same}, photometric max |diff| {photo_err:.3g} (tol "
+                  f"{PHOTOMETRIC_TOL})")
+            if not same or not photo_err <= PHOTOMETRIC_TOL:
+                raise AssertionError("pipeline: normalize_batch_images on "
+                                     "the card disagrees with the CPU")
+            n_dcn = sum(d for d, dcn in zip(RESNET_DEPTHS[101],
+                                           cams.model.backbone.with_dcn)
+                        if dcn)                                       # 26
+            _pipeline_camera_runs(tmp, data, ref, n_dcn, smi)
+            routes = (dict(pipeline.decode_routes),
+                      dict(radar.featurize_routes))
+            print(f"pipeline routes: decode {routes[0]} (last fallback: "
+                  f"{pipeline.last_fallback}), featurizer {routes[1]}")
+            if (set(k for k, v in routes[0].items() if v) != {want_decode}
+                    or set(k for k, v in routes[1].items() if v)
+                    != {want_featurize}):
+                raise AssertionError(f"pipeline: routes {routes}, want "
+                                     f"{want_decode} / {want_featurize}")
+        else:
+            print("pipeline camera runs: not run, this host has neither "
+                  "Pillow nor libjpeg's headers, so no route reads a JPEG")
+        _pipeline_lidar_run(tmp, data, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def _pipeline_counts() -> dict:
+    from transcar_tpu_torch.ops import (pallas_attention, pallas_dcn,
+                                        pallas_msdeform)
+
+    return {"K1": pallas_dcn.launches, "K1 wgmma": pallas_dcn.wgmma_launches,
+            "K3": pallas_dcn.backward_launches,
+            "K2": pallas_attention.launches,
+            "K2 wgmma": pallas_attention.mma_launches,
+            "K7": pallas_msdeform.launches,
+            "K7 group": pallas_msdeform.group_launches,
+            "K8": pallas_msdeform.backward_taps_launches,
+            "K8 group": pallas_msdeform.backward_taps_group_launches,
+            "K9": pallas_msdeform.backward_value_launches,
+            "K9 group": pallas_msdeform.backward_value_group_launches}
+
+
+def _want(name: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    print(f"pipeline {name}: launches {got} (want {want})")
+    if bad:
+        raise AssertionError(f"pipeline {name}: launches (got, want) {bad}")
+
+
+def _pipeline_camera_runs(tmp: str, data: list, ref: str, n_dcn: int,
+                          smi: str) -> None:
+    """Runs 1-4 of the pipeline phase: ``detr3d_r101`` training, the
+    ``transcar_r101`` warm start with its eval hook and trace, its
+    resume, and ``cli.test`` on the hook's checkpoint."""
+    import numpy as np
+
+    from transcar_tpu_torch.cli import test as cli_test
+    from transcar_tpu_torch.cli import train as cli_train
+    from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.models.detector import resolve_remat
+
+    # 1. detr3d_r101: full-backbone steps, photometric on the uint8 wire
+    w1 = os.path.join(tmp, "w_detr3d")
+    _zero_counts()
+    cli_train.main(["detr3d_r101", "--work-dir", w1, "--max-steps", "2",
+                    "--no-validate", "--log-interval", "1",
+                    "--cfg-options", *data])
+    got = _pipeline_counts()
+    st = _step_stats(_train_records(w1))
+    remat = resolve_remat(get_preset("detr3d_r101"))
+    k1 = n_dcn * (2 if remat else 1) * st["steps"]
+    _want("detr3d_r101 train (2 steps)", got,
+          {"K1": k1, "K1 wgmma": k1, "K3": n_dcn * st["steps"], "K2": 0})
+    print(f"pipeline detr3d_r101 train: {st['ms_per_step']:.1f} ms a step "
+          f"after the first (each {st['ms_each']} ms, of it loader wait "
+          f"{st['wait_ms_each']} ms), loader wait {st['loader_wait_s']:.3f} s over "
+          f"{st['steps']} steps, peak {st['peak_gib']:.2f} GiB, losses "
+          f"finite {st['finite']} on {smi}")
+    if not st["finite"] or st["steps"] != 2:
+        raise AssertionError(f"pipeline detr3d_r101: {st}")
+
+    # 2. transcar_r101 from the camera-only reference .pth, eval hook on
+    w2 = os.path.join(tmp, "w_transcar")
+    trace = os.path.join(tmp, "trace")
+    _zero_counts()
+    state, text = _run_cli(cli_train.main, [
+        "transcar_r101", "--work-dir", w2, "--load-from", ref,
+        "--max-steps", "6", "--eval-samples", "2", "--log-interval", "1",
+        "--trace-dir", trace, "--trace-start", "1", "--trace-steps", "2",
+        "--cfg-options", *data])
+    got = _pipeline_counts()
+    recs = _train_records(w2)
+    st = _step_stats(recs)
+    hook = state.last_eval
+    n_eval = len(hook.detections["tokens"])
+    _want(f"transcar_r101 train ({st['steps']} steps) + eval hook "
+          f"({n_eval} samples)", got,
+          {"K1": n_dcn * (st["steps"] + n_eval),
+           "K1 wgmma": n_dcn * (st["steps"] + n_eval), "K3": 0,
+           "K2": 3 * n_eval, "K2 wgmma": 3 * n_eval})
+    merge = [line for line in text.splitlines()
+             if line.startswith("[load_from]")]
+    summary = json.loads(pathlib.Path(trace, "summary.json").read_text())
+    val = [r for r in recs if r.get("mode") == "val"]
+    metrics = {k: v for k, v in val[-1].items()
+               if k in ("mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE",
+                        "mAAE")} if val else {}
+    untraced = [ms for k, ms in enumerate(st["ms_each"])
+                if k not in (0, 1, 2)]         # the first, and the window
+    busy = summary["device_busy_ms_per_iter"]
+    print(f"pipeline transcar_r101 train: load_from {merge}; "
+          f"{st['ms_per_step']:.1f} ms a step after the first (each "
+          f"{st['ms_each']} ms, of it loader wait {st['wait_ms_each']} ms; "
+          f"steps 2-3 traced), loader "
+          f"wait {st['loader_wait_s']:.3f} s over {st['steps']} steps, "
+          f"peak {st['peak_gib']:.2f} GiB, losses finite {st['finite']}; "
+          f"traced window {summary['iterations']} steps: "
+          f"{summary['wall_ms_per_iter']:.1f} ms wall, "
+          f"{busy:.1f} ms device busy a step, idle share "
+          f"{summary['device_idle_share']} of the profiled wall, "
+          f"{1 - busy / (sum(untraced) / max(len(untraced), 1)):.3f} of the "
+          f"untraced steps' mean; val "
+          f"json {os.path.basename(hook.path)} with "
+          f"{sum(len(v) for v in json.load(open(hook.path))['results'].values())} "
+          f"annos, native metrics {metrics} ({val[-1].get('metrics_source') if val else None}) on {smi}")
+    if (not st["finite"] or st["steps"] != 6 or len(merge) != 2
+            or not metrics or not all(math.isfinite(v)
+                                      for v in metrics.values())
+            or (torch.cuda.is_available()
+                and summary["device_idle_share"] is None)):
+        raise AssertionError(f"pipeline transcar_r101: {st}, merge {merge}"
+                             f", metrics {metrics}, trace {summary}")
+
+    # 3. resume the same work dir to step 7
+    _zero_counts()
+    cli_train.main(["transcar_r101", "--work-dir", w2, "--resume-from", w2,
+                    "--max-steps", "7", "--no-validate", "--log-interval",
+                    "1", "--cfg-options", *data])
+    resumed = _step_stats(_train_records(w2)[len(recs):])
+    ckpts = sorted(int(p.name) for p in
+                   pathlib.Path(w2, "checkpoints").iterdir())
+    print(f"pipeline resume: first step {resumed['first_step']} of "
+          f"{resumed['steps']}, losses finite {resumed['finite']}; "
+          f"checkpoints {ckpts} (keeps at most 5)")
+    if (resumed["first_step"] != 7 or resumed["steps"] != 1
+            or ckpts != [4, 6, 7] or not resumed["finite"]):
+        raise AssertionError(f"pipeline resume: {resumed}, ckpts {ckpts}")
+
+    # 4. cli.test on the checkpoint the hook evaluated: the hook's rows
+    _zero_counts()
+    res = cli_test.main(["transcar_r101", os.path.join(w2, "checkpoints",
+                                                        "6"),
+                         "--out", os.path.join(tmp, "test.json"),
+                         "--cfg-options", *data])
+    got = _pipeline_counts()
+    n = len(res.detections["tokens"])
+    _want(f"transcar_r101 cli.test ({n} samples)", got,
+          {"K1": n_dcn * n, "K1 wgmma": n_dcn * n, "K3": 0, "K2": 3 * n,
+           "K2 wgmma": 3 * n})
+    a, b = res.detections, hook.detections
+    box_err = float(np.abs(a["boxes"] - b["boxes"]).max())
+    same_labels = bool((a["labels"] == b["labels"]).all())
+    print(f"pipeline cli.test = eval hook (checkpoint 6): boxes max |diff| "
+          f"{box_err:.3g} (tol {HOOK_TOL}), labels equal {same_labels}, "
+          f"tokens {list(a['tokens'])}")
+    if (list(a["tokens"]) != list(b["tokens"]) or not box_err <= HOOK_TOL
+            or not same_labels):
+        raise AssertionError("pipeline: cli.test disagrees with the hook")
+
+
+def _pipeline_lidar_run(tmp: str, data: list, smi: str) -> None:
+    """Run 5 of the pipeline phase: ``objdgcnn_pillar`` through the point
+    loader, two steps and the eval hook on one sample."""
+    from transcar_tpu_torch.cli import train as cli_train
+
+    w5 = os.path.join(tmp, "w_pillar")
+    _zero_counts()
+    state = cli_train.main(["objdgcnn_pillar", "--work-dir", w5,
+                            "--max-steps", "2", "--eval-samples", "1",
+                            "--log-interval", "1", "--cfg-options", *data])
+    got = _pipeline_counts()
+    st = _step_stats(_train_records(w5))
+    n_eval = len(state.last_eval.detections["tokens"])
+    k = 8 * st["steps"]
+    _want(f"objdgcnn_pillar train ({st['steps']} steps) + eval hook "
+          f"({n_eval} sample)", got,
+          {"K7": k + 8 * n_eval, "K7 group": k + 8 * n_eval, "K8": k,
+           "K8 group": k, "K9": k, "K9 group": k, "K1": 0, "K2": 0})
+    print(f"pipeline objdgcnn_pillar train: {st['ms_per_step']:.1f} ms a "
+          f"step after the first (each {st['ms_each']} ms, of it loader "
+          f"wait {st['wait_ms_each']} ms), loader wait "
+          f"{st['loader_wait_s']:.3f} s "
+          f"over {st['steps']} steps, peak {st['peak_gib']:.2f} GiB, "
+          f"losses finite {st['finite']} on {smi}")
+    if not st["finite"] or st["steps"] != 2 or n_eval != 1:
+        raise AssertionError(f"pipeline objdgcnn_pillar: {st}")
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -3023,6 +3733,7 @@ def main(argv=None) -> None:
     phase_lidar_train(smi, "objdgcnn_voxel")
     phase_lidar_train_check("objdgcnn_voxel")
     phase_sync()
+    phase_pipeline(smi)
     for name in ("msdeform_backward_taps", "msdeform_backward_value"):
         launches[name] = train_launches[name]
     kernels = []

@@ -337,15 +337,77 @@ def _jax_package_uses(path):
     return bad
 
 
+def _jax_package_text_uses(path):
+    """Code lines (comments stripped: a comment may cite the TPU kernel a
+    source replaces) of a C++ / CUDA source, header or Makefile that
+    reach the JAX package by path or module (``transcar_tpu/``,
+    ``transcar_tpu.``), jax or the JAX driver entry."""
+    import re
+
+    pattern = re.compile(r"transcar_tpu[/.]|\bjax\b|jaxlib|__graft_entry__")
+    comment = "#" if os.path.basename(path) == "Makefile" else "//"
+    found = []
+    for n, line in enumerate(open(path).read().splitlines(), 1):
+        code = line.split(comment)[0]
+        if comment == "//" and code.lstrip().startswith("*"):
+            continue                                 # a /* ... */ block
+        if pattern.search(code):
+            found.append((n, line.strip()))
+    return found
+
+
 def test_port_sources_never_reach_the_jax_package():
     import glob
 
-    files = sorted(glob.glob(os.path.join(REPO, "transcar_tpu_torch", "**",
-                                          "*.py"), recursive=True))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    def port(pattern):
+        return sorted(glob.glob(os.path.join(REPO, "transcar_tpu_torch",
+                                             "**", pattern), recursive=True))
+
+    files = port("*.py") + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
     found = {os.path.relpath(f, REPO): _jax_package_uses(f) for f in files}
     assert not any(found.values()), {k: v for k, v in found.items() if v}
+    native = [f for f in port("*.cpp") + port("*.cu") + port("*.h")
+              + port("*.cuh") + port("Makefile")
+              if os.sep + "build" + os.sep not in f]
+    names = {os.path.basename(f) for f in native}
+    assert {"jpeg_decode.cpp", "lapjv.cpp", "radar_featurize.cpp",
+            "Makefile", "dcn_forward.cu", "hopper_tile.cuh"} <= names
+    found = {os.path.relpath(f, REPO): _jax_package_text_uses(f)
+             for f in native}
+    assert not any(found.values()), {k: v for k, v in found.items() if v}
+
+
+def test_jax_package_text_use_detector(tmp_path):
+    src = tmp_path / "probe.cpp"
+    src.write_text("// Same math as transcar_tpu/data/radar.py\n"
+                   "#include \"../../transcar_tpu/native/x.h\"\n"
+                   "#include \"transcar_tpu_torch/native/y.h\"  // ok\n")
+    assert [n for n, _ in _jax_package_text_uses(str(src))] == [2]
+    make = tmp_path / "Makefile"
+    make.write_text("# builds like transcar_tpu/native/Makefile\n"
+                    "SRC = ../../transcar_tpu/native/lapjv.cpp\n")
+    assert [n for n, _ in _jax_package_text_uses(str(make))] == [2]
+
+
+def test_port_native_build_writes_nothing_beside_its_sources():
+    """The port's C++ helpers build into ``transcar_tpu_torch/build/native/``
+    under a name keyed by their sources; nothing lands in
+    ``transcar_tpu_torch/native/``."""
+    from transcar_tpu_torch import native
+
+    def listing():
+        return sorted(p for p in os.listdir(native.SRC_DIR)
+                      if p != "__pycache__")
+
+    before = listing()
+    for name in native.SOURCES:
+        so = native.build(name)
+        assert so == native.library_path(name) and so.exists()
+        assert so.parent == native.BUILD_DIR
+    assert listing() == before == ["Makefile", "__init__.py",
+                                   "jpeg_decode.cpp", "lapjv.cpp",
+                                   "radar_featurize.cpp"]
 
 
 def test_jax_package_use_detector(tmp_path):

@@ -451,6 +451,12 @@ def _parse_literal(text: str):
         return text
 
 
+def config_to_dict(cfg) -> Dict[str, Any]:
+    """Serializable manifest for dump-on-run reproducibility (the reference
+    dumps its config into work_dir, tools/train.py:165)."""
+    return dataclasses.asdict(cfg)
+
+
 def parse_overrides(pairs):
     """``["a.b=v", ...]`` → ``{"a.b": "v"}`` (``transcar_tpu/cli/train.py``);
     :func:`get_preset` parses each value against its field's type."""

@@ -1,9 +1,41 @@
-"""Lidar → image projection (``transcar_tpu/core/geometry.py``)."""
+"""Camera geometry (``transcar_tpu/core/geometry.py``): the host-side
+lidar2img assembly of the dataset reader and the lidar → image projection
+of the decoder."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from transcar_tpu_torch.core.device import const
+
+
+def build_lidar2img(sensor2lidar_rot: np.ndarray,
+                    sensor2lidar_trans: np.ndarray,
+                    cam_intrinsic: np.ndarray) -> np.ndarray:
+    """Assemble per-camera 4×4 lidar2img matrices (host-side, numpy).
+
+    Mirrors nuscenes_dataset.py:46-62: ``lidar2cam_rt`` built from the
+    inverse of sensor2lidar, then ``viewpad @ lidar2cam_rt.T``.
+
+    Args:
+      sensor2lidar_rot: [num_cams, 3, 3]
+      sensor2lidar_trans: [num_cams, 3]
+      cam_intrinsic: [num_cams, 3, 3]
+    Returns:
+      [num_cams, 4, 4] float64 lidar2img.
+    """
+    num_cams = sensor2lidar_rot.shape[0]
+    out = np.zeros((num_cams, 4, 4), dtype=np.float64)
+    for i in range(num_cams):
+        lidar2cam_r = np.linalg.inv(sensor2lidar_rot[i])
+        lidar2cam_t = sensor2lidar_trans[i] @ lidar2cam_r.T
+        lidar2cam_rt = np.eye(4)
+        lidar2cam_rt[:3, :3] = lidar2cam_r.T
+        lidar2cam_rt[3, :3] = -lidar2cam_t
+        viewpad = np.eye(4)
+        viewpad[:3, :3] = cam_intrinsic[i]
+        out[i] = viewpad @ lidar2cam_rt.T
+    return out
 
 
 def project_points_to_cams(points_m: torch.Tensor, lidar2img: torch.Tensor,
