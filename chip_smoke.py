@@ -8,8 +8,9 @@ Run from the repository root with no arguments::
 example ``git archive <commit> transcar_tpu_torch/csrc`` unpacked under
 the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K2,
 K4, K5, K6, K7, K8 and K9 in turns with these (parent, kernel, kernel,
-parent) in phases 3, 4, 5, 8, 13 and 15; the summary line then carries
-each one's ``parent_ms``.  ``--variants k1|k2|k5|k6|k7|k8|k9|all`` runs
+parent) in phases 3, 4, 5, 8, 13 and 15, and its int8 conv, if it has
+one, in phase 22; the summary line then carries each one's
+``parent_ms``.  ``--variants k1|k2|k5|k6|k7|k8|k9|all`` runs
 none of the phases: it builds each knock-out variant of the K1 / K2 / K5
 / K6 / K7 / K8 / K9 kernels in ``VARIANTS`` (a copy of their sources
 under ``transcar_tpu_torch/build/variants/`` with its patches) and prints
@@ -148,15 +149,35 @@ non-zero):
      checkpoint (equal to the hook's rows), and ``objdgcnn_pillar`` (2
      steps and the hook on one sample); launches per run against the
      wants, finite losses, ms a step, the loader wait, peak memory and the
-     traced window's device idle share.
+     traced window's device idle share; then test-time augmentation,
+     ``cli.test --aug-test`` on the hook's checkpoint: ``identity`` alone
+     equal to the plain ``cli.test`` bit for bit, (identity, flip) with
+     52 K1 + 3 K2 a sample and finite metrics, and the same with
+     ``quantize=int8`` (156 int8 convs a sample);
+ 21. int8 serving: ``transcar_r101`` and ``transcar_vovnet_trainval`` bs1
+     at full width with ``model.backbone.quantize=int8`` through
+     ``cli.benchmark``: 78 int8 convs + 26 K1 + 3 K2, and 83 int8 convs +
+     16 K4 + 3 K2 a request (:data:`INT8_SLICES`), finite outputs and
+     decode, ms a request and peak memory beside the bf16 path, each FPN
+     level's cosine and relative error against the bf16 path, and no host
+     sync in a warm int8 request;
+ 22. the int8 conv kernel and its quantize pass (``csrc/int8_conv.cu``, no
+     TPU counterpart: the JAX package runs this conv in XLA) against their
+     plain versions, bit for bit, at every distinct conv shape phase 21
+     ran, timed per shape and per request beside the bound,
+     ``torch._int_mm`` over an im2col of the same codes and cuDNN's bf16
+     convolution of the same shape.
 
 The line before the last is the kernel summary as JSON; the last line is
-``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA the
+``{"ok": true, "device": {...}}``; it lists the int8 conv and quantize
+kernels after K1-K9, with ``"replaces": null`` and a note.  There is no
+CPU path: without CUDA the
 script raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import os
@@ -184,7 +205,8 @@ DCN_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 MODEL_OFFSET_PX = 2.0
 # Published dense peaks of one H100 SXM at 700 W (FLOP/s) and its memory
 # rate (bytes/s), for the bound of each kernel's work
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 TF32_FLOPS = 495e12     # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 ATTN_TOL = 2e-4          # as tests/test_pallas_attention.py
@@ -1425,14 +1447,15 @@ def _sync_check_armed() -> None:
                          "flag a pageable host-to-device copy")
 
 
-def warm_request_syncs(preset: str, encoder_only: bool = False) -> list:
+def warm_request_syncs(preset: str, encoder_only: bool = False,
+                       cfg_options=()) -> list:
     """One warm batch-1 serving request of ``preset`` at full width (or,
     with ``encoder_only``, its middle encoder alone on the request's
     voxelized inputs) under ``torch.cuda.set_sync_debug_mode("error")``;
     the host synchronization it made, if any."""
     from transcar_tpu_torch.cli import benchmark
 
-    args = benchmark.parse_args([preset])
+    args = benchmark.parse_args([preset, "--cfg-options", *cfg_options])
     _, model, batch, _ = benchmark._setup(args, training=False)
     inputs = ([batch["points"], batch["num_points"]] if "points" in batch
               else [batch["images"], batch["lidar2img"],
@@ -2117,9 +2140,9 @@ def phase_k6(parent=None) -> dict:
 
 
 def _zero_counts() -> None:
-    from transcar_tpu_torch.ops import (pallas_attention, pallas_bottleneck,
-                                        pallas_dcn, pallas_osa,
-                                        pallas_osa_block)
+    from transcar_tpu_torch.ops import (int8, pallas_attention,
+                                        pallas_bottleneck, pallas_dcn,
+                                        pallas_osa, pallas_osa_block)
 
     from transcar_tpu_torch.ops import pallas_msdeform
 
@@ -2135,6 +2158,7 @@ def _zero_counts() -> None:
     pallas_msdeform.backward_taps_group_launches = 0
     pallas_msdeform.backward_value_launches = 0
     pallas_msdeform.backward_value_group_launches = 0
+    int8.launches = int8.quantize_launches = 0
 
 
 def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
@@ -3659,6 +3683,70 @@ def _pipeline_camera_runs(tmp: str, data: list, ref: str, n_dcn: int,
     if (list(a["tokens"]) != list(b["tokens"]) or not box_err <= HOOK_TOL
             or not same_labels):
         raise AssertionError("pipeline: cli.test disagrees with the hook")
+    _pipeline_tta_runs(tmp, data, os.path.join(w2, "checkpoints", "6"), res,
+                       n_dcn, smi)
+
+
+def _pipeline_tta_runs(tmp: str, data: list, ckpt: str, plain, n_dcn: int,
+                       smi: str) -> None:
+    """Runs 5-7 of the pipeline phase: ``cli.test --aug-test`` on the
+    checkpoint the hook evaluated.  ``--aug-test identity`` equals the
+    plain ``cli.test`` rows (``plain``) bit for bit (a mean over one
+    view); ``--aug-test`` (identity, flip) runs the camera forward twice a
+    sample (52 K1) and the head once (3 K2), with finite native metrics;
+    the same with ``quantize=int8`` runs 156 int8 convs a sample."""
+    import numpy as np
+
+    from transcar_tpu_torch.cli import test as cli_test
+    from transcar_tpu_torch.core.config import get_preset, parse_overrides
+    from transcar_tpu_torch.eval.metrics import evaluate_native
+    from transcar_tpu_torch.ops import int8
+
+    cfg = get_preset("transcar_r101", parse_overrides(data))
+    per_view = INT8_SLICES["transcar_r101"]["int8_conv"]             # 78
+
+    def run(name, extra, options=()):
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = cli_test.main(["transcar_r101", ckpt, "--out",
+                             os.path.join(tmp, f"{name}.json"), *extra,
+                             "--cfg-options", *data, *options])
+        return (res, {**_pipeline_counts(), "int8": int8.launches},
+                time.perf_counter() - t0)
+
+    ident, got, dt = run("tta_identity", ["--aug-test", "identity"])
+    n = len(ident.detections["tokens"])
+    _want(f"transcar_r101 cli.test --aug-test identity ({n} samples)", got,
+          {"K1": n_dcn * n, "K1 wgmma": n_dcn * n, "K2": 3 * n,
+           "K2 wgmma": 3 * n, "int8": 0})
+    same = all(np.array_equal(ident.detections[k], plain.detections[k])
+               for k in ("boxes", "scores", "labels", "valid"))
+    print(f"pipeline cli.test --aug-test identity = plain cli.test bit for "
+          f"bit: {same} ({dt:.1f} s)")
+    if not same:
+        raise AssertionError("pipeline: --aug-test identity differs from "
+                             "the plain cli.test")
+    for name, options, int8_per_view in (("tta", (), 0),
+                                         ("tta_int8", INT8_OPTS, per_view)):
+        res, got, dt = run(name, ["--aug-test"], options)
+        _want(f"transcar_r101 cli.test --aug-test {list(options)} ({n} "
+              f"samples)", got,
+              {"K1": 2 * n_dcn * n, "K1 wgmma": 2 * n_dcn * n,
+               "K2": 3 * n, "K2 wgmma": 3 * n,
+               "int8": 2 * int8_per_view * n})
+        metrics = evaluate_native(res.path, ann_file=os.path.join(
+            cfg.data.data_root, cfg.data.ann_val))
+        finite = (np.isfinite(res.detections["boxes"]).all()
+                  and all(math.isfinite(v) for v in metrics.values()))
+        moved = not np.array_equal(res.detections["scores"],
+                                   plain.detections["scores"])
+        print(f"pipeline cli.test --aug-test (identity, flip) "
+              f"{list(options)}: {dt:.1f} s for {n} samples, boxes and "
+              f"native metrics finite {finite} ({metrics}), scores differ "
+              f"from the plain run {moved} on {smi}")
+        if not finite or not moved:
+            raise AssertionError(f"pipeline --aug-test {list(options)}: "
+                                 f"finite {finite}, moved {moved}")
 
 
 def _pipeline_lidar_run(tmp: str, data: list, smi: str) -> None:
@@ -3687,6 +3775,330 @@ def _pipeline_lidar_run(tmp: str, data: list, smi: str) -> None:
           f"losses finite {st['finite']} on {smi}")
     if not st["finite"] or st["steps"] != 2 or n_eval != 1:
         raise AssertionError(f"pipeline objdgcnn_pillar: {st}")
+
+
+# --- int8 serving (phases 21 and 22) -----------------------------------------
+
+#: int8 convolutions, and the kernels beside them, a bs1 request of each
+#: int8 serving slice.  R101 (DCN in stages 3-4, 3/4/23/3 blocks): the stem
+#: + 33 conv1 + 33 conv3 + 7 non-DCN conv2 + 4 downsample = 78, beside 26
+#: K1 and 3 K2.  VoVNet-99 with the K4 tail (osa_reduce_impl "auto" at
+#: inference): 3 stem convs + 16 blocks x 5 chain convs = 83, beside 16 K4
+#: and 3 K2; the concat reduce stays bf16 on K4, as on the TPU.  Each int8
+#: conv runs one quantize pass of its input.
+INT8_SLICES = {
+    "transcar_r101": {"int8_conv": 78, "int8_quantize": 78,
+                      "dcn_forward": 26, "masked_attention": 3},
+    "transcar_vovnet_trainval": {"int8_conv": 83, "int8_quantize": 83,
+                                 "osa_reduce": 16, "masked_attention": 3},
+}
+INT8_OPTS = ("model.backbone.quantize=int8",)
+
+
+def _record_int8_shapes() -> tuple:
+    """Wrap the int8 conv wrapper's kernel entry so each call records its
+    shape (N, Cin, H, W, Cout, k, stride, padding); returns the list and
+    a function that unwraps it."""
+    from transcar_tpu_torch.ops import int8
+
+    calls, kernel = [], int8.conv_kernel
+
+    def recording(xq, s_x, weight_q, stride=1, padding=0, dilation=1,
+                  out_dtype=torch.bfloat16):
+        n, cin, h, w = xq.shape
+        cout, _, k, _ = weight_q.q.shape
+        calls.append((n, cin, h, w, cout, k, stride, padding))
+        return kernel(xq, s_x, weight_q, stride, padding, dilation,
+                      out_dtype)
+
+    int8.conv_kernel = recording
+    return calls, lambda: setattr(int8, "conv_kernel", kernel)
+
+
+def _fpn_levels(preset: str, options) -> list:
+    """The FPN levels ([B, N, h, w, C] float32) of ``benchmark``'s seeded
+    model and synthetic batch for ``preset``."""
+    from transcar_tpu_torch.cli import benchmark
+
+    args = benchmark.parse_args([preset, "--cfg-options", *options])
+    _, model, batch, _ = benchmark._setup(args, training=False)
+    b, n, h, w, _ = batch["images"].shape
+    with torch.inference_mode():
+        feats = model._features(batch["images"].reshape(b * n, h, w, 3), b,
+                                n)
+    del model, batch
+    return feats
+
+
+def phase_int8_slices(smi: str) -> tuple:
+    """``transcar_r101`` and ``transcar_vovnet_trainval`` bs1 serving at
+    full width with ``model.backbone.quantize=int8`` through
+    ``cli.benchmark``: launches per request against :data:`INT8_SLICES`,
+    finite outputs and decode, ms a request and peak memory beside the
+    bf16 path in this call, each FPN level's cosine and relative error
+    against the bf16 path at the same seeded weights, and no host sync in
+    a warm int8 request.  Returns (launches of the runs by kernel, summed
+    over both presets; {preset: {conv shape: calls a request}})."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.core.config import get_preset
+
+    launches, shapes = {}, {}
+    for preset, per_req in INT8_SLICES.items():
+        cfg = get_preset(preset)
+        _zero_counts()
+        calls, unwrap = _record_int8_shapes()
+        try:
+            rec, out = benchmark.run([preset, "--samples", "5", "--warmup",
+                                      "2", "--cfg-options", *INT8_OPTS])
+        finally:
+            unwrap()
+        n_req = rec["requests"]
+        got = rec["kernel_launches"]
+        want = {k: per_req.get(k, 0) * n_req for k in got}
+        valid = _check_outputs(f"int8 {preset}", out, cfg)
+        counts = {}
+        for c in calls:
+            counts[c] = counts.get(c, 0) + 1
+        shapes[preset] = {c: k // n_req for c, k in counts.items()}
+        print(f"int8 slice {preset} 6x928x1600 bs1: {n_req} requests, "
+              f"launches {got} (want {per_req} a request, no other kernel), "
+              f"{len(shapes[preset])} distinct int8 conv shapes; outputs "
+              f"finite; decode {valid}/300 valid boxes")
+        if got != want or any(k % n_req for k in counts.values()):
+            raise AssertionError(f"int8 slice {preset}: launches {got} != "
+                                 f"{want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        base, _ = benchmark.run([preset, "--samples", "5", "--warmup", "2"])
+        for name, r in (("int8", rec), ("bf16", base)):
+            print(f"int8 slice {preset} {name} path: "
+                  f"{r['ms_per_sample']:.2f} ms a request "
+                  f"({r['samples_per_sec']:.3f} samples/s), peak memory "
+                  f"{r['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
+        q = _fpn_levels(preset, INT8_OPTS)
+        f = _fpn_levels(preset, ())
+        parts = []
+        for i, (a, b) in enumerate(zip(q, f)):
+            a, b = a.double().flatten(), b.double().flatten()
+            cos = (a @ b / (a.norm() * b.norm())).item()
+            rel = ((a - b).norm() / b.norm()).item()
+            parts.append(f"P{i}: cos {cos:.6f}, rel {rel:.4f}")
+            if not (math.isfinite(cos) and cos > 0.9):
+                raise AssertionError(f"int8 slice {preset} FPN level {i}: "
+                                     f"cosine {cos} against bf16")
+        print(f"int8 slice {preset} FPN levels against the bf16 path (same "
+              f"seeded weights and batch): " + "; ".join(parts))
+        del q, f
+        found = warm_request_syncs(preset, cfg_options=INT8_OPTS)
+        print(f"int8 slice {preset} sync check (set_sync_debug_mode, armed) "
+              f"warm bs1 request: "
+              + ("no host sync ok" if not found else f"host syncs {found}"))
+        if found:
+            raise AssertionError(f"int8 {preset}: a serving request "
+                                 f"synchronized with the host: {found}")
+        torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def _im2col(xq, k: int, stride: int, padding: int, kp: int):
+    """The int8 codes [N, Cin, H, W] (channels-last) as the [M, Kp] matrix
+    of the implicit GEMM (k = (ky·k + kx)·Cin + ci, zero past K)."""
+    xh = xq.permute(0, 2, 3, 1)
+    if padding:
+        xh = torch.nn.functional.pad(xh, (0, 0, padding, padding, padding,
+                                          padding))
+    n, hp, wp, c = xh.shape
+    ho, wo = (hp - k) // stride + 1, (wp - k) // stride + 1
+    cols = [xh[:, ky:ky + stride * (ho - 1) + 1:stride,
+               kx:kx + stride * (wo - 1) + 1:stride] for ky in range(k)
+            for kx in range(k)]
+    a = torch.stack(cols, 3).reshape(n * ho * wo, k * k * c)
+    return torch.nn.functional.pad(a, (0, kp - k * k * c)).contiguous()
+
+
+def parent_int8_conv(lib, xq, s_x, wq, stride: int, pad: int):
+    """An earlier commit's int8 conv kernel (``lib.int8_conv``) on the same
+    codes, scales and K-major weight codes, bfloat16 out."""
+    n, cin, h, w = xq.shape
+    cout, _, k, _ = wq.q.shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16, device="cuda")
+    rc = lib.int8_conv(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (xq, wq.kmajor, s_x,
+                                                   wq.scale, out)),
+        1, n, h, w, cin, cout, k, k, stride, pad, ho, wo,
+        wq.kmajor.shape[1],
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"parent int8 conv: CUDA error {rc}")
+    return out.permute(0, 3, 1, 2)
+
+
+def parent_int8_quantize(lib, x):
+    """An earlier commit's quantize pass (``lib.int8_quantize``) on ``x``:
+    (codes, scale)."""
+    q = torch.empty_like(x, dtype=torch.int8)
+    buf = torch.empty(2, dtype=torch.float32, device="cuda")
+    rc = lib.int8_quantize(
+        ctypes.c_void_p(x.data_ptr()), int(x.dtype == torch.bfloat16),
+        ctypes.c_longlong(x.numel()), ctypes.c_void_p(buf[1].data_ptr()),
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(buf.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"parent int8 quantize: CUDA error {rc}")
+    return q, buf[0]
+
+
+def phase_int8(shapes: dict, smi: str, parent=None) -> dict:
+    """The int8 conv kernel and the quantize pass against their plain
+    versions on the card at every distinct conv shape of the two int8
+    slices (``shapes`` from :func:`phase_int8_slices`), bfloat16
+    activations: the codes and scale, and the dequantized output, bit for
+    bit.  Per shape and per request of each slice (calls a request as
+    weights): the kernel's ms, the plain version's, the bound
+    max(2·M·Cout·K / 1,979 TOPS, bytes / 3.35 TB/s), and two yardsticks
+    the port never calls: ``torch._int_mm`` of an im2col of the same codes
+    (the same int32 product; the im2col built outside the timing) and
+    cuDNN's bfloat16 ``F.conv2d`` of the same shape (the path int8
+    replaces).  With a ``parent`` library that has an int8 conv, its conv
+    and quantize kernels are held to these bit for bit and timed in turns
+    with them.
+    Returns the kernels-line entries of ``int8_conv`` and
+    ``int8_quantize`` (per ``transcar_r101`` request)."""
+    import torch.nn.functional as F
+
+    from transcar_tpu_torch.ops import int8
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    keys = ("ms", "plain_ms", "bound_ms", "int_mm_ms", "cudnn_ms", "q_ms",
+            "q_plain_ms", "q_bound_ms", "parent_ms", "q_parent_ms")
+    parent = parent if parent is not None and hasattr(parent, "int8_conv") \
+        else None
+    totals = {p: dict.fromkeys(keys, 0.0) for p in shapes}
+    worst = {"conv": 0.0, "quantize": 0.0}
+    kinds = set()
+    t0 = time.perf_counter()
+    for shape in sorted({s for per in shapes.values() for s in per}):
+        n, cin, h, w, cout, k, stride, pad = shape
+        x = torch.randn(n, cin, h, w, device="cuda", generator=g).to(
+            bf16).contiguous(memory_format=torch.channels_last)
+        wt = torch.randn(cout, cin, k, k, device="cuda",
+                         generator=g) / math.sqrt(k * k * cin)
+        wq = int8.prepare_weight(wt)
+        xq, s_x = int8.quantize_kernel(x)
+        xq_ref, s_ref = int8.plain_quantize_per_tensor(x)
+        q_err = (xq.int() - xq_ref.int()).abs().max().item()
+        q_same = q_err == 0 and s_x.item() == s_ref.item()
+        got = int8.conv_kernel(xq, s_x, wq, stride, pad)
+        ref = int8.plain_int8_conv(xq_ref, s_ref, wq.q, wq.scale, stride,
+                                   pad, 1, bf16)
+        err = (got.float() - ref.float()).abs().max().item()
+        same = torch.equal(got, ref)
+        worst["conv"] = max(worst["conv"], err)
+        worst["quantize"] = max(worst["quantize"], float(q_err))
+        kern = functools.partial(int8.conv_kernel, xq, s_x, wq, stride, pad)
+        parent_ms, turns = float("nan"), ""
+        if parent is not None:
+            old = functools.partial(parent_int8_conv, parent, xq, s_x, wq,
+                                    stride, pad)
+            same = same and torch.equal(old(), got)
+            ms, parent_ms, turns = in_turns(kern, old, lambda f: cuda_ms(
+                f, iters=10, warmup=2))
+            turns = f"; in turns {turns}"
+        else:
+            ms = cuda_ms(kern, iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: int8.plain_int8_conv(
+            xq, s_x, wq.q, wq.scale, stride, pad, 1, bf16), iters=2,
+            warmup=1)
+        a = _im2col(xq, k, stride, pad, wq.kmajor.shape[1])
+        bt = wq.kmajor.t()
+        acc = torch._int_mm(a, bt)
+        mm_same = torch.equal(
+            (acc.float() * (s_x * wq.scale)).to(bf16),
+            got.permute(0, 2, 3, 1).reshape(acc.shape))
+        mm_ms = cuda_ms(lambda: torch._int_mm(a, bt), iters=10, warmup=2)
+        del a, acc
+        wb = wt.to(bf16).contiguous(memory_format=torch.channels_last)
+        dnn_ms = cuda_ms(lambda: F.conv2d(x, wb, stride=stride, padding=pad),
+                         iters=10, warmup=2)
+        q_kern = functools.partial(int8.quantize_kernel, x)
+        q_parent_ms = float("nan")
+        if parent is not None:
+            q_old = functools.partial(parent_int8_quantize, parent, x)
+            pq, ps = q_old()
+            q_same = q_same and torch.equal(pq, xq) and ps.item() == s_x.item()
+            q_ms, q_parent_ms, q_turns = in_turns(q_kern, q_old, lambda f:
+                                                  cuda_ms(f, iters=10,
+                                                          warmup=2))
+            turns += f"; quantize in turns {q_turns}"
+        else:
+            q_ms = cuda_ms(q_kern, iters=10, warmup=2)
+        q_plain = cuda_ms(lambda: int8.plain_quantize_per_tensor(x),
+                          iters=3, warmup=1)
+        kk = k * k * cin
+        m = got.numel() // cout
+        bound, kind = bound_ms(2.0 * m * cout * kk, torch.int8,
+                               xq.numel() + cout * kk + 4 * cout + 4
+                               + 2 * got.numel())
+        kinds.add(kind)
+        q_bound = 1e3 * (3 * x.numel() + 4) / HBM_BYTES_PER_S
+        vals = dict(zip(keys, (ms, plain_ms, bound, mm_ms, dnn_ms, q_ms,
+                               q_plain, q_bound, parent_ms, q_parent_ms)))
+        for p, per in shapes.items():
+            for key in keys:
+                totals[p][key] += per.get(shape, 0) * vals[key]
+        calls = {p: per.get(shape, 0) for p, per in shapes.items()}
+        print(f"int8 {n}x{cin}x{h}x{w} -> {cout}, {k}x{k} s{stride} p{pad} "
+              f"(calls a request {calls}): codes = plain {q_same}, out = "
+              f"plain {same} (max |diff| {err:.3g}), _int_mm dequantized = "
+              f"kernel {mm_same}; kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+              f"ms, _int_mm {mm_ms:.4f} ms, cuDNN bf16 conv {dnn_ms:.4f} ms,"
+              f" bound {bound:.4f} ms by {kind} (kernel at "
+              f"{bound / ms:.0%} of it); quantize {q_ms:.4f} ms, plain "
+              f"{q_plain:.3f} ms, bound {q_bound:.4f} ms by bytes{turns}"
+              + (" ok" if same and q_same and mm_same else " FAIL"))
+        if not (same and q_same and mm_same):
+            raise AssertionError(f"int8 {shape}: the kernels disagree with "
+                                 f"their plain versions")
+        del x, wt, wq, xq, xq_ref, got, ref, wb
+        torch.cuda.empty_cache()
+    for p, tot in totals.items():
+        print(f"int8 per {p} request ({sum(shapes[p].values())} convs): "
+              f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+              f"_int_mm {tot['int_mm_ms']:.3f} ms, cuDNN bf16 conv "
+              f"{tot['cudnn_ms']:.3f} ms (kernel / cuDNN "
+              f"{tot['ms'] / tot['cudnn_ms']:.3f}), bound "
+              f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.0%} "
+              f"of the kernel); quantize {tot['q_ms']:.3f} ms, plain "
+              f"{tot['q_plain_ms']:.3f} ms, bound {tot['q_bound_ms']:.3f} ms"
+              + (f"; parent kernel {tot['parent_ms']:.3f} ms (kernel / "
+                 f"parent {tot['ms'] / tot['parent_ms']:.3f}), parent "
+                 f"quantize {tot['q_parent_ms']:.3f} ms (quantize / parent "
+                 f"{tot['q_ms'] / tot['q_parent_ms']:.3f})"
+                 if parent is not None else "") + f" on {smi}")
+    print(f"int8 phase: {time.perf_counter() - t0:.1f} s")
+    r101 = totals["transcar_r101"]
+    note = ("no TPU kernel: the JAX package runs this in XLA, "
+            "transcar_tpu/ops/int8.py:48")
+    return {
+        "int8_conv": {"max_abs_err": worst["conv"], "ms": r101["ms"],
+                      "plain_ms": r101["plain_ms"],
+                      "bound_ms": r101["bound_ms"],
+                      "bound_by": ("operations" if "operations" in kinds
+                                   else "bytes"),
+                      "library_ms": r101["int_mm_ms"],
+                      "cudnn_bf16_ms": r101["cudnn_ms"],
+                      "parent_ms": (r101["parent_ms"] if parent is not None
+                                    else None), "note": note},
+        "int8_quantize": {"max_abs_err": worst["quantize"],
+                          "ms": r101["q_ms"],
+                          "plain_ms": r101["q_plain_ms"],
+                          "bound_ms": r101["q_bound_ms"],
+                          "bound_by": "bytes", "library_ms": None,
+                          "parent_ms": (r101["q_parent_ms"]
+                                        if parent is not None else None),
+                          "note": note}}
 
 
 def main(argv=None) -> None:
@@ -3734,6 +4146,8 @@ def main(argv=None) -> None:
     phase_lidar_train_check("objdgcnn_voxel")
     phase_sync()
     phase_pipeline(smi)
+    int8_launches, int8_shapes = phase_int8_slices(smi)
+    int8_res = phase_int8(int8_shapes, smi, parent)
     for name in ("msdeform_backward_taps", "msdeform_backward_value"):
         launches[name] = train_launches[name]
     kernels = []
@@ -3768,6 +4182,11 @@ def main(argv=None) -> None:
                         "bound_by": res["bound_by"],
                         "library_ms": res["library_ms"],
                         "parent_ms": res.get("parent_ms")})
+    for name, res in int8_res.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "transcar_tpu_torch/csrc/int8_conv.cu",
+                        "replaces": None, "launches": int8_launches[name],
+                        **res})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -898,3 +898,142 @@ def test_normalize_batch_images_on_the_card(dev, photometric):
         assert (got - cpu).abs().max() <= 2e-2
     else:
         assert torch.equal(got, cpu)
+
+
+# --- int8 serving: the quantize pass and the int8 implicit-GEMM conv ---------
+
+def _int8_case(dev, n, cin, h, w, cout, k, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, cin, h, w, device=dev, generator=g) * 2).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(cout, cin, k, k, device=dev, generator=g) / (k * cin
+                                                                 ) ** 0.5
+    return x, wt
+
+
+def _int8_plain(x, wt, stride, padding, out_dtype):
+    from transcar_tpu_torch.ops import int8
+
+    xq, s_x = int8.plain_quantize_per_tensor(x)
+    q, s_w = int8.quantize_weight_per_channel(wt)
+    return int8.plain_int8_conv(xq, s_x, q, s_w, stride, padding, 1,
+                                out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 64, 33, 17),
+                                   (3, 160, 9, 11)])
+def test_int8_quantize_kernel(dev, dtype, shape):
+    # codes and scale bit for bit: a true division, round half to even
+    # (ties at a scale of exactly 1); an element count that is no
+    # multiple of 8 ends in the scalar tail
+    from transcar_tpu_torch.ops import int8
+
+    n, c, h, w = shape
+    x = (torch.randn(n, c, h, w, device=dev) * 3).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    x.permute(0, 2, 3, 1).view(-1)[:9] = torch.tensor(
+        [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 127.0],
+        device=dev).to(dtype)
+    before = int8.quantize_launches
+    q, s = int8.quantize_kernel(x)
+    assert int8.quantize_launches == before + 1
+    q_ref, s_ref = int8.plain_quantize_per_tensor(x)
+    assert s.item() == s_ref.item() == 1.0
+    assert q.stride() == x.stride() and torch.equal(q, q_ref)
+    for f in (0.37, 0.8123, 1.1):
+        x2 = x * f
+        q, s = int8.quantize_kernel(x2)
+        q_ref, s_ref = int8.plain_quantize_per_tensor(x2)
+        # a true division: float64 then float32 rounds as float32 does
+        want = (x2.float().abs().max().double() / 127).float()
+        assert s.item() == s_ref.item() == want.item()
+        assert torch.equal(q, q_ref)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,cin,h,w,cout,k,stride,padding", [
+    (2, 3, 37, 45, 64, 7, 2, 3),        # stem: Cin = 3, byte gathers
+    (1, 3, 29, 31, 64, 3, 2, 1),        # VoVNet stem1
+    (2, 64, 19, 23, 24, 3, 1, 1),       # Cout below the 64-channel tile
+    (1, 160, 13, 11, 160, 3, 1, 1),     # K = 1440, not a multiple of 64
+    (2, 64, 17, 25, 256, 1, 1, 0),
+    (1, 256, 15, 21, 128, 1, 2, 0),     # stride-2 1x1 (conv1, downsample)
+    (1, 48, 9, 9, 10, 1, 1, 0)])        # Cin % 16 != 0 off the stem
+def test_int8_conv_kernel(dev, out_dtype, n, cin, h, w, cout, k, stride,
+                          padding):
+    # the int32 sum is exact and the epilogue rounds as the plain version
+    # does, so the outputs are equal bit for bit
+    from transcar_tpu_torch.ops import int8
+
+    x, wt = _int8_case(dev, n, cin, h, w, cout, k)
+    before = (int8.launches, int8.quantize_launches)
+    got = int8.dynamic_int8_conv(x, wt, stride=stride, padding=padding,
+                                 out_dtype=out_dtype)
+    assert (int8.launches, int8.quantize_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = _int8_plain(x, wt, stride, padding, out_dtype)
+    assert got.shape == want.shape and got.dtype == out_dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,cin,h,w,cout,k,stride,padding", [
+    (6, 3, 928, 1600, 64, 7, 2, 3),     # R101 stem
+    (6, 64, 232, 400, 64, 3, 1, 1),     # R101 stage 1 conv2
+    (6, 256, 232, 400, 128, 1, 2, 0),   # R101 layer2_0 conv1
+    (6, 768, 29, 50, 224, 3, 1, 1)])    # VoVNet stage 5 block 0 conv0
+def test_int8_conv_kernel_flagship(dev, n, cin, h, w, cout, k, stride,
+                                   padding):
+    from transcar_tpu_torch.ops import int8
+
+    x, wt = _int8_case(dev, n, cin, h, w, cout, k)
+    got = int8.dynamic_int8_conv(x, wt, stride=stride, padding=padding)
+    want = _int8_plain(x, wt, stride, padding, torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+def test_int8_conv_kernel_rejects_what_it_does_not_take(dev):
+    from transcar_tpu_torch.ops import int8
+
+    x, wt = _int8_case(dev, 1, 16, 9, 9, 8, 3)
+    with pytest.raises(ValueError, match="dilation"):
+        int8.dynamic_int8_conv(x, wt, padding=2, dilation=2)
+    with pytest.raises(ValueError, match="channels-last"):
+        xq, s_x = int8.quantize_kernel(x.contiguous())
+        int8.conv_kernel(xq, s_x, int8.prepare_weight(wt), padding=1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        int8.dynamic_int8_conv(x, wt, padding=1,
+                               weight_q=int8.prepare_weight(wt.cpu()))
+    with pytest.raises(ValueError, match="5x5"):
+        int8.dynamic_int8_conv(x, torch.zeros(8, 16, 5, 5, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        int8.quantize_kernel(x.cpu())
+
+
+def test_int8_weight_scales_divide_on_the_card(dev):
+    # PyTorch's CUDA division by a Python scalar multiplies by the
+    # reciprocal; the quantizers divide by a tensor, so the card's scales
+    # are the CPU's (and JAX's) bit for bit
+    from transcar_tpu_torch.ops import int8
+
+    w = torch.randn(512, 64, 3, 3, generator=torch.Generator().manual_seed(3))
+    q, s = int8.quantize_weight_per_channel(w.to(dev))
+    q_cpu, s_cpu = int8.quantize_weight_per_channel(w)
+    assert torch.equal(s.cpu(), s_cpu) and torch.equal(q.cpu(), q_cpu)
+
+
+def test_int8_convbn_takes_the_kernel_and_caches_the_codes(dev):
+    from transcar_tpu_torch.models.common import ConvBN
+    from transcar_tpu_torch.ops import int8
+
+    m = ConvBN(64, 96, 3, padding=1, quantize="int8").to(dev).eval()
+    x = torch.randn(2, 64, 20, 30, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    before = int8.launches
+    with torch.inference_mode():
+        a = m(x)
+        b = m(x)
+    assert int8.launches == before + 2 and torch.equal(a, b)
+    wq = m.__dict__["_int8"][1]
+    assert wq.kmajor is not None and wq.kmajor.shape == (96, 576)

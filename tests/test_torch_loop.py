@@ -157,8 +157,7 @@ def test_cli_device_and_later_flags(root, capsys, monkeypatch):
         cli_train.main(["detr3d_r101", "--max-steps", "1"] + argv)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_test.main(["detr3d_r101", "x"] + argv)
-    for cli, flag, item in ((cli_test, "--aug-test", 5),
-                            (cli_test, "--shard-cameras", 7),
+    for cli, flag, item in ((cli_test, "--shard-cameras", 7),
                             (cli_test, "--show-dir=d", 8),
                             (cli_train, "--autoscale-lr", 7)):
         extra = ["x"] if cli is cli_test else []

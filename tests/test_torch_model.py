@@ -249,7 +249,8 @@ def test_cli_benchmark_cpu(capsys, tmp_path):
     assert rec["kernel_launches"] == dict.fromkeys(
         ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
          "osa_block", "bottleneck", "msdeform_forward",
-         "msdeform_backward_taps", "msdeform_backward_value"), 0)
+         "msdeform_backward_taps", "msdeform_backward_value", "int8_conv",
+         "int8_quantize"), 0)
     assert rec["peak_memory_bytes"] is None
     assert 0 <= rec["dcn_taps_past_5px"] <= 1
 
@@ -282,7 +283,8 @@ def test_trace_summary_groups_leads_and_gaps(tmp_path):
 
 def test_cli_rejects_unported_presets():
     # every preset serves and trains: objdgcnn_voxel too, here at a tiny
-    # size (tests/test_torch_voxel.py holds it); int8 is still refused
+    # size (tests/test_torch_voxel.py holds it); int8 serving too (its
+    # plain version on the CPU, tests/test_torch_int8.py holds it)
     tiny = ["--device", "cpu", "--samples", "1", "--warmup", "0",
             "--cfg-options", "model.voxel_size=[2.0,2.0,1.0]",
             "model.sparse_shape=[9,32,32]",
@@ -294,9 +296,9 @@ def test_cli_rejects_unported_presets():
     assert out["all_cls_scores"].shape == (1, 1, 8, 10)
     rec, _ = benchmark.run_train(["objdgcnn_voxel", "--train", *tiny])
     assert np.isfinite(rec["loss_last"]["total"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        benchmark.run(["transcar_vovnet_trainval", "--device", "cpu",
-                       "--cfg-options", "model.backbone.quantize=int8"])
+    rec, out = benchmark.run(TINY_CLI + ["model.backbone.quantize=int8"])
+    assert rec["kernel_launches"]["int8_conv"] == 0          # CPU: plain
+    assert all(torch.isfinite(v).all() for v in out.values())
 
 
 def _jax_package_uses(path):

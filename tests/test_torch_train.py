@@ -459,4 +459,5 @@ def test_cli_train_cpu(capsys):
         assert rec["kernel_launches"] == dict.fromkeys(
             ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
              "osa_block", "bottleneck", "msdeform_forward",
-             "msdeform_backward_taps", "msdeform_backward_value"), 0)
+             "msdeform_backward_taps", "msdeform_backward_value",
+             "int8_conv", "int8_quantize"), 0)

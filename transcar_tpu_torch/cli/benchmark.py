@@ -13,7 +13,8 @@ Inference times batch requests after ``--warmup`` requests, with
 tools/analysis_tools/benchmark.py:64-91, which ``bench.py`` cites), on
 seeded random weights and the synthetic batch of ``data/synthetic.py``.
 It prints one JSON line: samples/s, ms/sample, the device's name, the
-launches of every kernel (K1-K9) in the run, the peak device memory, and
+launches of every kernel (K1-K9, and the int8 convolution and quantize
+pass) in the run, the peak device memory, and
 two audits of the first warmup request: the share of DCN taps whose
 vertical offset exceeds 5 px (the TPU kernel's exact band; here every tap
 is exact; null for a backbone without DCN, as VoVNet-99) and the share of
@@ -24,7 +25,10 @@ K4 in every OSA block) included.  The kernel paths are the defaults; the
 plain layers are ``--cfg-options model.backbone.dcn_impl=exact
 model.backbone.osa_reduce_impl=xla model.head.use_pallas_attention=false``,
 and the opt-in kernels are ``model.backbone.block_impl=fused`` (K6, ResNet)
-and ``model.backbone.osa_reduce_impl=fused`` (K5, VoVNet).
+and ``model.backbone.osa_reduce_impl=fused`` (K5, VoVNet).  The int8
+serving mode is ``--cfg-options model.backbone.quantize=int8`` (78 int8
+convolutions a ``transcar_r101`` request, 83 a
+``transcar_vovnet_trainval`` one; ``--train`` builds the float path).
 
 The LiDAR preset ``objdgcnn_pillar`` (ObjDGCNN, 8 K7 launches per
 request: 2 encoder and 6 decoder deformable attentions) times batch-1
@@ -86,8 +90,9 @@ from transcar_tpu_torch.data.synthetic import fake_batch, fake_lidar_batch
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.dgcnn import MSDeformAttention
 from transcar_tpu_torch.models.resnet import DCNConv
-from transcar_tpu_torch.ops import (pallas_attention, pallas_bottleneck,
-                                    pallas_dcn, pallas_msdeform, pallas_osa,
+from transcar_tpu_torch.ops import (int8, pallas_attention,
+                                    pallas_bottleneck, pallas_dcn,
+                                    pallas_msdeform, pallas_osa,
                                     pallas_osa_block)
 from transcar_tpu_torch.ops.voxelize import hard_voxelize
 from transcar_tpu_torch.train.step import init_state, train_step
@@ -138,7 +143,8 @@ def parse_args(argv=None):
 
 
 def kernel_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
+    """Every kernel wrapper's launch count, by kernel name: K1-K9 and the
+    int8 serving mode's convolution and quantize pass."""
     return {"dcn_forward": pallas_dcn.launches,
             "dcn_backward": pallas_dcn.backward_launches,
             "masked_attention": pallas_attention.launches,
@@ -148,7 +154,9 @@ def kernel_counts() -> dict:
             "msdeform_forward": pallas_msdeform.launches,
             "msdeform_backward_taps": pallas_msdeform.backward_taps_launches,
             "msdeform_backward_value":
-                pallas_msdeform.backward_value_launches}
+                pallas_msdeform.backward_value_launches,
+            "int8_conv": int8.launches,
+            "int8_quantize": int8.quantize_launches}
 
 
 def _launches_since(start: dict) -> dict:
@@ -238,6 +246,8 @@ KERNEL_GROUPS = (
     ("K7 msdeform_forward", ("msdeform_forward_",)),
     ("K8 msdeform_backward_taps", ("msdeform_backward_taps_",)),
     ("K9 msdeform_backward_value", ("msdeform_backward_value_",)),
+    ("int8 conv", ("int8_conv_kernel",)),
+    ("int8 quantize", ("int8_amax_kernel", "int8_quantize_kernel")),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),

@@ -4,15 +4,19 @@ Usage:
     python -m transcar_tpu_torch.cli.test <preset> <checkpoint>
         [--format-only] [--eval bbox] [--out results.json]
         [--max-samples N] [--batch-size B] [--no-fold-bn] [--device cpu]
-        [--cfg-options ...]
+        [--aug-test [identity,flip]] [--cfg-options ...]
 
 The checkpoint is a training step dir (``work_dir/checkpoints/<step>``),
 a params-only file, or a reference ``.pth`` (converted on load).  --eval
 bbox runs the devkit DetectionEval when it and the raw dataset are
 there, else the native evaluator (``eval/metrics.py``).  The run takes
 the card unless ``--device cpu`` is given; without CUDA it raises.
-``--aug-test`` (ROADMAP.md Queue 1 item 5), ``--shard-cameras`` (item 7)
-and ``--show-dir`` (item 8) belong to later slices and raise.
+``--aug-test`` runs test-time augmentation (``train/step.py::
+aug_eval_step``; camera presets); ``--cfg-options
+model.backbone.quantize=int8`` serves with int8 backbone convolutions
+(``ops/int8.py``), with or without it.  ``--shard-cameras`` (ROADMAP.md
+Queue 1 item 7) and ``--show-dir`` (item 8) belong to later slices and
+raise.
 """
 from __future__ import annotations
 
@@ -23,9 +27,7 @@ from transcar_tpu_torch.cli.train import _try_radar_fn
 from transcar_tpu_torch.core.config import parse_overrides
 
 #: flags of later slices → the ROADMAP.md Queue 1 item that ports them
-LATER = {"aug_test": ("--aug-test", "test-time augmentation, eval/tta.py",
-                      5),
-         "shard_cameras": ("--shard-cameras", "camera-axis sharding", 7),
+LATER = {"shard_cameras": ("--shard-cameras", "camera-axis sharding", 7),
          "show_dir": ("--show-dir", "BEV plots, eval/bev_plot.py", 8)}
 
 
@@ -54,7 +56,11 @@ def main(argv=None):
     ap.add_argument("--shard-cameras", action="store_true",
                     help="not ported (ROADMAP.md Queue 1 item 7), raises")
     ap.add_argument("--aug-test", nargs="?", const="identity,flip",
-                    help="not ported (ROADMAP.md Queue 1 item 5), raises")
+                    help="test-time augmentation: comma list from "
+                         "identity,flip (default both); backbone+FPN "
+                         "features are averaged over the augmented copies "
+                         "before the head (reference aug_test, "
+                         "detr3d.py:195-219)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without CUDA) or cpu")
     ap.add_argument("--cfg-options", nargs="*", default=[])
@@ -83,7 +89,9 @@ def main(argv=None):
     result = evaluate(cfg, model, radar_fn=radar_fn,
                       max_samples=args.max_samples, out_path=args.out,
                       batch_size=args.batch_size,
-                      fold_bn=not args.no_fold_bn)
+                      fold_bn=not args.no_fold_bn,
+                      aug_test=(args.aug_test.split(",")
+                                if args.aug_test else None))
     print(f"results written to {result.path}")
 
     if args.eval_metric:

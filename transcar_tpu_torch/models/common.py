@@ -21,12 +21,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from transcar_tpu_torch.ops.attention import multihead_attention
+from transcar_tpu_torch.ops.int8 import dynamic_int8_conv, prepare_weight
 from transcar_tpu_torch.ops.pallas_attention import masked_mha
 
 LN_EPS = 1e-5
 #: Share of the old running statistics a BatchNorm train step keeps (flax
 #: momentum 0.9, the JAX ``train_bn`` and ``MaskedBN``; torch momentum 0.1).
 BN_MOMENTUM = 0.9
+#: ``BackboneConfig.quantize`` values: the float path and int8 serving.
+QUANTIZE_MODES = ("none", "int8")
 
 
 def cached_copy(module: nn.Module, name: str, params: Sequence[torch.Tensor],
@@ -231,18 +234,43 @@ class ConvBN(nn.Module):
     """Conv (no bias) + BN (+ ReLU), NCHW; names ``conv`` / ``bn``.
     ``norm="frozen"`` is the camera trunk's :class:`FrozenBN` (bf16
     arithmetic in a bf16 backbone), ``norm="batch"`` the LiDAR track's
-    trainable :class:`BatchNorm` (float32 arithmetic)."""
+    trainable :class:`BatchNorm` (float32 arithmetic).
+
+    ``quantize="int8"`` (the int8 serving mode, ``ops/int8.py``) runs the
+    conv as a dynamic int8 convolution dequantized into the input's dtype,
+    from the same ``conv.weight`` (so the ``state_dict`` and checkpoints
+    are the float path's); the weight's codes and scales are cached per
+    parameter version (:func:`cached_copy`).  BN and ReLU then run on the
+    dequantized output."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 0, relu: bool = True, norm: str = "frozen"):
+                 padding: int = 0, relu: bool = True, norm: str = "frozen",
+                 quantize: str = "none"):
         super().__init__()
         self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding,
                            bias=False)
         if norm not in ("frozen", "batch"):
             raise ValueError(f"unknown norm {norm!r}")
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize {quantize!r}")
         self.bn = FrozenBN(cout) if norm == "frozen" else BatchNorm(cout)
         self.relu = relu
+        self.quantize = quantize
+
+    def _int8_conv(self, x):
+        conv = self.conv
+        if conv.bias is not None:
+            raise ValueError("int8 ConvBN takes a conv without a bias (the "
+                             "bias lives in the BN)")
+        w = conv.weight
+        wq = cached_copy(self, "_int8", [w], torch.int8,
+                         lambda: prepare_weight(w))
+        return dynamic_int8_conv(x, w, stride=conv.stride[0],
+                                 padding=conv.padding[0],
+                                 dilation=conv.dilation[0], out_dtype=x.dtype,
+                                 weight_q=wq)
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = self._int8_conv(x) if self.quantize == "int8" else self.conv(x)
+        x = self.bn(x)
         return F.relu(x) if self.relu else x

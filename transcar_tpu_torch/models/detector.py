@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 from transcar_tpu_torch.data.gridmask import grid_mask
-from transcar_tpu_torch.models.common import Conv2d, TorchMHA, disable_tf32
+from transcar_tpu_torch.models.common import (QUANTIZE_MODES, Conv2d, TorchMHA,
+                                              disable_tf32)
 from transcar_tpu_torch.models.dgcnn import MSDeformAttention, ObjDGCNN
 from transcar_tpu_torch.models.fpn import FPN
 from transcar_tpu_torch.models.head import TransCARHead
@@ -38,27 +39,29 @@ from transcar_tpu_torch.models.vovnet import VoVNet
 class TransCARDetector(nn.Module):
     def __init__(self, cfg, dcn_impl: str = "exact", remat: bool = False,
                  dropout: float = 0.1, osa_reduce_impl: str = "xla",
-                 block_impl: str = "xla"):
+                 block_impl: str = "xla", quantize: str = "none"):
         """cfg: a ``ModelConfig``; dcn_impl: "exact" | "pallas" (resolved
         by :func:`build_model`, see :func:`resolve_dcn_impl`); remat:
         recompute backbone blocks in the backward; dropout: the head's
         training dropout rate; osa_reduce_impl: the VoVNet OSA tail,
         "xla" | "pallas" | "fused"; block_impl: the ResNet stride-1
-        non-DCN bottlenecks, "xla" | "fused" (see :func:`build_model`)."""
+        non-DCN bottlenecks, "xla" | "fused"; quantize: the backbone's
+        convs, "none" | "int8" (serving only; see :func:`build_model`)."""
         super().__init__()
         self.cfg = cfg
         bc = cfg.backbone
+        stem = bc.stem_impl if bc.stem_impl != "auto" else "xla"
         if bc.kind in ("resnet101", "resnet50"):
             self.backbone = ResNet(
                 depth=int(bc.kind[6:]), with_dcn=bc.with_dcn,
                 compute_dtype=bc.compute_dtype, dcn_impl=dcn_impl,
                 frozen_stages=bc.frozen_stages, remat=remat,
-                block_impl=block_impl)
+                block_impl=block_impl, quantize=quantize, stem_impl=stem)
         elif bc.kind == "vovnet99":
             self.backbone = VoVNet(
                 compute_dtype=bc.compute_dtype, reduce_impl=osa_reduce_impl,
-                stem_impl=bc.stem_impl if bc.stem_impl != "auto" else "xla",
-                remat=remat, frozen_stages=bc.frozen_stages)
+                stem_impl=stem, remat=remat, frozen_stages=bc.frozen_stages,
+                quantize=quantize)
         else:
             raise ValueError(f"unknown backbone {bc.kind!r}")
         self.neck = FPN(in_channels=bc.fpn_in_channels,
@@ -160,6 +163,17 @@ def resolve_osa_reduce_impl(cfg, training: bool = False) -> str:
     return impl
 
 
+def resolve_quantize(cfg, training: bool = False) -> str:
+    """``BackboneConfig.quantize``: "int8" is a serving mode, so training
+    always builds the float path ("none"), as the JAX ``build_model``
+    does (rounding has no useful derivative); an unknown value raises."""
+    quantize = cfg.model.backbone.quantize
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize {quantize!r} (one of "
+                         f"{QUANTIZE_MODES})")
+    return "none" if training else quantize
+
+
 def resolve_block_impl(cfg) -> str:
     """``BackboneConfig.block_impl``: "auto" is the plain layers ("xla"),
     as in the JAX ``build_model``; "fused" takes the K6 wrapper."""
@@ -197,8 +211,10 @@ def build_model(cfg, device="cuda", training: bool = False,
     CUDA that default raises.
 
     Kernel knobs: ``dcn_impl`` (:func:`resolve_dcn_impl`),
-    ``osa_reduce_impl`` (:func:`resolve_osa_reduce_impl`) and
-    ``block_impl`` (:func:`resolve_block_impl`); ObjDGCNN's deformable
+    ``osa_reduce_impl`` (:func:`resolve_osa_reduce_impl`),
+    ``block_impl`` (:func:`resolve_block_impl`) and ``quantize``
+    (:func:`resolve_quantize`: the int8 serving mode of
+    ``ops/int8.py``, forced off in training); ObjDGCNN's deformable
     attention always takes the kernel wrapper (K7, and K8 / K9 in the
     backward); ``objdgcnn_voxel``'s sparse encoder is plain PyTorch in
     either ``sparse_impl`` (the JAX package runs it as XLA too).
@@ -227,17 +243,15 @@ def build_model(cfg, device="cuda", training: bool = False,
         init_weights(model, torch.Generator().manual_seed(seed))
         model = model.to(device=device, memory_format=torch.channels_last)
         return model.train(training)
-    if m.backbone.quantize != "none" and not training:
-        raise NotImplementedError(
-            f"quantize={m.backbone.quantize!r} changes the numbers and "
-            "waits for ops/int8.py (ROADMAP.md Queue 1 item 6)")
+    quantize = resolve_quantize(cfg, training)
     disable_tf32()
     model = TransCARDetector(m, dcn_impl=resolve_dcn_impl(cfg),
                              remat=resolve_remat(cfg),
                              dropout=dropout,
                              osa_reduce_impl=resolve_osa_reduce_impl(
                                  cfg, training),
-                             block_impl=resolve_block_impl(cfg))
+                             block_impl=resolve_block_impl(cfg),
+                             quantize=quantize)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
     return model.train(training)

@@ -14,8 +14,14 @@ the 6 blocks ``layer1_0..2`` (232 × 400) and ``layer2_1..3`` (116 × 200);
 ``layer2_0`` (stride 2) and the DCN stages keep the layers.  On a CUDA
 tensor the block hands K6's Hopper tile the K-major copies of its conv
 weights in the compute dtype, cached.  The phase
-stem (``stem_impl``) computes the same function and is not ported; int8
-is not ported.
+stem (``stem_impl="phase"``) computes the same function and is not
+ported: it is accepted and only keeps the stem out of int8, as in JAX.
+
+``quantize="int8"`` (the int8 serving mode, ``ops/int8.py``) runs the
+stem and every bottleneck's ``conv1``, ``conv3``, ``downsample`` and
+non-DCN ``conv2`` as dynamic int8 convolutions (``ConvBN``); the DCN
+``conv2`` (K1) and the ``block_impl="fused"`` blocks (K6) stay in the
+compute dtype, as in the JAX package.
 
 Training: the stem and the first ``frozen_stages`` stages get
 ``requires_grad=False`` (mmdet ``_freeze_stages``; frozen BN is buffers
@@ -89,25 +95,28 @@ class DCNConv(nn.Module):
 class Bottleneck(nn.Module):
     """Caffe-style bottleneck: 1×1(stride) → 3×3 or DCN → 1×1, frozen BN.
     ``impl="fused"`` takes the K6 wrapper where the block is stride 1
-    without DCN (see the module docstring)."""
+    without DCN; ``quantize`` applies to its ConvBNs (see the module
+    docstring)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, with_dcn: bool = False,
-                 dcn_impl: str = "exact", impl: str = "xla"):
+                 dcn_impl: str = "exact", impl: str = "xla",
+                 quantize: str = "none"):
         super().__init__()
         if impl not in ("xla", "fused"):
             raise ValueError(f"unknown block impl {impl!r}")
         self.fused = impl == "fused" and stride == 1 and not with_dcn
-        self.conv1 = ConvBN(inplanes, planes, 1, stride=stride)
+        q = dict(quantize=quantize)
+        self.conv1 = ConvBN(inplanes, planes, 1, stride=stride, **q)
         if with_dcn:
             self.conv2 = DCNConv(planes, planes, impl=dcn_impl)
             self.bn2 = FrozenBN(planes)
         else:
-            self.conv2 = ConvBN(planes, planes, 3, padding=1)
-        self.conv3 = ConvBN(planes, planes * 4, 1, relu=False)
+            self.conv2 = ConvBN(planes, planes, 3, padding=1, **q)
+        self.conv3 = ConvBN(planes, planes * 4, 1, relu=False, **q)
         if downsample:
             self.downsample = ConvBN(inplanes, planes * 4, 1, stride=stride,
-                                     relu=False)
+                                     relu=False, **q)
 
     def forward(self, x):
         if self.fused:
@@ -157,12 +166,16 @@ class ResNet(nn.Module):
                  with_dcn: Tuple[bool, ...] = (False, False, True, True),
                  compute_dtype: Optional[str] = "bfloat16",
                  dcn_impl: str = "exact", frozen_stages: int = 1,
-                 remat: bool = False, block_impl: str = "xla"):
+                 remat: bool = False, block_impl: str = "xla",
+                 quantize: str = "none", stem_impl: str = "xla"):
         super().__init__()
+        if stem_impl not in ("xla", "phase"):
+            raise ValueError(f"unknown stem_impl {stem_impl!r}")
         self.remat = remat
         self.compute_dtype = (getattr(torch, compute_dtype)
                               if compute_dtype else None)
-        self.stem = ConvBN(3, 64, 7, stride=2, padding=3)
+        self.stem = ConvBN(3, 64, 7, stride=2, padding=3, quantize=(
+            quantize if stem_impl == "xla" else "none"))
         self.block_names = []
         inplanes, planes = 64, 64
         for stage, num_blocks in enumerate(RESNET_DEPTHS[depth]):
@@ -173,7 +186,7 @@ class ResNet(nn.Module):
                     inplanes, planes,
                     stride=(1 if stage == 0 else 2) if b == 0 else 1,
                     downsample=(b == 0), with_dcn=with_dcn[stage],
-                    dcn_impl=dcn_impl, impl=block_impl))
+                    dcn_impl=dcn_impl, impl=block_impl, quantize=quantize))
                 names.append(name)
                 inplanes = planes * 4
             self.block_names.append(names)

@@ -24,6 +24,13 @@ The kernel paths gate from ``gap = sums / (H·W)`` cast to the activation
 dtype before the 1×1 ``fc``, as the JAX module does.  ``stem_impl``
 ("xla" | "phase": the same function) and the TPU tiling knobs
 ``rows_per_chunk`` / ``STAGE_CHUNK_ROWS`` change nothing here.
+
+``quantize="int8"`` (the int8 serving mode, ``ops/int8.py``) runs the
+three stem convs (unless ``stem_impl="phase"``, as in JAX) and every
+block's chain convs as dynamic int8 convolutions; the 1×1 concat reduce
+only on the ``"xla"`` tail.  The K4 (``"pallas"``) reduce keeps the
+compute dtype, and the ``"fused"`` (K5) blocks ignore it, as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -82,7 +89,7 @@ class OSABlock(nn.Module):
 
     def __init__(self, in_ch: int, stage_ch: int, concat_ch: int,
                  layer_per_block: int, identity: bool = False,
-                 reduce_impl: str = "xla"):
+                 reduce_impl: str = "xla", quantize: str = "none"):
         super().__init__()
         if reduce_impl not in REDUCE_IMPLS:
             raise ValueError(f"unknown reduce_impl {reduce_impl!r}")
@@ -92,9 +99,11 @@ class OSABlock(nn.Module):
         self.widths = [in_ch] + [stage_ch] * layer_per_block
         cin = in_ch
         for i in range(layer_per_block):
-            setattr(self, f"conv{i}", ConvBN(cin, stage_ch, 3, padding=1))
+            setattr(self, f"conv{i}", ConvBN(cin, stage_ch, 3, padding=1,
+                                             quantize=quantize))
             cin = stage_ch
-        self.concat = ConvBN(sum(self.widths), concat_ch, 1)
+        self.concat = ConvBN(sum(self.widths), concat_ch, 1, quantize=(
+            quantize if reduce_impl == "xla" else "none"))
         self.ese = (eSE if reduce_impl == "xla" else _eSEGate)(concat_ch)
 
     def _reduce_kmajor(self, dtype) -> list:
@@ -156,7 +165,7 @@ class VoVNet(nn.Module):
                  reduce_impl: str = "xla",
                  stage_impls: Optional[Tuple[str, ...]] = None,
                  stem_impl: str = "xla", remat: bool = False,
-                 frozen_stages: int = 1):
+                 frozen_stages: int = 1, quantize: str = "none"):
         super().__init__()
         if stem_impl not in ("xla", "phase"):
             raise ValueError(f"unknown stem_impl {stem_impl!r}")
@@ -166,9 +175,10 @@ class VoVNet(nn.Module):
                               if compute_dtype else None)
         spec = V99_SPEC
         s1, s2, s3 = spec["stem"]
-        self.stem1 = ConvBN(3, s1, 3, stride=2, padding=1)
-        self.stem2 = ConvBN(s1, s2, 3, stride=1, padding=1)
-        self.stem3 = ConvBN(s2, s3, 3, stride=2, padding=1)
+        sq = quantize if stem_impl == "xla" else "none"
+        self.stem1 = ConvBN(3, s1, 3, stride=2, padding=1, quantize=sq)
+        self.stem2 = ConvBN(s1, s2, 3, stride=1, padding=1, quantize=sq)
+        self.stem3 = ConvBN(s2, s3, 3, stride=2, padding=1, quantize=sq)
         if stage_impls is None:
             stage_impls = (self.PALLAS_STAGE_IMPLS if reduce_impl == "pallas"
                            else (reduce_impl,) * 4)
@@ -182,7 +192,7 @@ class VoVNet(nn.Module):
                 setattr(self, name, OSABlock(
                     cin, spec["stage_conv_ch"][si], spec["stage_out_ch"][si],
                     spec["layer_per_block"], identity=b > 0,
-                    reduce_impl=self.stage_impls[si]))
+                    reduce_impl=self.stage_impls[si], quantize=quantize))
                 names.append(name)
                 cin = spec["stage_out_ch"][si]
             self.block_names.append(names)

@@ -21,12 +21,13 @@ step's Hungarian match does, inside the step, as in the JAX step).
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import signal
 import time
 from collections import deque
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,7 +41,8 @@ from transcar_tpu_torch.eval.submission import (detections_to_nusc_annos,
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.train import checkpoint as ckpt
 from transcar_tpu_torch.train.fold import fold_bn_into_conv, frozen_bn_names
-from transcar_tpu_torch.train.step import (TrainState, eval_step, init_state,
+from transcar_tpu_torch.train.step import (TrainState, aug_eval_step,
+                                           check_augs, eval_step, init_state,
                                            train_step)
 
 
@@ -333,6 +335,7 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
              out_path: Optional[str] = None,
              batch_size: int = 1,
              fold_bn: bool = True,
+             aug_test: Optional[Sequence[str]] = None,
              _dataset: Optional[NuScenesInfos] = None) -> EvalResult:
     """Inference over the val set → nuScenes submission json
     (tools/test.py --format-only analog), with ``model`` (eval mode, on
@@ -343,13 +346,27 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
     sample and the padded rows are dropped, so outputs are those of the
     bs=1 path.  ``fold_bn`` folds the frozen-BN scales into the convs
     before inference (``train/fold.py``; ``False`` for the unfolded
-    numbers): it rewrites ``model``'s weights in place.
+    numbers): it rewrites ``model``'s weights in place, before any int8
+    weight codes are taken from them (``model.backbone.quantize=int8``
+    quantizes the folded weights at the next forward, as the JAX
+    ``evaluate`` folds its params before the quantizing eval step).
+
+    ``aug_test`` (e.g. ``("identity", "flip")``) runs test-time
+    augmentation (``train/step.py::aug_eval_step``): the backbone and FPN
+    once a view, the features averaged, the head once; camera track only.
 
     On the card two batches are in flight: each step's decoded rows are
     copied to pinned host memory as soon as the step is queued, and the
     host reads a batch's rows only when the next but one is queued; the
     next batch's images are copied on a stream of their own while the
     current step runs."""
+    if aug_test:
+        if cfg.model.lidar_encoder:
+            raise ValueError("--aug-test is camera-track only")
+        check_augs(aug_test)
+        step = functools.partial(aug_eval_step, augs=tuple(aug_test))
+    else:
+        step = eval_step
     dataset = _dataset if _dataset is not None else NuScenesInfos(
         os.path.join(cfg.data.data_root, cfg.data.ann_val),
         class_names=cfg.data.class_names, test_mode=True,
@@ -390,7 +407,7 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
     staged = uploads.stage(nxt) if nxt is not None else None
     bidx = 0
     while staged is not None:
-        out = eval_step(model, uploads.take(staged), cfg)
+        out = step(model, uploads.take(staged), cfg)
         nxt = next(batches, None)
         staged = uploads.stage(nxt) if nxt is not None else None
         if device.type == "cuda":

@@ -1,6 +1,7 @@
 """One training step: forward, loss with Hungarian targets, backward,
-gradient clip and AdamW update, and the eval step: forward and NMS-free
-decode (``transcar_tpu/train/step.py``).
+gradient clip and AdamW update, and the eval steps: forward and NMS-free
+decode, plain or over test-time augmented views
+(``transcar_tpu/train/step.py``).
 
 The JAX step folds a key per step into its GridMask and dropout draws;
 here GridMask draws from the ``torch.Generator`` the caller passes and
@@ -175,6 +176,42 @@ def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor],
     with torch.inference_mode():
         batch = normalize_batch_images(batch, cfg.data)
         return nms_free_decode(forward(model, batch), cfg.model.head)
+
+
+#: Test-time augmentations :func:`aug_eval_step` knows.
+AUGS = ("identity", "flip")
+
+
+def check_augs(augs) -> None:
+    """Raise ``ValueError`` naming the known augmentations for any other."""
+    bad = set(augs) - set(AUGS)
+    if bad:
+        raise ValueError(f"unknown aug(s) {sorted(bad)}; pick from "
+                         f"{sorted(AUGS)}")
+
+
+def aug_eval_step(model: nn.Module, batch: Dict[str, torch.Tensor], cfg,
+                  augs=("identity", "flip")) -> Dict[str, torch.Tensor]:
+    """Test-time-augmentation inference (the JAX ``make_aug_eval_step``;
+    reference ``aug_test``, detr3d.py:195-219): the backbone and FPN run
+    once a view, their features are averaged over the views, and the head
+    runs once on the first view's ``lidar2img`` (the reference takes
+    ``img_metas[0]`` likewise), then the NMS-free decode.
+
+    ``augs``: any of ``identity`` / ``flip`` (horizontal image flip).  The
+    views are built on the batch's device from the normalized, padded
+    batch: one wire transfer.  The flipped view's features are averaged
+    with the others' unaligned (never mirrored back), verbatim from the
+    reference, as the JAX package keeps it."""
+    check_augs(augs)
+    with torch.inference_mode():
+        batch = normalize_batch_images(batch, cfg.data)
+        imgs = batch["images"]                        # [B, N, H, W, 3]
+        views = torch.stack([imgs if a == "identity" else imgs.flip(3)
+                             for a in augs])          # [A, B, N, H, W, 3]
+        preds = model.aug_forward(views, batch["lidar2img"],
+                                  batch.get("radar_tokens"))
+        return nms_free_decode(preds, cfg.model.head)
 
 
 def compute_losses(state: TrainState, batch: Dict[str, torch.Tensor],
