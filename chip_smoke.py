@@ -10,12 +10,12 @@ the git-ignored ``transcar_tpu_torch/build/``) and times its K1, K3, K2,
 K4, K5, K6, K7, K8 and K9 in turns with these (parent, kernel, kernel,
 parent) in phases 3, 4, 5, 8, 13 and 15, and its int8 conv, if it has
 one, in phase 22; the summary line then carries each one's
-``parent_ms``.  ``--variants k1|k2|k5|k6|k7|k8|k9|all`` runs
+``parent_ms``.  ``--variants k1|k2|k5|k6|k7|k8|k9|int8|all`` runs
 none of the phases: it builds each knock-out variant of the K1 / K2 / K5
-/ K6 / K7 / K8 / K9 kernels in ``VARIANTS`` (a copy of their sources
-under ``transcar_tpu_torch/build/variants/`` with its patches) and prints
-its time per request or step at the main path's shapes (and K2's error
-against its plain version).
+/ K6 / K7 / K8 / K9 / int8 wgmma kernels in ``VARIANTS`` (a copy of their
+sources under ``transcar_tpu_torch/build/variants/`` with its patches)
+and prints its time per request or step at the main path's shapes (and
+K2's error against its plain version).
 
 Phases, one line each (a failing phase raises and the script exits
 non-zero):
@@ -156,17 +156,22 @@ non-zero):
      ``quantize=int8`` (156 int8 convs a sample);
  21. int8 serving: ``transcar_r101`` and ``transcar_vovnet_trainval`` bs1
      at full width with ``model.backbone.quantize=int8`` through
-     ``cli.benchmark``: 78 int8 convs + 26 K1 + 3 K2, and 83 int8 convs +
-     16 K4 + 3 K2 a request (:data:`INT8_SLICES`), finite outputs and
-     decode, ms a request and peak memory beside the bf16 path, each FPN
-     level's cosine and relative error against the bf16 path, and no host
-     sync in a warm int8 request;
- 22. the int8 conv kernel and its quantize pass (``csrc/int8_conv.cu``, no
-     TPU counterpart: the JAX package runs this conv in XLA) against their
-     plain versions, bit for bit, at every distinct conv shape phase 21
-     ran, timed per shape and per request beside the bound,
-     ``torch._int_mm`` over an im2col of the same codes and cuDNN's bf16
-     convolution of the same shape.
+     ``cli.benchmark``: 78 int8 convs (77 on the wgmma tile, 74 codes and
+     60 amax passes) + 26 K1 + 3 K2, and 83 int8 convs (82 on the wgmma
+     tile, 83 codes and 17 amax passes) + 16 K4 + 3 K2 a request
+     (:data:`INT8_SLICES`), the conv shapes against the architectures,
+     FrozenBN folded into every epilogue, finite outputs and decode, ms a
+     request and peak memory beside the bf16 path, each FPN level's cosine
+     and relative error against the bf16 path (inside the first kernels'
+     range), and no host sync in a warm int8 request;
+ 22. the int8 conv kernel and its quantize passes (``csrc/int8_conv.cu``,
+     no TPU counterpart: the JAX package runs this conv in XLA) against
+     their plain versions, bit for bit, at every distinct conv shape
+     phase 21 ran, with the tile each took: the conv alone and with
+     ConvBN's epilogue and amax; timed (:func:`queued_ms`) per shape and per
+     request beside the bound, ``torch._int_mm`` over an im2col of the
+     same codes, cuDNN's bf16 convolution of the same shape and cuDNN
+     plus the module's BN and ReLU passes.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``; it lists the int8 conv and quantize
@@ -401,7 +406,7 @@ def parent_library(csrc: str):
     return csrc_library(csrc, "parent")
 
 
-# Knock-out variants of the K1, K2, K5, K6, K7, K8 and K9 kernels
+# Knock-out variants of the K1, K2, K5, K6, K7, K8, K9 and int8 kernels
 # (``--variants``):
 # name: (sources copied, [(file patched, old text, new text), ...]).  A
 # variant that takes out part of the work computes garbage; only its time
@@ -415,6 +420,7 @@ K7_SRC = ("msdeform_forward.cu", "msdeform_gather.cuh")
 K8_SRC = ("msdeform_backward.cu", "msdeform_gather.cuh")
 K9_SRC = K8_SRC
 K2_SRC = ("masked_attention.cu", "hopper_tile.cuh")
+INT8_SRC = ("int8_conv.cu", "osa_wgmma.cuh", "hopper_tile.cuh")
 # the lane-group gather of K7 and K8 with its corner loads replaced by
 # register values that depend on the sample
 _NO_VALUE_LOADS = (
@@ -547,20 +553,24 @@ VARIANTS = {
         "osa_wgmma.cuh", "  hop::mma_slice<BN, 0, 0>(d, da, db);\n", "")]),
     "k5 no A loads": (K5_SRC, [(
         "osa_wgmma.cuh",
-        "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * BK * 2);\n"
+        "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * ROW);\n"
         "              if constexpr (kConv) {\n"
         "                const int i0 = (mt / p.tiles_w) * (BM / p.bw);\n"
         "                const int j0 = (mt % p.tiles_w) * p.bw;\n"
-        "                hop::tma_load_4d(sa + r.stage * BM * BK, &p.a[0], &full[r.stage], k0,\n"
-        "                                 j0 - 1 + tap % 3, i0 - 1 + tap / 3, img);\n",
-        "              hop::mbar_expect_tx(&full[r.stage], (kConv ? p.b_rows : BM + p.b_rows) * BK * 2);\n"
+        "                // tap offset (oy, ox); stride 2: the map of its parity\n"
+        "                const int oy = tap / p.kw - p.pad, ox = tap % p.kw - p.pad;\n"
+        "                const int sm = (1 << p.sshift) - 1;\n"
+        "                hop::tma_load_4d(sa + r.stage * BM * ROW, &p.a[2 * (oy & sm) + (ox & sm)],\n"
+        "                                 &full[r.stage], k0, j0 + (ox >> p.sshift),\n"
+        "                                 i0 + (oy >> p.sshift), img);\n",
+        "              hop::mbar_expect_tx(&full[r.stage], (kConv ? p.b_rows : BM + p.b_rows) * ROW);\n"
         "              if constexpr (kConv) {\n")]),
     "k5 no B loads": (K5_SRC, [(
         "osa_wgmma.cuh",
-        "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * BK * 2);\n",
-        "              hop::mbar_expect_tx(&full[r.stage], (kConv ? BM : BM + p.b_rows) * BK * 2);\n"), (
+        "              hop::mbar_expect_tx(&full[r.stage], (BM + p.b_rows) * ROW);\n",
+        "              hop::mbar_expect_tx(&full[r.stage], (kConv ? BM : BM + p.b_rows) * ROW);\n"), (
         "osa_wgmma.cuh",
-        "                hop::tma_load_3d(sb + r.stage * BN * BK, &p.b[0], &full[r.stage], k0,\n"
+        "                hop::tma_load_3d(sb + r.stage * BN * ROW, &p.b[0], &full[r.stage], k0,\n"
         "                                 tap, nt * BN);\n", "")]),
     "k6 base": (K6_SRC, []),
     "k6 BN = 128 tiles for Cm = 64 (conv1, conv2)": (K6_SRC, [(
@@ -676,10 +686,35 @@ VARIANTS = {
             "        if (c.v01) msd::red_add4(c0, scaled(ga, w01));\n"
             "        if (c.v10) msd::red_add4(c0, scaled(ga, w10));\n"
             "        if (c.v11) msd::red_add4(c0, scaled(ga, w11));\n")]),
+    "int8 base": (INT8_SRC, []),
+    "int8 non-persistent (a block a tile)": (INT8_SRC, [(
+        "osa_wgmma.cuh",
+        "  const int grid = p.tiles < hop::sm_count() ? p.tiles : hop::sm_count();\n",
+        "  const int grid = p.tiles;\n")]),
+    "int8 64-wide N (Cout tiles of 64)": (INT8_SRC, [(
+        "int8_conv.cu", "int s8_tile_n(int Cout, bool conv, bool bf16_out) {\n",
+        "int s8_tile_n(int Cout, bool conv, bool bf16_out) {\n"
+        "  if (Cout > 0) return 64;\n")]),
+    "int8 whole Cout up to 256 (no staged 128-wide tiles above 128)": (
+        INT8_SRC, [("int8_conv.cu",
+                    "  if (bf16_out && Cout % 128 == 0) return 128;\n", "")]),
+    "int8 no epilogue fold (dequantize only)": (INT8_SRC, [(
+        "int8_conv.cu", "  p.fold = scale != nullptr;\n  p.relu = relu;\n",
+        "  p.fold = 0;\n  p.relu = 0;\n")]),
+    "int8 unstaged (every tile stores from the registers)": (INT8_SRC, [(
+        "int8_conv.cu", "  const bool staged = p.out_f32 == nullptr;\n",
+        "  const bool staged = false;\n")]),
+    "int8 each slice waited for (no wgmma group in flight)": (INT8_SRC, [(
+        "osa_wgmma.cuh",
+        "              hop::wgmma_wait<1>();\n              if (t == 0 && held >= 0)",
+        "              hop::wgmma_wait<0>();\n              if (t == 0 && held >= 0)")]),
+    "int8 amax pass from the start of x (no L2 reuse by the codes pass)": (
+        INT8_SRC, [("int8_conv.cu", "        load8(x + 8 * (n8 - 1 - i), v[u]);\n",
+                    "        load8(x + 8 * i, v[u]);\n")]),
 }
 
 
-VARIANT_KINDS = ("k1", "k2", "k5", "k6", "k7", "k8", "k9")
+VARIANT_KINDS = ("k1", "k2", "k5", "k6", "k7", "k8", "k9", "int8")
 
 
 def variant_library(name: str):
@@ -786,6 +821,50 @@ def _variant_calls(kind: str) -> list:
                      vp(k[3]), vp(a[6]), vp(a[7]), vp(o), *d, cout,
                      stream()))]
         return calls
+    if kind == "int8":
+        from transcar_tpu_torch.ops import int8
+
+        g = torch.Generator(device="cuda").manual_seed(21)
+        scratch = torch.zeros(2, dtype=torch.int32, device="cuda")
+        amax, scale = torch.empty((), device="cuda"), torch.empty((),
+                                                                device="cuda")
+        for preset, per in int8_main_shapes().items():
+            for (n, cin, h, w, cout, k, stride, pad), per_req in per.items():
+                if not int8.takes_wgmma(cin, cout):
+                    continue
+                ho = (h + 2 * pad - k) // stride + 1
+                wo = (w + 2 * pad - k) // stride + 1
+                xq = torch.randint(-127, 128, (n, h, w, cin), device="cuda",
+                                   generator=g, dtype=torch.int8)
+                wq = int8.prepare_weight(torch.randn(
+                    cout, cin, k, k, device="cuda", generator=g))
+                t = (xq, wq.kmajor, torch.full((), 0.01, device="cuda"),
+                     wq.scale, *_affine(g, cout))
+                o = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16,
+                                device="cuda")
+                calls.append((
+                    f"{preset} {cin}x{h}x{w}->{cout} {k}x{k}s{stride}",
+                    per_req, lambda lib, t=t, o=o, d=(
+                        n, h, w, cin, cout, k, k, stride, pad, ho, wo,
+                        wq.kmajor.shape[1]): lib.int8_conv_wgmma(
+                            *map(vp, t), 1, vp(o), 1, vp(amax), vp(scratch),
+                            *d, stream())))
+            # the amax + codes passes of each conv input (one a conv)
+            inputs = {}
+            for (n, cin, h, w, *_), per_req in per.items():
+                inputs[(n, cin, h, w)] = inputs.get((n, cin, h, w), 0) + per_req
+            for (n, cin, h, w), per_req in inputs.items():
+                x = torch.randn(n * h * w * cin, device="cuda",
+                                generator=g).bfloat16()
+                q = torch.empty(x.shape, dtype=torch.int8, device="cuda")
+                calls.append((
+                    f"{preset}-quantize {n}x{cin}x{h}x{w}", per_req,
+                    lambda lib, x=x, q=q: lib.int8_amax(
+                        vp(x), 1, ctypes.c_longlong(x.numel()), vp(amax),
+                        vp(scratch), stream()) or lib.int8_codes(
+                        vp(x), 1, ctypes.c_longlong(x.numel()), vp(amax),
+                        vp(q), vp(scale), stream())))
+        return calls
     if kind in ("k7", "k8", "k9"):
         g = torch.Generator(device="cuda").manual_seed(18)
         s = sum(h * w for h, w in BEV_LEVELS)
@@ -831,9 +910,10 @@ def _variant_calls(kind: str) -> list:
 
 def phase_variants(kinds, smi: str) -> None:
     """Each knock-out variant of ``kinds`` ("k1", "k2", "k5", "k6", "k7",
-    "k8", "k9"): ms per request or step (CUDA events; K2's launches queued
-    behind a spin kernel) at the main path's shapes, by offsets for K1 and
-    by call for K7-K9, timed in turns with the unpatched kernel
+    "k8", "k9", "int8"): ms per request or step (CUDA events; K2's and the
+    int8 conv's launches queued behind a spin kernel) at the main path's
+    shapes, by offsets for K1, by call for K7-K9 and by preset for int8
+    (the wgmma tile's bare entry with the epilogue fold), timed in turns with the unpatched kernel
     ("<kind> base"; base, variant, variant, base at every call, each the
     better of its two turns) so that every reading has a paired one; K2's
     variants also print their error against the plain version."""
@@ -849,7 +929,8 @@ def phase_variants(kinds, smi: str) -> None:
                 if call(lib) != 0:
                     raise RuntimeError(f"{name} failed at {label}")
                 iters = 20 if kind == "k1" else 10
-                timer = (queued_ms if kind == "k2"
+                timer = (queued_ms if kind == "k2" else _int8_timer
+                         if kind == "int8"
                          else lambda f: cuda_ms(f, iters=iters))
                 var = lambda: call(lib)
                 turns = [timer(f) for f in (lambda: call(base), var, var,
@@ -857,7 +938,7 @@ def phase_variants(kinds, smi: str) -> None:
                 ms, base_ms = min(turns[1:3]), min(turns[0], turns[3])
                 key = (label.rsplit(" ", 1)[-1] if kind in ("k1", "k6")
                        else label.split(" ", 1)[0]
-                       if kind in ("k7", "k8", "k9") else "all")
+                       if kind in ("k7", "k8", "k9", "int8") else "all")
                 per_req[key] = per_req.get(key, 0.0) + n * ms
                 base_req[key] = base_req.get(key, 0.0) + n * base_ms
                 parts.append(f"{label} {ms:.4f} (base {base_ms:.4f})"
@@ -1220,22 +1301,33 @@ def k2_entry(lib, qh, kh, vh, keep):
     return (lambda held=held: fn(*args)), out
 
 
-def queued_ms(fn, iters: int = 50) -> float:
+def queued_ms(fn, iters: int = 50, warmup: int = 1) -> float:
     """Device ms of ``fn()`` launched ``iters`` times back to back (CUDA
-    events): the launches queue up behind a ~10 ms spin kernel, so the
-    host's time per launch (a wrapper's checks, ctypes) stays out of a
-    reading of a ~35 µs kernel."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(iters):
+    events): the launches queue up behind a ~10 ms spin kernel
+    (``torch.cuda._sleep``), so the host's time per launch (a wrapper's
+    checks, ctypes, allocations) stays out of a reading of a short
+    kernel, which :func:`cuda_ms` does not ensure.  The reading counts
+    only if the start event had not yet run when the host was done
+    issuing; else the spin is lengthened and the reading taken again."""
+    for _ in range(warmup):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = 20_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        paced = start.query()          # the spin ended while the host issued
+        torch.cuda.synchronize()
+        if not paced:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise RuntimeError("queued_ms: the host could not queue the launches "
+                       "ahead of the device")
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -2159,6 +2251,7 @@ def _zero_counts() -> None:
     pallas_msdeform.backward_value_launches = 0
     pallas_msdeform.backward_value_group_launches = 0
     int8.launches = int8.quantize_launches = 0
+    int8.wgmma_launches = int8.amax_launches = 0
 
 
 def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
@@ -3781,38 +3874,112 @@ def _pipeline_lidar_run(tmp: str, data: list, smi: str) -> None:
 
 #: int8 convolutions, and the kernels beside them, a bs1 request of each
 #: int8 serving slice.  R101 (DCN in stages 3-4, 3/4/23/3 blocks): the stem
-#: + 33 conv1 + 33 conv3 + 7 non-DCN conv2 + 4 downsample = 78, beside 26
-#: K1 and 3 K2.  VoVNet-99 with the K4 tail (osa_reduce_impl "auto" at
-#: inference): 3 stem convs + 16 blocks x 5 chain convs = 83, beside 16 K4
-#: and 3 K2; the concat reduce stays bf16 on K4, as on the TPU.  Each int8
-#: conv runs one quantize pass of its input.
+#: + 33 conv1 + 33 conv3 + 7 non-DCN conv2 + 4 downsample = 78 convs, all
+#: but the stem (Cin = 3) on the wgmma tile (77), beside 26 K1 and 3 K2;
+#: 74 codes passes (the 4 downsamples share conv1's) and 60 standalone
+#: amax passes (the stem, 33 conv1 and the 26 conv3 after a DCN; the 7
+#: non-DCN conv2 and conv3 take the amax of the epilogue before them).
+#: VoVNet-99 with the K4 tail: 3 stem convs + 16 blocks x 5 chain convs =
+#: 83, all but stem1 on the wgmma tile (82), beside 16 K4 and 3 K2; 83
+#: codes passes and 17 amax passes (stem1 and the 16 blocks' conv0; chain
+#: convs 1-4 and stems 2-3 take their producer's).  The concat reduce stays
+#: bf16 on K4, as on the TPU.
 INT8_SLICES = {
-    "transcar_r101": {"int8_conv": 78, "int8_quantize": 78,
-                      "dcn_forward": 26, "masked_attention": 3},
-    "transcar_vovnet_trainval": {"int8_conv": 83, "int8_quantize": 83,
+    "transcar_r101": {"int8_conv": 78, "int8_wgmma": 77, "int8_quantize": 74,
+                      "int8_amax": 60, "dcn_forward": 26,
+                      "masked_attention": 3},
+    "transcar_vovnet_trainval": {"int8_conv": 83, "int8_wgmma": 82,
+                                 "int8_quantize": 83, "int8_amax": 17,
                                  "osa_reduce": 16, "masked_attention": 3},
 }
 INT8_OPTS = ("model.backbone.quantize=int8",)
+#: Each FPN level's cosine against the bf16 path at the seeded weights and
+#: batch, as the first int8 kernels gave it (the range over the levels; the
+#: outputs are bit for bit those): each level stays inside it to 1e-5.
+INT8_FPN_COS = {"transcar_r101": (0.99880, 0.99925),
+                "transcar_vovnet_trainval": (0.99948, 0.99991)}
 
 
-def _record_int8_shapes() -> tuple:
-    """Wrap the int8 conv wrapper's kernel entry so each call records its
-    shape (N, Cin, H, W, Cout, k, stride, padding); returns the list and
-    a function that unwraps it."""
+def int8_main_shapes() -> dict:
+    """{preset: {(N, Cin, H, W, Cout, k, stride, padding): calls a
+    request}} of the int8 convs of the two slices at 6 x 928 x 1600, from
+    the architectures (phase 21 checks the recorded calls against it)."""
+    r101, n = {}, 6
+
+    def add(table, *shape, calls=1):
+        key = (n, *shape)
+        if calls:
+            table[key] = table.get(key, 0) + calls
+
+    add(r101, 3, 928, 1600, 64, 7, 2, 3)
+    h, w, cin = 232, 400, 64
+    for planes, blocks, stride, dcn in ((64, 3, 1, False), (128, 4, 2, False),
+                                        (256, 23, 2, True),
+                                        (512, 3, 2, True)):
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        add(r101, cin, h, w, planes, 1, stride, 0)                # conv1
+        add(r101, cin, h, w, 4 * planes, 1, stride, 0)            # downsample
+        add(r101, 4 * planes, ho, wo, planes, 1, 1, 0, calls=blocks - 1)
+        if not dcn:
+            add(r101, planes, ho, wo, planes, 3, 1, 1, calls=blocks)
+        add(r101, planes, ho, wo, 4 * planes, 1, 1, 0, calls=blocks)
+        h, w, cin = ho, wo, 4 * planes
+    vov = {}
+    add(vov, 3, 928, 1600, 64, 3, 2, 1)
+    add(vov, 64, 464, 800, 64, 3, 1, 1)
+    add(vov, 64, 464, 800, 128, 3, 2, 1)
+    h, w, cin = 232, 400, 128
+    for si, (ch, out, blocks) in enumerate(((128, 256, 1), (160, 512, 3),
+                                            (192, 768, 9), (224, 1024, 3))):
+        if si > 0:
+            h, w = h // 2, w // 2
+        add(vov, cin, h, w, ch, 3, 1, 1)
+        add(vov, out, h, w, ch, 3, 1, 1, calls=blocks - 1)
+        add(vov, ch, h, w, ch, 3, 1, 1, calls=4 * blocks)
+        cin = out
+    return {"transcar_r101": r101, "transcar_vovnet_trainval": vov}
+
+
+def _record_int8_calls() -> tuple:
+    """Wrap the int8 conv and quantize kernel entries so that each call
+    records its shape: the conv's (N, Cin, H, W, Cout, k, stride, padding)
+    with its epilogue flags (affine, relu, amax taken), and the quantize's
+    (N, C, H, W) with whether an amax came with it.  Returns the two lists
+    and a function that unwraps them."""
     from transcar_tpu_torch.ops import int8
 
-    calls, kernel = [], int8.conv_kernel
+    convs, quants = [], []
+    conv, quant = int8.conv_kernel, int8.quantize_kernel
 
-    def recording(xq, s_x, weight_q, stride=1, padding=0, dilation=1,
-                  out_dtype=torch.bfloat16):
-        n, cin, h, w = xq.shape
-        cout, _, k, _ = weight_q.q.shape
-        calls.append((n, cin, h, w, cout, k, stride, padding))
-        return kernel(xq, s_x, weight_q, stride, padding, dilation,
-                      out_dtype)
+    def recording_conv(xq, s_x, weight_q, stride=1, padding=0, dilation=1,
+                       out_dtype=torch.bfloat16, affine=None, relu=False,
+                       want_amax=False):
+        n, _, h, w = xq.shape
+        cout, cin, k, _ = weight_q.q.shape
+        convs.append(((n, cin, h, w, cout, k, stride, padding),
+                      (affine is not None, relu, want_amax)))
+        return conv(xq, s_x, weight_q, stride, padding, dilation, out_dtype,
+                    affine, relu, want_amax)
 
-    int8.conv_kernel = recording
-    return calls, lambda: setattr(int8, "conv_kernel", kernel)
+    def recording_quant(x, amax=None, channels=None):
+        quants.append((tuple(x.shape), amax is not None))
+        return quant(x, amax, channels)
+
+    int8.conv_kernel, int8.quantize_kernel = recording_conv, recording_quant
+
+    def unwrap():
+        int8.conv_kernel, int8.quantize_kernel = conv, quant
+    return convs, quants, unwrap
+
+
+def _per_request(calls: list, n_req: int) -> dict:
+    counts = {}
+    for c in calls:
+        counts[c] = counts.get(c, 0) + 1
+    if any(k % n_req for k in counts.values()):
+        raise AssertionError(f"int8 calls {counts} are not the same in each "
+                             f"of {n_req} requests")
+    return {c: k // n_req for c, k in counts.items()}
 
 
 def _fpn_levels(preset: str, options) -> list:
@@ -3833,20 +4000,26 @@ def _fpn_levels(preset: str, options) -> list:
 def phase_int8_slices(smi: str) -> tuple:
     """``transcar_r101`` and ``transcar_vovnet_trainval`` bs1 serving at
     full width with ``model.backbone.quantize=int8`` through
-    ``cli.benchmark``: launches per request against :data:`INT8_SLICES`,
-    finite outputs and decode, ms a request and peak memory beside the
-    bf16 path in this call, each FPN level's cosine and relative error
-    against the bf16 path at the same seeded weights, and no host sync in
-    a warm int8 request.  Returns (launches of the runs by kernel, summed
-    over both presets; {preset: {conv shape: calls a request}})."""
+    ``cli.benchmark``: launches per request against :data:`INT8_SLICES`
+    (the wgmma tile's, the codes and the standalone amax passes among
+    them), the conv shapes against :func:`int8_main_shapes`, every conv
+    with FrozenBN folded into its epilogue, finite outputs and decode, ms a
+    request and peak memory beside the bf16 path in this call, each FPN
+    level's cosine and relative error against the bf16 path at the same
+    seeded weights (inside :data:`INT8_FPN_COS`), and no host sync in a
+    warm int8 request.  Returns (launches of the runs by kernel, summed
+    over both presets; {preset: {conv shape: calls a request}}; {preset:
+    {(quantize shape, amax given): calls a request}})."""
     from transcar_tpu_torch.cli import benchmark
     from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.ops import int8
 
-    launches, shapes = {}, {}
+    launches, shapes, quants = {}, {}, {}
+    arch = int8_main_shapes()
     for preset, per_req in INT8_SLICES.items():
         cfg = get_preset(preset)
         _zero_counts()
-        calls, unwrap = _record_int8_shapes()
+        convs, qcalls, unwrap = _record_int8_calls()
         try:
             rec, out = benchmark.run([preset, "--samples", "5", "--warmup",
                                       "2", "--cfg-options", *INT8_OPTS])
@@ -3856,17 +4029,29 @@ def phase_int8_slices(smi: str) -> tuple:
         got = rec["kernel_launches"]
         want = {k: per_req.get(k, 0) * n_req for k in got}
         valid = _check_outputs(f"int8 {preset}", out, cfg)
-        counts = {}
-        for c in calls:
-            counts[c] = counts.get(c, 0) + 1
-        shapes[preset] = {c: k // n_req for c, k in counts.items()}
+        per_conv = _per_request(convs, n_req)
+        shapes[preset] = _per_request([c for c, _ in convs], n_req)
+        quants[preset] = _per_request(qcalls, n_req)
+        paths = {}
+        for shape, calls in shapes[preset].items():
+            path = "wgmma" if int8.takes_wgmma(shape[1], shape[4]) else "mma"
+            paths[path] = paths.get(path, 0) + calls
         print(f"int8 slice {preset} 6x928x1600 bs1: {n_req} requests, "
               f"launches {got} (want {per_req} a request, no other kernel), "
-              f"{len(shapes[preset])} distinct int8 conv shapes; outputs "
-              f"finite; decode {valid}/300 valid boxes")
-        if got != want or any(k % n_req for k in counts.values()):
+              f"{len(shapes[preset])} distinct int8 conv shapes (convs a "
+              f"request by tile {paths}); epilogues (affine, relu, amax) "
+              f"{sorted({f for _, f in per_conv})}; quantize calls a request "
+              f"{sum(quants[preset].values())}, "
+              f"{sum(k for (_, a), k in quants[preset].items() if a)} from "
+              f"an epilogue's amax; outputs finite; decode {valid}/300 valid "
+              f"boxes")
+        if got != want or shapes[preset] != arch[preset]:
             raise AssertionError(f"int8 slice {preset}: launches {got} != "
-                                 f"{want}")
+                                 f"{want}, or shapes {shapes[preset]} != "
+                                 f"{arch[preset]}")
+        if not all(f[0] for _, f in per_conv):
+            raise AssertionError(f"int8 slice {preset}: a conv without its "
+                                 f"FrozenBN in the epilogue")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         base, _ = benchmark.run([preset, "--samples", "5", "--warmup", "2"])
@@ -3875,17 +4060,34 @@ def phase_int8_slices(smi: str) -> tuple:
                   f"{r['ms_per_sample']:.2f} ms a request "
                   f"({r['samples_per_sec']:.3f} samples/s), peak memory "
                   f"{r['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
+        for name, opts in (("int8", INT8_OPTS), ("bf16", ())):
+            t = _traced_request(preset, opts)
+            if not t["kernels_per_iter"]:     # the profiler kept no kernel
+                t = _traced_request(preset, opts)
+            if not t["kernels_per_iter"]:
+                print(f"int8 slice {preset} {name} path traced: the profiler "
+                      f"recorded no kernel twice (device time not measured)")
+                continue
+            groups = t["ms_per_iter_by_group"]
+            print(f"int8 slice {preset} {name} path traced (5 requests): "
+                  f"device busy {t['device_busy_ms_per_iter']:.2f} ms a "
+                  f"request, idle share {t['device_idle_share']:.3f}, "
+                  f"{t['kernels_per_iter']:.0f} kernels a request; ms a "
+                  f"request by group " + ", ".join(
+                      f"{g} {v:.3f}" for g, v in groups.items()), flush=True)
         q = _fpn_levels(preset, INT8_OPTS)
         f = _fpn_levels(preset, ())
         parts = []
+        lo, hi = INT8_FPN_COS[preset]
         for i, (a, b) in enumerate(zip(q, f)):
             a, b = a.double().flatten(), b.double().flatten()
             cos = (a @ b / (a.norm() * b.norm())).item()
             rel = ((a - b).norm() / b.norm()).item()
             parts.append(f"P{i}: cos {cos:.6f}, rel {rel:.4f}")
-            if not (math.isfinite(cos) and cos > 0.9):
+            if not (math.isfinite(cos) and lo - 1e-5 <= cos <= hi + 1e-5):
                 raise AssertionError(f"int8 slice {preset} FPN level {i}: "
-                                     f"cosine {cos} against bf16")
+                                     f"cosine {cos} against bf16, outside "
+                                     f"[{lo}, {hi}] +- 1e-5")
         print(f"int8 slice {preset} FPN levels against the bf16 path (same "
               f"seeded weights and batch): " + "; ".join(parts))
         del q, f
@@ -3897,7 +4099,22 @@ def phase_int8_slices(smi: str) -> tuple:
             raise AssertionError(f"int8 {preset}: a serving request "
                                  f"synchronized with the host: {found}")
         torch.cuda.empty_cache()
-    return launches, shapes
+    return launches, shapes, quants
+
+
+def _traced_request(preset: str, options) -> dict:
+    """``cli.benchmark --trace-dir`` of 5 bs1 requests of ``preset``: its
+    ``summary.json`` (device busy ms and kernel groups a request); the
+    chrome trace itself is deleted."""
+    import tempfile
+
+    from transcar_tpu_torch.cli import benchmark
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, _ = benchmark.run([preset, "--samples", "5", "--warmup", "2",
+                                "--trace-dir", tmp, "--cfg-options",
+                                *options])
+    return rec["trace"]
 
 
 def _im2col(xq, k: int, stride: int, padding: int, kp: int):
@@ -3916,9 +4133,19 @@ def _im2col(xq, k: int, stride: int, padding: int, kp: int):
     return torch.nn.functional.pad(a, (0, kp - k * k * c)).contiguous()
 
 
+def _flat_kmajor(q):
+    """OIHW int8 codes as [Cout, Kp] with k = (ky·kw + kx)·Cin + ci, zero
+    past K (Kp a multiple of 64): the first tile's layout for every Cin,
+    which ``torch._int_mm`` on :func:`_im2col` and the parent take."""
+    cout = q.shape[0]
+    flat = q.permute(0, 2, 3, 1).reshape(cout, -1)
+    return torch.nn.functional.pad(flat, (0, -flat.shape[1] % 64)).contiguous()
+
+
 def parent_int8_conv(lib, xq, s_x, wq, stride: int, pad: int):
-    """An earlier commit's int8 conv kernel (``lib.int8_conv``) on the same
-    codes, scales and K-major weight codes, bfloat16 out."""
+    """An earlier commit's int8 conv kernel (``lib.int8_conv``, the first
+    ``mma.sync`` tile with the dequantize alone) on the same codes, scales
+    and K-major weight codes, bfloat16 out."""
     n, cin, h, w = xq.shape
     cout, _, k, _ = wq.q.shape
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
@@ -3935,8 +4162,8 @@ def parent_int8_conv(lib, xq, s_x, wq, stride: int, pad: int):
 
 
 def parent_int8_quantize(lib, x):
-    """An earlier commit's quantize pass (``lib.int8_quantize``) on ``x``:
-    (codes, scale)."""
+    """An earlier commit's quantize pass (``lib.int8_quantize``: a memset,
+    the amax and the codes kernels) on ``x``: (codes, scale)."""
     q = torch.empty_like(x, dtype=torch.int8)
     buf = torch.empty(2, dtype=torch.float32, device="cuda")
     rc = lib.int8_quantize(
@@ -3949,146 +4176,259 @@ def parent_int8_quantize(lib, x):
     return q, buf[0]
 
 
-def phase_int8(shapes: dict, smi: str, parent=None) -> dict:
-    """The int8 conv kernel and the quantize pass against their plain
+def _int8_timer(f):
+    return queued_ms(f, iters=10, warmup=2)
+
+
+def phase_int8(shapes: dict, quants: dict, smi: str, parent=None) -> dict:
+    """The int8 conv kernel and the quantize passes against their plain
     versions on the card at every distinct conv shape of the two int8
-    slices (``shapes`` from :func:`phase_int8_slices`), bfloat16
-    activations: the codes and scale, and the dequantized output, bit for
-    bit.  Per shape and per request of each slice (calls a request as
-    weights): the kernel's ms, the plain version's, the bound
-    max(2·M·Cout·K / 1,979 TOPS, bytes / 3.35 TB/s), and two yardsticks
-    the port never calls: ``torch._int_mm`` of an im2col of the same codes
-    (the same int32 product; the im2col built outside the timing) and
-    cuDNN's bfloat16 ``F.conv2d`` of the same shape (the path int8
-    replaces).  With a ``parent`` library that has an int8 conv, its conv
+    slices (``shapes`` and ``quants`` from :func:`phase_int8_slices`),
+    bfloat16 activations, bit for bit: the codes and scale (the amax and
+    codes passes, and the codes pass from a given amax), the conv alone
+    (the dequantize) and the conv with ConvBN's epilogue (FrozenBN's
+    affine, ReLU) and its amax, each with the tile it took.  Per shape and
+    per request of each slice (calls a request as weights), timed by
+    :func:`queued_ms` (launches queued ahead of the device): the fused
+    conv's ms (what the main path runs) beside cuDNN's bfloat16 conv plus
+    the module's BN and ReLU passes (a stem's also beside the knock-out
+    that runs it on the ``wgmma`` tile, its codes and weight zero-padded to
+    16 channels, in turns); the conv alone beside the bound
+    max(2·M·Cout·K / 1,979 TOPS, bytes / 3.35 TB/s), the bytes those of
+    the codes its taps cover at its own Cin (N·min(H·W, k²·Ho·Wo)·Cin),
+    the weight codes and scales and the output, ``torch._int_mm`` of
+    an im2col of the same codes (the same int32 product; the im2col built
+    outside the timing) and cuDNN's bfloat16 ``F.conv2d`` of the same shape
+    (two yardsticks the port never calls); the amax and codes passes
+    beside their bounds, per request as the main path runs them (a codes
+    pass each quantize, an amax pass where no epilogue gave one).  With a
+    ``parent`` library that has an int8 conv (the first tile), its conv
     and quantize kernels are held to these bit for bit and timed in turns
-    with them.
-    Returns the kernels-line entries of ``int8_conv`` and
-    ``int8_quantize`` (per ``transcar_r101`` request)."""
+    with the conv alone and the amax + codes passes.  Returns the
+    kernels-line entries of ``int8_conv`` (``ms`` the conv alone,
+    ``fused_ms`` with the epilogue) and ``int8_quantize``, per
+    ``transcar_r101`` request."""
     import torch.nn.functional as F
 
     from transcar_tpu_torch.ops import int8
 
     bf16 = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(0)
-    keys = ("ms", "plain_ms", "bound_ms", "int_mm_ms", "cudnn_ms", "q_ms",
-            "q_plain_ms", "q_bound_ms", "parent_ms", "q_parent_ms")
+    keys = ("ms", "conv_ms", "plain_ms", "bound_ms", "int_mm_ms", "cudnn_ms",
+            "cudnn_bn_relu_ms", "parent_ms", "q_parent_ms", "stem_ms",
+            "stem16_ms")
+    qkeys = ("q_ms", "q_plain_ms", "q_bound_ms")
     parent = parent if parent is not None and hasattr(parent, "int8_conv") \
         else None
-    totals = {p: dict.fromkeys(keys, 0.0) for p in shapes}
+    totals = {p: dict.fromkeys(keys + qkeys, 0.0) for p in shapes}
     worst = {"conv": 0.0, "quantize": 0.0}
     kinds = set()
     t0 = time.perf_counter()
+    counted = set()               # input shapes whose quantizes are summed
     for shape in sorted({s for per in shapes.values() for s in per}):
         n, cin, h, w, cout, k, stride, pad = shape
+        path = "wgmma" if int8.takes_wgmma(cin, cout) else "mma"
         x = torch.randn(n, cin, h, w, device="cuda", generator=g).to(
             bf16).contiguous(memory_format=torch.channels_last)
         wt = torch.randn(cout, cin, k, k, device="cuda",
                          generator=g) / math.sqrt(k * k * cin)
+        aff = _affine(g, cout)
         wq = int8.prepare_weight(wt)
-        xq, s_x = int8.quantize_kernel(x)
+        flat = _flat_kmajor(wq.q)
+        cq = int8.code_channels(cin)        # a stem's codes: 4 channels
+        xq, s_x = int8.quantize_kernel(x, channels=cq)
         xq_ref, s_ref = int8.plain_quantize_per_tensor(x)
-        q_err = (xq.int() - xq_ref.int()).abs().max().item()
-        q_same = q_err == 0 and s_x.item() == s_ref.item()
+        xq2, s_2 = int8.quantize_kernel(x, int8.plain_amax(x), cq)
+        q_err = (xq[:, :cin].int() - xq_ref.int()).abs().max().item()
+        q_same = (q_err == 0 and s_x.item() == s_ref.item()
+                  and not xq[:, cin:].any()
+                  and torch.equal(xq2, xq) and s_2.item() == s_x.item())
+        xq_flat = xq if cq == cin else int8.quantize_kernel(x)[0]
         got = int8.conv_kernel(xq, s_x, wq, stride, pad)
         ref = int8.plain_int8_conv(xq_ref, s_ref, wq.q, wq.scale, stride,
                                    pad, 1, bf16)
-        err = (got.float() - ref.float()).abs().max().item()
-        same = torch.equal(got, ref)
+        fused, amax = int8.conv_kernel(xq, s_x, wq, stride, pad, 1, bf16,
+                                       aff, True, want_amax=True)
+        fused_ref = int8.plain_int8_convbn(xq_ref, s_ref, wq.q, wq.scale,
+                                           stride, pad, 1, bf16, aff, True)
+        err = max((got.float() - ref.float()).abs().max().item(),
+                  (fused.float() - fused_ref.float()).abs().max().item())
+        same = (torch.equal(got, ref) and torch.equal(fused, fused_ref)
+                and amax.item() == fused_ref.float().abs().max().item())
         worst["conv"] = max(worst["conv"], err)
         worst["quantize"] = max(worst["quantize"], float(q_err))
-        kern = functools.partial(int8.conv_kernel, xq, s_x, wq, stride, pad)
+        conv = functools.partial(int8.conv_kernel, xq, s_x, wq, stride, pad)
+        kern = functools.partial(int8.conv_kernel, xq, s_x, wq, stride, pad,
+                                 1, bf16, aff, True, want_amax=True)
         parent_ms, turns = float("nan"), ""
         if parent is not None:
-            old = functools.partial(parent_int8_conv, parent, xq, s_x, wq,
-                                    stride, pad)
+            old = functools.partial(parent_int8_conv, parent, xq_flat, s_x,
+                                    wq._replace(kmajor=flat), stride, pad)
             same = same and torch.equal(old(), got)
-            ms, parent_ms, turns = in_turns(kern, old, lambda f: cuda_ms(
-                f, iters=10, warmup=2))
-            turns = f"; in turns {turns}"
+            conv_ms, parent_ms, turns = in_turns(conv, old, _int8_timer)
+            turns = f"; conv alone in turns with the parent: {turns}"
         else:
-            ms = cuda_ms(kern, iters=10, warmup=2)
-        plain_ms = cuda_ms(lambda: int8.plain_int8_conv(
-            xq, s_x, wq.q, wq.scale, stride, pad, 1, bf16), iters=2,
-            warmup=1)
-        a = _im2col(xq, k, stride, pad, wq.kmajor.shape[1])
-        bt = wq.kmajor.t()
+            conv_ms = _int8_timer(conv)
+        ms = _int8_timer(kern)
+        ms16, wide = float("nan"), ""
+        if cq != cin:
+            # knock-out: the stem on the wgmma tile, its codes and weight
+            # zero-padded to 16 channels (one 128-channel slice a tap)
+            xq16 = torch.zeros((n, h, w, 16), dtype=torch.int8,
+                               device="cuda")
+            xq16[..., :cq] = xq.permute(0, 2, 3, 1)
+            xq16 = xq16.permute(0, 3, 1, 2)
+            wq16 = int8.prepare_weight(F.pad(wt, (0, 0, 0, 0, 0, 16 - cin)))
+            wide_kern = functools.partial(int8.conv_kernel, xq16, s_x, wq16,
+                                          stride, pad, 1, bf16, aff, True,
+                                          want_amax=True)
+            out16, amax16 = wide_kern()
+            same = (same and torch.equal(out16, fused)
+                    and amax16.item() == amax.item())
+            ms, ms16, _ = in_turns(kern, wide_kern, _int8_timer)
+            extra_ms = 1e3 * 12 * n * h * w / HBM_BYTES_PER_S
+            wide = (f"; knock-out on the wgmma tile (codes padded to 16 "
+                    f"channels, = kernel {torch.equal(out16, fused)}), fused"
+                    f", in turns: {ms16:.4f} ms against {ms:.4f} ms, and "
+                    f"its codes pass writes 12 more bytes a pixel (+"
+                    f"{extra_ms:.4f} ms at the memory rate)")
+            del xq16, wq16, out16
+        plain_ms = cuda_ms(lambda: int8.plain_int8_convbn(
+            xq_flat, s_x, wq.q, wq.scale, stride, pad, 1, bf16, aff, True),
+            iters=2, warmup=1)
+        a = _im2col(xq_flat, k, stride, pad, flat.shape[1])
+        bt = flat.t()
         acc = torch._int_mm(a, bt)
         mm_same = torch.equal(
             (acc.float() * (s_x * wq.scale)).to(bf16),
             got.permute(0, 2, 3, 1).reshape(acc.shape))
-        mm_ms = cuda_ms(lambda: torch._int_mm(a, bt), iters=10, warmup=2)
+        mm_ms = _int8_timer(lambda: torch._int_mm(a, bt))
         del a, acc
         wb = wt.to(bf16).contiguous(memory_format=torch.channels_last)
-        dnn_ms = cuda_ms(lambda: F.conv2d(x, wb, stride=stride, padding=pad),
-                         iters=10, warmup=2)
-        q_kern = functools.partial(int8.quantize_kernel, x)
+        sb, bb = (t.to(bf16).view(1, -1, 1, 1) for t in aff)
+        dnn_ms = _int8_timer(lambda: F.conv2d(x, wb, stride=stride,
+                                              padding=pad))
+        dnn_bn_ms = _int8_timer(lambda: F.relu(F.conv2d(
+            x, wb, stride=stride, padding=pad) * sb + bb))
+        # the quantize passes: amax + codes, and the codes pass alone
+        amax_x = int8.plain_amax(x)
+        q_full = _int8_timer(lambda: int8.quantize_kernel(x, channels=cq))
+        q_codes = _int8_timer(lambda: int8.quantize_kernel(x, amax_x, cq))
         q_parent_ms = float("nan")
         if parent is not None:
             q_old = functools.partial(parent_int8_quantize, parent, x)
             pq, ps = q_old()
-            q_same = q_same and torch.equal(pq, xq) and ps.item() == s_x.item()
-            q_ms, q_parent_ms, q_turns = in_turns(q_kern, q_old, lambda f:
-                                                  cuda_ms(f, iters=10,
-                                                          warmup=2))
-            turns += f"; quantize in turns {q_turns}"
-        else:
-            q_ms = cuda_ms(q_kern, iters=10, warmup=2)
+            q_same = (q_same and torch.equal(pq, xq_flat)
+                      and ps.item() == s_x.item())
+            q_full, q_parent_ms, q_turns = in_turns(
+                lambda: int8.quantize_kernel(x, channels=cq), q_old,
+                _int8_timer)
+            turns += f"; amax + codes in turns {q_turns}"
         q_plain = cuda_ms(lambda: int8.plain_quantize_per_tensor(x),
                           iters=3, warmup=1)
         kk = k * k * cin
         m = got.numel() // cout
+        # the activation codes the taps cover, at the conv's own Cin (a 1x1
+        # stride-2 conv reads a quarter of the pixels)
+        act = n * min(h * w, k * k * (m // n)) * cin
         bound, kind = bound_ms(2.0 * m * cout * kk, torch.int8,
-                               xq.numel() + cout * kk + 4 * cout + 4
+                               act + cout * kk + 4 * cout + 4
                                + 2 * got.numel())
         kinds.add(kind)
-        q_bound = 1e3 * (3 * x.numel() + 4) / HBM_BYTES_PER_S
-        vals = dict(zip(keys, (ms, plain_ms, bound, mm_ms, dnn_ms, q_ms,
-                               q_plain, q_bound, parent_ms, q_parent_ms)))
+        amax_bound = 1e3 * (2 * x.numel() + 4) / HBM_BYTES_PER_S
+        codes_bound = 1e3 * (3 * x.numel() + 8) / HBM_BYTES_PER_S
+        vals = dict(zip(keys, (ms, conv_ms, plain_ms, bound, mm_ms, dnn_ms,
+                               dnn_bn_ms, parent_ms, q_parent_ms,
+                               ms if cq != cin else 0.0,
+                               ms16 if cq != cin else 0.0)))
         for p, per in shapes.items():
             for key in keys:
                 totals[p][key] += per.get(shape, 0) * vals[key]
+        # quantize calls of this input shape a request, with and without an
+        # epilogue's amax (the parent ran one amax + codes pass a conv),
+        # summed at the first conv shape that reads it
+        for p, per in (quants.items() if (n, cin, h, w) not in counted
+                       else ()):
+            with_amax = per.get(((n, cin, h, w), True), 0)
+            alone = per.get(((n, cin, h, w), False), 0)
+            totals[p]["q_ms"] += with_amax * q_codes + alone * q_full
+            totals[p]["q_plain_ms"] += (with_amax + alone) * q_plain
+            totals[p]["q_bound_ms"] += (with_amax * codes_bound + alone
+                                        * (amax_bound + codes_bound))
+        counted.add((n, cin, h, w))
         calls = {p: per.get(shape, 0) for p, per in shapes.items()}
         print(f"int8 {n}x{cin}x{h}x{w} -> {cout}, {k}x{k} s{stride} p{pad} "
-              f"(calls a request {calls}): codes = plain {q_same}, out = "
-              f"plain {same} (max |diff| {err:.3g}), _int_mm dequantized = "
-              f"kernel {mm_same}; kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-              f"ms, _int_mm {mm_ms:.4f} ms, cuDNN bf16 conv {dnn_ms:.4f} ms,"
-              f" bound {bound:.4f} ms by {kind} (kernel at "
-              f"{bound / ms:.0%} of it); quantize {q_ms:.4f} ms, plain "
-              f"{q_plain:.3f} ms, bound {q_bound:.4f} ms by bytes{turns}"
-              + (" ok" if same and q_same and mm_same else " FAIL"))
+              f"(calls a request {calls}) on the {path} tile: codes = plain "
+              f"{q_same}, out = plain {same} (conv alone and with BN + ReLU,"
+              f" amax; max |diff| {err:.3g}), _int_mm dequantized = kernel "
+              f"{mm_same}; fused kernel {ms:.4f} ms, cuDNN bf16 conv + BN + "
+              f"ReLU {dnn_bn_ms:.4f} ms; conv alone {conv_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, _int_mm {mm_ms:.4f} ms, cuDNN bf16 conv "
+              f"{dnn_ms:.4f} ms, bound {bound:.4f} ms by {kind} (conv alone "
+              f"at {bound / conv_ms:.0%} of it); amax + codes {q_full:.4f} ms"
+              f" (bound {amax_bound + codes_bound:.4f}, at "
+              f"{(amax_bound + codes_bound) / q_full:.0%}), codes alone "
+              f"{q_codes:.4f} ms (bound {codes_bound:.4f}, at "
+              f"{codes_bound / q_codes:.0%}), plain {q_plain:.3f} ms{turns}"
+              f"{wide}"
+              + (" ok" if same and q_same and mm_same else " FAIL"),
+              flush=True)
         if not (same and q_same and mm_same):
             raise AssertionError(f"int8 {shape}: the kernels disagree with "
                                  f"their plain versions")
-        del x, wt, wq, xq, xq_ref, got, ref, wb
+        del x, wt, wq, xq, xq_ref, xq_flat, got, ref, fused, fused_ref, wb
         torch.cuda.empty_cache()
     for p, tot in totals.items():
-        print(f"int8 per {p} request ({sum(shapes[p].values())} convs): "
-              f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+        print(f"int8 per {p} request ({sum(shapes[p].values())} convs, "
+              f"{sum(quants[p].values())} quantizes): fused kernel "
+              f"{tot['ms']:.3f} ms, cuDNN bf16 conv + BN + ReLU "
+              f"{tot['cudnn_bn_relu_ms']:.3f} ms; conv alone "
+              f"{tot['conv_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
               f"_int_mm {tot['int_mm_ms']:.3f} ms, cuDNN bf16 conv "
-              f"{tot['cudnn_ms']:.3f} ms (kernel / cuDNN "
-              f"{tot['ms'] / tot['cudnn_ms']:.3f}), bound "
-              f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.0%} "
-              f"of the kernel); quantize {tot['q_ms']:.3f} ms, plain "
+              f"{tot['cudnn_ms']:.3f} ms (conv alone / cuDNN "
+              f"{tot['conv_ms'] / tot['cudnn_ms']:.3f}), bound "
+              f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['conv_ms']:.0%}"
+              f" of the conv alone); quantize {tot['q_ms']:.3f} ms, plain "
               f"{tot['q_plain_ms']:.3f} ms, bound {tot['q_bound_ms']:.3f} ms"
-              + (f"; parent kernel {tot['parent_ms']:.3f} ms (kernel / "
-                 f"parent {tot['ms'] / tot['parent_ms']:.3f}), parent "
-                 f"quantize {tot['q_parent_ms']:.3f} ms (quantize / parent "
+              + (f"; parent conv {tot['parent_ms']:.3f} ms (conv alone / "
+                 f"parent {tot['conv_ms'] / tot['parent_ms']:.3f}), parent "
+                 f"quantize {tot['q_parent_ms']:.3f} ms over "
+                 f"{sum(shapes[p].values())} passes (quantize / parent "
                  f"{tot['q_ms'] / tot['q_parent_ms']:.3f})"
-                 if parent is not None else "") + f" on {smi}")
+                 if parent is not None else "")
+              + f"; the stems {tot['stem_ms']:.4f} ms (knock-out on the wgmma"
+              f" tile {tot['stem16_ms']:.4f})" + f" on {smi}", flush=True)
+    # a small activation the pass runs 12 times a VoVNet request: host µs a
+    # wrapper call against the device ms, and the ms cuda_ms reads there
+    # (the events then bracket launches the host is still issuing)
+    x = torch.randn(6, 224, 29, 50, device="cuda", generator=g).to(
+        bf16).contiguous(memory_format=torch.channels_last)
+    quant = functools.partial(int8.quantize_kernel, x)
+    amax_x = int8.plain_amax(x)
+    print(f"int8 quantize at 6x224x29x50: host {host_us(quant):.1f} µs a "
+          f"wrapper call (amax + codes), {host_us(lambda: int8.quantize_kernel(x, amax_x)):.1f} µs "
+          f"(codes alone)"
+          + (f", parent {host_us(lambda: parent_int8_quantize(parent, x)):.1f}"
+             f" µs" if parent is not None else "")
+          + f"; device {_int8_timer(quant):.4f} ms queued (queued_ms), "
+          f"{cuda_ms(quant, iters=10, warmup=2):.4f} ms by cuda_ms"
+          + (f"; parent {_int8_timer(lambda: parent_int8_quantize(parent, x)):.4f}"
+             f" / {cuda_ms(lambda: parent_int8_quantize(parent, x), iters=10, warmup=2):.4f} ms"
+             if parent is not None else "") + f" on {smi}")
     print(f"int8 phase: {time.perf_counter() - t0:.1f} s")
     r101 = totals["transcar_r101"]
     note = ("no TPU kernel: the JAX package runs this in XLA, "
             "transcar_tpu/ops/int8.py:48")
     return {
-        "int8_conv": {"max_abs_err": worst["conv"], "ms": r101["ms"],
+        "int8_conv": {"max_abs_err": worst["conv"], "ms": r101["conv_ms"],
+                      "fused_ms": r101["ms"],
                       "plain_ms": r101["plain_ms"],
                       "bound_ms": r101["bound_ms"],
                       "bound_by": ("operations" if "operations" in kinds
                                    else "bytes"),
                       "library_ms": r101["int_mm_ms"],
                       "cudnn_bf16_ms": r101["cudnn_ms"],
+                      "cudnn_bn_relu_ms": r101["cudnn_bn_relu_ms"],
                       "parent_ms": (r101["parent_ms"] if parent is not None
                                     else None), "note": note},
         "int8_quantize": {"max_abs_err": worst["quantize"],
@@ -4112,7 +4452,7 @@ def main(argv=None) -> None:
     ap.add_argument("--variants", default=None,
                     choices=(*VARIANT_KINDS, "all"),
                     help="instead of the phases: build and time the knock-out "
-                         "variants of the K1, K2, K5, K6, K7, K8 or K9 "
+                         "variants of the K1, K2, K5, K6, K7, K8, K9 or int8 "
                          "kernels (VARIANTS), then exit")
     args = ap.parse_args(argv)
     smi = phase_device()
@@ -4146,8 +4486,8 @@ def main(argv=None) -> None:
     phase_lidar_train_check("objdgcnn_voxel")
     phase_sync()
     phase_pipeline(smi)
-    int8_launches, int8_shapes = phase_int8_slices(smi)
-    int8_res = phase_int8(int8_shapes, smi, parent)
+    int8_launches, int8_shapes, int8_quants = phase_int8_slices(smi)
+    int8_res = phase_int8(int8_shapes, int8_quants, smi, parent)
     for name in ("msdeform_backward_taps", "msdeform_backward_value"):
         launches[name] = train_launches[name]
     kernels = []
@@ -4182,11 +4522,15 @@ def main(argv=None) -> None:
                         "bound_by": res["bound_by"],
                         "library_ms": res["library_ms"],
                         "parent_ms": res.get("parent_ms")})
+    # the int8 conv's launches on the wgmma tile, and the quantize passes'
+    # standalone amax launches (a codes pass without a producer's amax)
+    extra = {"int8_conv": {"wgmma_launches": int8_launches["int8_wgmma"]},
+             "int8_quantize": {"amax_launches": int8_launches["int8_amax"]}}
     for name, res in int8_res.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "transcar_tpu_torch/csrc/int8_conv.cu",
                         "replaces": None, "launches": int8_launches[name],
-                        **res})
+                        **extra[name], **res})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

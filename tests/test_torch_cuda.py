@@ -953,13 +953,13 @@ def test_int8_quantize_kernel(dev, dtype, shape):
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,cin,h,w,cout,k,stride,padding", [
-    (2, 3, 37, 45, 64, 7, 2, 3),        # stem: Cin = 3, byte gathers
+    (2, 3, 37, 45, 64, 7, 2, 3),        # stem: Cin = 3, 4-pixel gathers
     (1, 3, 29, 31, 64, 3, 2, 1),        # VoVNet stem1
     (2, 64, 19, 23, 24, 3, 1, 1),       # Cout below the 64-channel tile
     (1, 160, 13, 11, 160, 3, 1, 1),     # K = 1440, not a multiple of 64
     (2, 64, 17, 25, 256, 1, 1, 0),
     (1, 256, 15, 21, 128, 1, 2, 0),     # stride-2 1x1 (conv1, downsample)
-    (1, 48, 9, 9, 10, 1, 1, 0)])        # Cin % 16 != 0 off the stem
+    (1, 48, 9, 9, 16, 1, 1, 0)])        # Cin below a 128-channel slice
 def test_int8_conv_kernel(dev, out_dtype, n, cin, h, w, cout, k, stride,
                           padding):
     # the int32 sum is exact and the epilogue rounds as the plain version
@@ -1007,8 +1007,92 @@ def test_int8_conv_kernel_rejects_what_it_does_not_take(dev):
                                weight_q=int8.prepare_weight(wt.cpu()))
     with pytest.raises(ValueError, match="5x5"):
         int8.dynamic_int8_conv(x, torch.zeros(8, 16, 5, 5, device=dev))
+    # neither tile: Cout % 8 != 0, or 4 < Cin with Cin % 16 != 0
+    with pytest.raises(ValueError, match="16 -> 10 channels"):
+        int8.dynamic_int8_conv(x, torch.randn(10, 16, 1, 1, device=dev))
+    x5, w5 = _int8_case(dev, 1, 5, 9, 9, 8, 3)
+    with pytest.raises(ValueError, match="5 -> 8 channels"):
+        int8.dynamic_int8_conv(x5, w5, padding=1)
     with pytest.raises(ValueError, match="CUDA"):
         int8.quantize_kernel(x.cpu())
+
+
+def _int8_affine(dev, cout, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(cout, device=dev, generator=g) * 3 - 1.5,
+            torch.randn(cout, device=dev, generator=g))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fold,relu", [(False, False), (True, False),
+                                       (True, True)])
+@pytest.mark.parametrize("n,cin,h,w,cout,k,stride,padding", [
+    (2, 64, 19, 23, 64, 3, 1, 1),       # VoVNet stem2, R101 conv2
+    (1, 64, 13, 11, 160, 3, 1, 1),      # 160 / 192 / 224: one Cout tile
+    (1, 256, 9, 13, 192, 3, 1, 1),
+    (1, 160, 10, 9, 224, 3, 2, 1),      # stride 2: four parity maps
+    (2, 64, 17, 25, 256, 1, 1, 0),      # the reduce form
+    (1, 256, 7, 9, 1024, 1, 1, 0),
+    (1, 256, 15, 21, 1024, 1, 2, 0),    # 1x1 stride 2 (conv1, downsample)
+    (1, 64, 12, 14, 1024, 3, 1, 1),     # 256-wide Cout slices
+    (1, 64, 17, 19, 64, 7, 2, 3),       # 7x7 on the wgmma tile
+    (2, 3, 21, 25, 64, 7, 2, 3),        # the stems: the mma.sync tile
+    (1, 3, 29, 31, 64, 3, 2, 1)])
+def test_int8_conv_epilogue(dev, out_dtype, fold, relu, n, cin, h, w, cout,
+                            k, stride, padding):
+    # ConvBN's epilogue (FrozenBN's affine, ReLU) with the module's
+    # roundings, bit for bit against the plain version; the amax the
+    # epilogue takes equals max |out| (twice: the scratch pair it meets
+    # in is zero again after each launch)
+    from transcar_tpu_torch.ops import int8
+
+    x, wt = _int8_case(dev, n, cin, h, w, cout, k, seed=cout + k)
+    wq = int8.prepare_weight(wt)
+    xq, s_x = int8.quantize_kernel(x, channels=int8.code_channels(cin))
+    affine = _int8_affine(dev, cout, cin) if fold else None
+    want = int8.plain_int8_convbn(xq[:, :cin], s_x, wq.q, wq.scale, stride,
+                                  padding, 1, out_dtype, affine, relu)
+    for _ in range(2):
+        before = (int8.launches, int8.wgmma_launches)
+        got, amax = int8.conv_kernel(xq, s_x, wq, stride, padding, 1,
+                                     out_dtype, affine, relu, want_amax=True)
+        assert (int8.launches, int8.wgmma_launches) == (
+            before[0] + 1, before[1] + int8.takes_wgmma(cin, cout))
+        assert got.dtype == out_dtype and torch.equal(got, want)
+        assert amax.item() == want.float().abs().max().item()
+    assert int8.takes_wgmma(cin, cout) == (cin != 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stem_codes_take_four_channels(dev, dtype):
+    # a stem's image: 4-channel codes, the fourth zero, the rest and the
+    # scale those of the plain quantize
+    from transcar_tpu_torch.ops import int8
+
+    x, _ = _int8_case(dev, 2, 3, 17, 23, 8, 1, dtype=dtype)
+    q, s = int8.quantize_kernel(x, channels=int8.code_channels(3))
+    q_ref, s_ref = int8.plain_quantize_per_tensor(x)
+    assert q.shape == (2, 4, 17, 23) and q.is_contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(q[:, :3], q_ref) and not q[:, 3].any()
+    assert s.item() == s_ref.item()
+
+
+def test_int8_codes_pass_from_a_given_amax(dev):
+    # the codes pass alone (one launch, no amax pass) from an epilogue's
+    # amax equals the plain quantize bit for bit
+    from transcar_tpu_torch.ops import int8
+
+    x, _ = _int8_case(dev, 2, 64, 13, 17, 8, 1)
+    before = (int8.quantize_launches, int8.amax_launches)
+    q, s = int8.quantize_kernel(x, int8.plain_amax(x))
+    assert (int8.quantize_launches, int8.amax_launches) == (before[0] + 1,
+                                                            before[1])
+    q_ref, s_ref = int8.plain_quantize_per_tensor(x)
+    assert torch.equal(q, q_ref) and s.item() == s_ref.item()
+    q, s = int8.quantize_kernel(x)
+    assert int8.amax_launches == before[1] + 1
+    assert torch.equal(q, q_ref) and s.item() == s_ref.item()
 
 
 def test_int8_weight_scales_divide_on_the_card(dev):

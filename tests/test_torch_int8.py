@@ -330,3 +330,150 @@ def test_tiny_r50_detector_int8_matches_jax():
         per_query = (np.abs(a - r) / (1 + np.abs(r))).max(axis=(0, 3))
         assert np.quantile(per_query, 0.75) <= 1e-5, key
         assert per_query.max() <= 5e-2, key
+
+
+# --- ConvBN's epilogue and the quantize threading (plain versions) ------------
+
+def _bn_buffers(bn, rng, folded=False):
+    c = bn.weight.shape[0]
+    with torch.no_grad():
+        if folded:                # train/fold.py leaves weight 1, var 1 - eps
+            bn.weight.fill_(1.0)
+            bn.running_var.fill_(1.0 - bn.eps)
+            bn.running_mean.zero_()
+        else:
+            bn.weight.copy_(t(rng.uniform(-1.5, 1.5, c).astype(np.float32)))
+            bn.running_var.copy_(t(rng.uniform(0.5, 1.5, c).astype(
+                np.float32)))
+            bn.running_mean.copy_(t(rng.normal(size=c).astype(np.float32)))
+        bn.bias.copy_(t(rng.normal(size=c).astype(np.float32)))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_fused_epilogue_plain_equals_relu_bn_dequant(dtype, folded, relu):
+    # the epilogue's plain version repeats the module's eager roundings:
+    # equal bit for bit to F.relu(FrozenBN(plain_int8_conv(...))), and
+    # ConvBN's int8 path (the affine cached) to the same composition
+    from transcar_tpu_torch.models.common import FrozenBN
+
+    tdt = DTYPES[dtype][0]
+    rng = np.random.default_rng(9)
+    x = nchw(rng.normal(size=(2, 9, 11, 16)).astype(np.float32)).to(tdt)
+    m = ConvBN(16, 24, 3, padding=1, relu=relu, quantize="int8").eval()
+    _bn_buffers(m.bn, rng, folded)
+    with torch.no_grad():
+        m.conv.weight.copy_(t(rng.normal(size=(24, 16, 3, 3)).astype(
+            np.float32) * 0.1))
+    xq, s_x = int8.plain_quantize_per_tensor(x)
+    wq, s_w = int8.quantize_weight_per_channel(m.conv.weight)
+    bn = FrozenBN(24)
+    bn.load_state_dict(m.bn.state_dict())
+    want = bn(int8.plain_int8_conv(xq, s_x, wq, s_w, 1, 1, 1, tdt))
+    want = torch.nn.functional.relu(want) if relu else want
+    got = int8.plain_int8_convbn(xq, s_x, wq, s_w, 1, 1, 1, tdt,
+                                 m.bn.affine(), relu)
+    assert got.dtype == tdt and torch.equal(got, want)
+    with torch.no_grad():
+        y, amax = m.pair(x, want_amax=True)
+        assert torch.equal(m(x), want) and torch.equal(y, want)
+    assert amax.dtype == torch.float32 and amax.item() == \
+        want.float().abs().max().item()
+
+
+def test_codes_pass_given_the_amax_equals_the_plain_quantize():
+    rng = np.random.default_rng(10)
+    for x in (nchw(_case_input("normal", rng)),
+              nchw(_case_input("ties", rng)).to(torch.bfloat16)):
+        q, s = int8.plain_quantize_per_tensor(x)
+        q2, s2 = int8.quantize_per_tensor(x, int8.plain_amax(x))
+        assert torch.equal(q, q2) and s.item() == s2.item()
+
+
+def _count_quantizes(monkeypatch):
+    calls = []
+    plain = int8.plain_quantize_per_tensor
+
+    def counting(x, amax=None):
+        calls.append(amax is not None)
+        return plain(x, amax)
+
+    monkeypatch.setattr(int8, "plain_quantize_per_tensor", counting)
+    return calls
+
+
+def test_bottleneck_quantizes_its_input_once(monkeypatch):
+    # conv1 and the downsample share one quantize of x; conv2 and conv3
+    # run their codes pass from the amax of the previous epilogue; the
+    # result is that of quantizing every conv's input on its own
+    rng = np.random.default_rng(11)
+    x = nchw(rng.normal(size=(1, 8, 10, 32)).astype(np.float32))
+    blk = Bottleneck(32, 8, stride=2, downsample=True, quantize="int8").eval()
+    for p in blk.parameters():
+        p.data.copy_(t(rng.normal(size=p.shape).astype(np.float32) * 0.2))
+    with torch.no_grad():
+        want = torch.nn.functional.relu(
+            blk.conv3(blk.conv2(blk.conv1(x))) + blk.downsample(x))
+        calls = _count_quantizes(monkeypatch)
+        got = blk(x)
+    assert calls == [False, True, True] and torch.equal(got, want)
+    dcn = Bottleneck(32, 8, with_dcn=True, quantize="int8").eval()
+    with torch.no_grad():
+        calls.clear()
+        dcn(x)
+    assert calls == [False, False]        # conv1, conv3 after the DCN
+
+
+def test_osa_chain_passes_the_amax_on(monkeypatch):
+    # chain convs 1-3 quantize from the amax of the conv before them
+    rng = np.random.default_rng(12)
+    x = nchw(rng.normal(size=(1, 6, 8, 32)).astype(np.float32))
+    blk = OSABlock(32, 16, 32, 4, reduce_impl="pallas",
+                   quantize="int8").eval()
+    with torch.no_grad():
+        want = [x]
+        for i in range(4):
+            want.append(getattr(blk, f"conv{i}")(want[-1]))
+        calls = _count_quantizes(monkeypatch)
+        got = [x]
+        for i in range(4):
+            y, amax = getattr(blk, f"conv{i}").pair(got[-1], want_amax=True)
+            got.append(y)
+            assert amax.item() == y.abs().max().item()
+        calls.clear()
+        blk(x)
+    assert calls == [False, True, True, True]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("k,stride,padding", [(7, 2, 3), (3, 2, 1)])
+def test_stem_weight_layout_matches_its_four_channel_gather(k, stride,
+                                                            padding):
+    # a stem's K-major codes (Cin = 3, codes padded to 4 channels, each
+    # kernel row padded to 4 taps) against the rows the tile gathers: for
+    # each output pixel, each kernel row's kwp adjacent pixels of 4 codes
+    # (zero outside the image); their product is the conv, exactly
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, 3, 11, 13))).to(
+        torch.int8)
+    q = torch.from_numpy(rng.integers(-127, 128, (8, 3, k, k))).to(
+        torch.int8)
+    assert int8.code_channels(3) == 4
+    wk = int8.kmajor_codes(q)
+    kwp = -(-k // 4) * 4
+    x4 = torch.nn.functional.pad(x.double(), (padding, padding + kwp - k,
+                                              padding, padding, 0, 1))
+    n, _, hp, wp = x4.shape
+    ho = (x.shape[2] + 2 * padding - k) // stride + 1
+    wo = (x.shape[3] + 2 * padding - k) // stride + 1
+    rows = [x4[:, :, ky:ky + stride * (ho - 1) + 1:stride,
+               kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(k) for kx in range(kwp)]
+    a = torch.stack(rows, 1).permute(0, 3, 4, 1, 2).reshape(n * ho * wo, -1)
+    got = a @ wk[:, :a.shape[1]].double().t()
+    want = torch.nn.functional.conv2d(x.double(), q.double(), stride=stride,
+                                      padding=padding)
+    assert wk.shape == (8, -(-k * kwp * 4 // 64) * 64)
+    assert not wk[:, a.shape[1]:].any()
+    assert torch.equal(got, want.permute(0, 2, 3, 1).reshape(got.shape))

@@ -250,7 +250,7 @@ def test_cli_benchmark_cpu(capsys, tmp_path):
         ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
          "osa_block", "bottleneck", "msdeform_forward",
          "msdeform_backward_taps", "msdeform_backward_value", "int8_conv",
-         "int8_quantize"), 0)
+         "int8_wgmma", "int8_quantize", "int8_amax"), 0)
     assert rec["peak_memory_bytes"] is None
     assert 0 <= rec["dcn_taps_past_5px"] <= 1
 
@@ -279,6 +279,23 @@ def test_trace_summary_groups_leads_and_gaps(tmp_path):
     assert s["host_lead_ms_by_group"] == pytest.approx(
         {gemm: 0.1, k2: 0.05, "elementwise / reduce / copy": 0.01})
     assert s["idle_after_ms_by_group"] == pytest.approx({gemm: 0.0, k2: 0.04})
+
+
+def test_trace_groups_name_every_int8_kernel():
+    # each kernel of csrc/int8_conv.cu falls into its int8 trace group, so
+    # none of an int8 request's launches is counted under "other"
+    import re
+
+    src = open(os.path.join(os.path.dirname(benchmark.__file__), os.pardir,
+                            "csrc", "int8_conv.cu")).read()
+    names = re.findall(
+        r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src)
+    assert len(names) == 5
+    for name in names:
+        group = next((g for g, pats in benchmark.KERNEL_GROUPS
+                      if any(p in name for p in pats)), "other")
+        assert group == ("int8 conv" if "conv" in name
+                         else "int8 quantize"), name
 
 
 def test_cli_rejects_unported_presets():

@@ -27,8 +27,10 @@ model.backbone.osa_reduce_impl=xla model.head.use_pallas_attention=false``,
 and the opt-in kernels are ``model.backbone.block_impl=fused`` (K6, ResNet)
 and ``model.backbone.osa_reduce_impl=fused`` (K5, VoVNet).  The int8
 serving mode is ``--cfg-options model.backbone.quantize=int8`` (78 int8
-convolutions a ``transcar_r101`` request, 83 a
-``transcar_vovnet_trainval`` one; ``--train`` builds the float path).
+convolutions a ``transcar_r101`` request, 77 of them on the ``wgmma``
+tile, 74 codes and 60 amax passes; 83 convolutions, 82 on the ``wgmma``
+tile, 83 codes and 17 amax passes a ``transcar_vovnet_trainval`` one;
+``--train`` builds the float path).
 
 The LiDAR preset ``objdgcnn_pillar`` (ObjDGCNN, 8 K7 launches per
 request: 2 encoder and 6 decoder deformable attentions) times batch-1
@@ -144,7 +146,8 @@ def parse_args(argv=None):
 
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name: K1-K9 and the
-    int8 serving mode's convolution and quantize pass."""
+    int8 serving mode's convolution (``int8_wgmma`` of them on the
+    ``wgmma`` tile), codes passes and standalone amax passes."""
     return {"dcn_forward": pallas_dcn.launches,
             "dcn_backward": pallas_dcn.backward_launches,
             "masked_attention": pallas_attention.launches,
@@ -156,7 +159,9 @@ def kernel_counts() -> dict:
             "msdeform_backward_value":
                 pallas_msdeform.backward_value_launches,
             "int8_conv": int8.launches,
-            "int8_quantize": int8.quantize_launches}
+            "int8_wgmma": int8.wgmma_launches,
+            "int8_quantize": int8.quantize_launches,
+            "int8_amax": int8.amax_launches}
 
 
 def _launches_since(start: dict) -> dict:
@@ -246,8 +251,8 @@ KERNEL_GROUPS = (
     ("K7 msdeform_forward", ("msdeform_forward_",)),
     ("K8 msdeform_backward_taps", ("msdeform_backward_taps_",)),
     ("K9 msdeform_backward_value", ("msdeform_backward_value_",)),
-    ("int8 conv", ("int8_conv_kernel",)),
-    ("int8 quantize", ("int8_amax_kernel", "int8_quantize_kernel")),
+    ("int8 conv", ("int8_conv",)),
+    ("int8 quantize", ("int8_amax", "int8_codes")),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),

@@ -239,9 +239,18 @@ class ConvBN(nn.Module):
     ``quantize="int8"`` (the int8 serving mode, ``ops/int8.py``) runs the
     conv as a dynamic int8 convolution dequantized into the input's dtype,
     from the same ``conv.weight`` (so the ``state_dict`` and checkpoints
-    are the float path's); the weight's codes and scales are cached per
-    parameter version (:func:`cached_copy`).  BN and ReLU then run on the
-    dequantized output."""
+    are the float path's); the weight's codes and scales, and FrozenBN's
+    folded affine, are cached per parameter or buffer version
+    (:func:`cached_copy`).  FrozenBN and ReLU run in the conv's epilogue
+    with the eager path's roundings (the counterpart of XLA's fusion in
+    the JAX package); a trainable BN runs after it.
+
+    :meth:`pair` threads the int8 quantize between convs: ``codes`` is
+    ``x`` already quantized (one quantize for two convs of one input),
+    ``amax`` its ``max|x|`` taken by the producing conv's epilogue (then
+    only the codes pass runs); it returns ``(y, max|y|)``, the max a 0-d
+    float32 tensor where ``want_amax`` and the int8 epilogue took it, else
+    None.  The float path ignores ``codes`` and ``amax``."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  padding: int = 0, relu: bool = True, norm: str = "frozen",
@@ -257,7 +266,7 @@ class ConvBN(nn.Module):
         self.relu = relu
         self.quantize = quantize
 
-    def _int8_conv(self, x):
+    def _int8_conv(self, x, codes, amax, want_amax):
         conv = self.conv
         if conv.bias is not None:
             raise ValueError("int8 ConvBN takes a conv without a bias (the "
@@ -265,12 +274,30 @@ class ConvBN(nn.Module):
         w = conv.weight
         wq = cached_copy(self, "_int8", [w], torch.int8,
                          lambda: prepare_weight(w))
-        return dynamic_int8_conv(x, w, stride=conv.stride[0],
-                                 padding=conv.padding[0],
-                                 dilation=conv.dilation[0], out_dtype=x.dtype,
-                                 weight_q=wq)
+        frozen = isinstance(self.bn, FrozenBN)
+        affine = None
+        if frozen:
+            bn = self.bn
+            affine = cached_copy(
+                self, "_int8_affine",
+                [bn.weight, bn.bias, bn.running_mean, bn.running_var],
+                torch.float32, lambda: tuple(t.contiguous()
+                                             for t in bn.affine()))
+        out = dynamic_int8_conv(
+            x, w, stride=conv.stride[0], padding=conv.padding[0],
+            dilation=conv.dilation[0], out_dtype=x.dtype, weight_q=wq,
+            affine=affine, relu=self.relu and frozen, codes=codes, amax=amax,
+            want_amax=want_amax and frozen)
+        if frozen:
+            return out if want_amax else (out, None)
+        out = self.bn(out)
+        return (F.relu(out) if self.relu else out), None
 
-    def forward(self, x):
-        x = self._int8_conv(x) if self.quantize == "int8" else self.conv(x)
-        x = self.bn(x)
-        return F.relu(x) if self.relu else x
+    def pair(self, x, *, codes=None, amax=None, want_amax: bool = False):
+        if self.quantize == "int8":
+            return self._int8_conv(x, codes, amax, want_amax)
+        y = self.bn(self.conv(x))
+        return (F.relu(y) if self.relu else y), None
+
+    def forward(self, x, *, codes=None, amax=None):
+        return self.pair(x, codes=codes, amax=amax)[0]

@@ -21,7 +21,9 @@ ported: it is accepted and only keeps the stem out of int8, as in JAX.
 stem and every bottleneck's ``conv1``, ``conv3``, ``downsample`` and
 non-DCN ``conv2`` as dynamic int8 convolutions (``ConvBN``); the DCN
 ``conv2`` (K1) and the ``block_impl="fused"`` blocks (K6) stay in the
-compute dtype, as in the JAX package.
+compute dtype, as in the JAX package.  ``conv1`` and ``downsample``
+quantize their shared input once, and ``conv1`` → ``conv2`` → ``conv3``
+of a non-DCN block pass the amax of each epilogue on (``ConvBN``).
 
 Training: the stem and the first ``frozen_stages`` stages get
 ``requires_grad=False`` (mmdet ``_freeze_stages``; frozen BN is buffers
@@ -40,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from transcar_tpu_torch.models.common import (Conv2d, ConvBN, FrozenBN,
                                               cached_copy)
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
+from transcar_tpu_torch.ops.int8 import quantize_per_tensor
 from transcar_tpu_torch.ops.pallas_bottleneck import (bottleneck_fused,
                                                       kmajor_weights)
 from transcar_tpu_torch.ops.pallas_dcn import fused_deform_conv, kmajor_weight
@@ -121,11 +124,20 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         if self.fused:
             return self._fused(x)
-        out = self.conv2(self.conv1(x))
-        if hasattr(self, "bn2"):
-            out = F.relu(self.bn2(out))
-        out = self.conv3(out)
-        identity = self.downsample(x) if hasattr(self, "downsample") else x
+        ds = getattr(self, "downsample", None)
+        # int8: conv1 and the downsample share one quantize of x (JAX's
+        # CSE merges theirs), and each int8 ConvBN feeding the next hands
+        # it the amax its epilogue took (no amax pass over its output)
+        codes = (quantize_per_tensor(x) if ds is not None
+                 and self.conv1.quantize == "int8" else None)
+        dcn = hasattr(self, "bn2")
+        out, amax = self.conv1.pair(x, codes=codes, want_amax=not dcn)
+        if dcn:
+            out, amax = F.relu(self.bn2(self.conv2(out))), None
+        else:
+            out, amax = self.conv2.pair(out, amax=amax, want_amax=True)
+        out = self.conv3(out, amax=amax)
+        identity = ds(x, codes=codes) if ds is not None else x
         return F.relu(out + identity)
 
     def _jax_weights(self) -> tuple:

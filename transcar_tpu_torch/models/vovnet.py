@@ -30,7 +30,8 @@ three stem convs (unless ``stem_impl="phase"``, as in JAX) and every
 block's chain convs as dynamic int8 convolutions; the 1×1 concat reduce
 only on the ``"xla"`` tail.  The K4 (``"pallas"``) reduce keeps the
 compute dtype, and the ``"fused"`` (K5) blocks ignore it, as the JAX
-package does.
+package does.  Chain convs 1-4 and stems 2-3 quantize from the amax that
+the previous int8 ConvBN's epilogue took (``ConvBN``).
 """
 from __future__ import annotations
 
@@ -132,9 +133,12 @@ class OSABlock(nn.Module):
                 conv_kmajor=(self._chain_kmajor(x.dtype) if x.is_cuda
                              else None))
         else:
-            outputs = [x]
+            # int8: each chain conv hands the next the amax of its output
+            outputs, amax = [x], None
             for i in range(self.n_convs):
-                outputs.append(getattr(self, f"conv{i}")(outputs[-1]))
+                y, amax = getattr(self, f"conv{i}").pair(
+                    outputs[-1], amax=amax, want_amax=i + 1 < self.n_convs)
+                outputs.append(y)
             if self.reduce_impl == "xla":
                 x = self.ese(self.concat(torch.cat(outputs, 1)))
                 return x + identity if self.identity else x
@@ -205,7 +209,9 @@ class VoVNet(nn.Module):
     def forward(self, x):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        x = self.stem3(self.stem2(self.stem1(x)))
+        x, amax = self.stem1.pair(x, want_amax=True)
+        x, amax = self.stem2.pair(x, amax=amax, want_amax=True)
+        x = self.stem3(x, amax=amax)
         outs = []
         for si, names in enumerate(self.block_names):
             if si > 0:
