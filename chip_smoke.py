@@ -171,7 +171,36 @@ non-zero):
      ConvBN's epilogue and amax; timed (:func:`queued_ms`) per shape and per
      request beside the bound, ``torch._int_mm`` over an im2col of the
      same codes, cuDNN's bf16 convolution of the same shape and cuDNN
-     plus the module's BN and ReLU passes.
+     plus the module's BN and ReLU passes;
+ 23. data parallelism, 2 ranks on the one card over gloo (NCCL refuses
+     two ranks on one device; ``transcar_tpu_torch/parallel``): a
+     ``transcar_r101`` fusion-only step (6 × 928 × 1600, 900 queries,
+     1500 radar tokens, batch 1 a rank) and an ``objdgcnn_pillar`` step
+     (300 000 points), float32, dropout off, one decoder layer, each held
+     to the one-process step of the same global batch of 2 (the summed
+     gradients before the clip and their norm to ``DP_GRAD_TOL``; losses,
+     and parameters and BN running statistics to rtol = atol = 1e-4) with
+     the ranks bit for bit equal; then both at full depth in bfloat16, ms
+     a step a rank, launches a rank a step (26 K1; 8 each of K7-K9), peak
+     memory a rank and the gradient all-reduce's ms;
+ 24. the same data-parallel code over NCCL at world size 1: a float32
+     pillar step's losses and BatchNorm running statistics bit for bit
+     those of the step with no group, its summed gradients to
+     ``NCCL_GRAD_TOL`` (K9's atomics keep the step from repeating bit for
+     bit; the step with no group run twice is printed beside);
+ 25. the head split over 2 ranks (gloo, the same group): a
+     ``transcar_r101`` eval forward at full width (one decoder layer)
+     against the replicated forward, K2 on 4 of 8 heads (3 launches a
+     rank, each held to its plain version at [1, 4, 900, 32] × 1500
+     tokens), and a train step (dropout on) against the replicated step
+     at the JAX dry run's tolerances and its gradients to ``TP_GRAD_TOL``;
+ 26. camera sharding: the ``transcar_r101`` eval forward at full width
+     with the card listed 2, 3 and 6 times (26 K1 a camera group), in
+     float32 and bfloat16, bit for bit the unsharded forward whose
+     backbone and FPN take as many cameras at a time (cuDNN picks its
+     algorithms by batch size), and float32 within 1e-3 of the plain
+     unsharded forward; and, in phase 20, ``cli.test --shard-cameras``
+     taking the one-device path on one card.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``; it lists the int8 conv and quantize
@@ -3776,6 +3805,19 @@ def _pipeline_camera_runs(tmp: str, data: list, ref: str, n_dcn: int,
     if (list(a["tokens"]) != list(b["tokens"]) or not box_err <= HOOK_TOL
             or not same_labels):
         raise AssertionError("pipeline: cli.test disagrees with the hook")
+    # phase 26's CLI run: --shard-cameras on one card, the one-device path
+    sharded, text = _run_cli(cli_test.main, [
+        "transcar_r101", os.path.join(w2, "checkpoints", "6"),
+        "--shard-cameras", "--out", os.path.join(tmp, "test_cam.json"),
+        "--cfg-options", *data])
+    said = [line for line in text.splitlines()
+            if line.startswith("[shard-cameras]")]
+    same = all(np.array_equal(sharded.detections[k], a[k])
+               for k in ("boxes", "scores", "labels", "valid"))
+    print(f"pipeline cli.test --shard-cameras on {torch.cuda.device_count()} "
+          f"card: {said}, rows bit for bit those of cli.test {same}")
+    if len(said) != 1 or "one-device path" not in said[0] or not same:
+        raise AssertionError("pipeline: cli.test --shard-cameras")
     _pipeline_tta_runs(tmp, data, os.path.join(w2, "checkpoints", "6"), res,
                        n_dcn, smi)
 
@@ -4441,6 +4483,255 @@ def phase_int8(shapes: dict, quants: dict, smi: str, parent=None) -> dict:
                           "note": note}}
 
 
+# --- parallelism (phases 23-26) -----------------------------------------------
+
+#: Tolerances of phases 23 and 25: the JAX package's mesh tests
+#: (tests/test_lidar_mesh.py) and its dry run (__graft_entry__.py:214-238).
+DP_TOL = 1e-4
+TP_LOSS_TOL = 1e-4
+TP_PARAM_TOL = 1e-3
+#: Bars of the summed gradients (before the clip) and their norm, float32
+#: (``dryrun.grad_error``: the whole vector's relative error and the
+#: worst tensor's), set from this script's readings on the H100 (PERF.md
+#: §6): R101 5.4e-5 / 1.4e-4, the pillar 1.4e-3 / 6.2e-3 (its float32
+#: gradients move by ~1e-3 when the rounding of a batch of 1 instead of 2
+#: moves a sampling point across a cell edge: the one-process float32
+#: step is 1.8e-3 from float64 on the CPU, while 2 ranks are 1e-14 from
+#: one process there in float64), tensor parallel 1.3e-7 / 9.5e-7.  A
+#: wrong sum is off by ~0.5 (the CPU tests' mutations).  One AdamW step
+#: moves a weight by about ± lr whatever its gradient, so the parameters
+#: above cannot see the gradients.
+DP_GRAD_TOL = {"r101": 1e-3, "pillar": 3e-2}
+TP_GRAD_TOL = 1e-4
+#: Phase 24's: the float32 pillar step over NCCL against the step with no
+#: group (K9's atomics keep the step from repeating bit for bit: the
+#: step with no group twice read 1.8e-6 / 2.7e-5 at batch 2).
+NCCL_GRAD_TOL = 1e-3
+#: One decoder layer for the equality checks: the random-weight decoder
+#: amplifies rounding ~10× a layer (phase_slice), and the one-process
+#: and per-rank camera trunks convolve batches of 2 and 1.
+ONE_LAYER = "model.head.num_decoder_layers=1"
+
+
+def _parallel_cases() -> dict:
+    from transcar_tpu_torch.parallel import dryrun
+
+    full = dict(hw=(928, 1600), max_gt=32)
+    return {
+        "r101_fp32": dryrun.case("transcar_r101", [
+            "model.backbone.compute_dtype=float32", ONE_LAYER], batch=2,
+            **full),
+        "pillar_fp32": dryrun.case("objdgcnn_pillar", [
+            "model.lidar_compute_dtype=float32", ONE_LAYER], batch=2,
+            **full),
+        "r101_bf16": dryrun.case("transcar_r101", batch=2, dropout=0.1,
+                                 **full),
+        "pillar_bf16": dryrun.case("objdgcnn_pillar", batch=2, dropout=0.1,
+                                   **full),
+        "r101_tp": dryrun.case("transcar_r101", [ONE_LAYER], dropout=0.1,
+                               **full),
+        "r101_eval": dryrun.case("transcar_r101", [ONE_LAYER], **full)}
+
+
+def phase_parallel(smi: str) -> None:
+    """Phases 23 and 25: one group of 2 ranks on the card over gloo runs
+    the data-parallel checks and timings, then the tensor-parallel ones;
+    the one-process references are taken here first."""
+    import tempfile
+
+    from transcar_tpu_torch.parallel import dryrun
+
+    cases = _parallel_cases()
+    tmp = tempfile.mkdtemp(prefix="transcar_parallel_")
+    refs = {}
+    t0 = time.perf_counter()
+    for name in ("r101_fp32", "pillar_fp32"):
+        refs[name] = os.path.join(tmp, name + ".pt")
+        dryrun.save_reference(cases[name], refs[name], torch.device("cuda"))
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(dryrun.run_calls, 2, [
+        ("dp_check", (cases["r101_fp32"], refs["r101_fp32"])),
+        ("dp_check", (cases["pillar_fp32"], refs["pillar_fp32"])),
+        ("dp_time", (cases["r101_bf16"],)),
+        ("dp_time", (cases["pillar_bf16"],)),
+        ("tp_check", (cases["r101_tp"], 1, 2, cases["r101_eval"]))],
+        backend="gloo", device="cuda", threads=3)
+    t_ranks = time.perf_counter() - t0
+    for f in refs.values():
+        os.remove(f)
+    os.rmdir(tmp)
+    want = {"r101": {"dcn_forward": 26},
+            "pillar": {k: 3 for k in ("msdeform_forward",
+                                      "msdeform_backward_taps",
+                                      "msdeform_backward_value")}}
+    want_bf16 = {"r101": {"dcn_forward": 26},
+                 "pillar": {k: 8 for k in want["pillar"]}}
+    bad = []
+    for i, name in enumerate(("r101", "pillar")):
+        for rank, res in enumerate(ranks):
+            r, t = res[i], res[2 + i]
+            ok = (r["loss_rel_err"] <= DP_TOL and r["param_ratio"] <= 1.0
+                  and r["buffer_ratio"] <= 1.0 and r["agree"]
+                  and max(r["grad_rel_err"], r["grad_worst"],
+                          r["norm_rel_err"]) <= DP_GRAD_TOL[name]
+                  and all(r["launches"].get(k) == v
+                          for k, v in want[name].items())
+                  and all(t["launches"].get(k) == v
+                          for k, v in want_bf16[name].items())
+                  and t["finite"])
+            bad += [] if ok else [f"{name} rank {rank}"]
+            print(f"data parallel {name} rank {rank} of 2 (gloo, one card): "
+                  f"float32 one decoder layer vs one process, global batch "
+                  f"2: loss rel err {r['loss_rel_err']:.3e} (tol {DP_TOL}), "
+                  f"summed gradients rel err {r['grad_rel_err']:.3e}, worst "
+                  f"tensor {r['grad_worst']:.3e}, norm {r['norm_rel_err']:.3e}"
+                  f" (tol {DP_GRAD_TOL[name]}), "
+                  f"params max |diff| {r['param_abs']:.3e} (ratio to tol "
+                  f"{r['param_ratio']:.3f}), BN stats max |diff| "
+                  f"{r['buffer_abs']:.3e} (ratio {r['buffer_ratio']:.3f}), "
+                  f"ranks bit for bit {r['agree']}, launches {r['launches']} "
+                  f"(want {want[name]}); bf16 full depth: {t['ms']:.1f} ms a "
+                  f"step a rank, launches a step {t['launches']} (want "
+                  f"{want_bf16[name]}), peak {t['peak_gib']:.2f} GiB a rank, "
+                  f"gradient all-reduce {t['allreduce_ms']:.1f} ms over "
+                  f"{t['grad_mib']:.1f} MiB on {smi}")
+    k2_ok = True
+    for rank, res in enumerate(ranks):
+        r = res[4]
+        calls = r["k2_calls"]
+        k2_ok &= (r["k2_launches"] == 3 and len(calls) == 3 and all(
+            c["shape"] == [1, 4, 900, 32] and c["tokens"] == 1500
+            and c["rel_err"] <= ATTN_TOL for c in calls))
+        ok = (r["loss_err"] <= TP_LOSS_TOL and r["param_abs"] < TP_PARAM_TOL
+              and r["eval_err"] <= SLICE_TOL and r["agree"]
+              and max(r["grad_rel_err"], r["grad_worst"],
+                      r["norm_rel_err"]) <= TP_GRAD_TOL)
+        bad += [] if ok else [f"tensor parallel rank {rank}"]
+        k2_errs = "; ".join(
+            f"{c['shape']} x {c['tokens']}: max |diff| "
+            f"{c['max_abs_err']:.3e}, over max |plain| {c['rel_err']:.3e}"
+            for c in calls)
+        print(f"tensor parallel rank {rank} of 2 (gloo, one card), "
+              f"transcar_r101 one decoder layer: eval forward vs replicated "
+              f"max |diff|/(1+|ref|) {r['eval_err']:.3e} (tol {SLICE_TOL}); "
+              f"K2 launches {r['k2_launches']} at 4 heads, vs plain "
+              f"{k2_errs} (tol {ATTN_TOL} of max |plain|); train step "
+              f"(dropout 0.1): loss "
+              f"{r['loss']:.6f} vs {r['loss_rep']:.6f}, Δ/(1+|loss|) "
+              f"{r['loss_err']:.3e} (tol {TP_LOSS_TOL}), gradients rel err "
+              f"{r['grad_rel_err']:.3e}, worst tensor {r['grad_worst']:.3e}, "
+              f"norm {r['norm_rel_err']:.3e} (tol {TP_GRAD_TOL}), "
+              f"params max |diff| "
+              f"{r['param_abs']:.3e} (tol {TP_PARAM_TOL}), {r['split']} "
+              f"tensors split")
+    print(f"parallel phases: references {t_ref:.1f} s, 2 ranks "
+          f"{t_ranks:.1f} s on {smi}")
+    if bad or not k2_ok:
+        raise AssertionError(f"parallel: {bad}, K2 at 4 heads ok {k2_ok}")
+
+
+def phase_nccl_world1(smi: str) -> None:
+    """Phase 24: a pillar step through the data-parallel code over an
+    NCCL group of one rank (a data group that is the world: the gradient
+    all-reduce and the loss sums go through NCCL; a BatchNorm sums over a
+    group of two or more ranks only), beside two steps with no group.
+    The forward (the losses and the BatchNorm running statistics) is held
+    bit for bit.  The backward does not repeat bit for bit by itself (K9
+    sums d_value with ``float4`` atomics in the order the warps reach
+    them), so the summed gradients are held to :data:`NCCL_GRAD_TOL`
+    (``dryrun.grad_error``) and the step with no group run twice is
+    printed beside them.  The parameters are printed only: AdamW's first
+    step moves every weight by about ± lr₀ whatever its gradient."""
+    import torch.distributed as dist
+
+    from transcar_tpu_torch.parallel import dryrun
+    from transcar_tpu_torch.parallel.distributed import init_group
+    from transcar_tpu_torch.parallel.mesh import Grid
+
+    spec = dryrun.case("objdgcnn_pillar", [
+        "model.lidar_compute_dtype=float32", ONE_LAYER], max_gt=32)
+    dev = torch.device("cuda")
+    init_group(0, 1, "nccl", dryrun.free_address())
+    try:
+        runs = [dryrun.train_case(spec, dev, grid, keep_grads=True)
+                for grid in (None, None, Grid(data_group=dist.group.WORLD))]
+    finally:
+        dist.destroy_process_group()
+    sched = runs[0].state.scheduler
+    lr0 = max(sched.base_lrs) * sched.lr_lambdas[0](0)
+    ref = runs[0]
+    params = dict(ref.state.model.named_parameters())
+    stats = {n: b for n, b in ref.state.model.named_buffers()
+             if "running" in n}
+
+    def compare(run):
+        """(losses and BN statistics bit for bit, the gradients'
+        grad_error pair, max |diff| of the parameters in lr₀)."""
+        got = dict(run.state.model.named_parameters())
+        forward = run.losses == ref.losses and all(
+            torch.equal(b, stats[n])
+            for n, b in run.state.model.named_buffers() if n in stats)
+        worst = max((got[n] - p).abs().max().item()
+                    for n, p in params.items())
+        return forward, dryrun.grad_error(run.grads, ref.grads), worst / lr0
+
+    repeat, nccl = compare(runs[1]), compare(runs[2])
+    print(f"nccl world 1 (objdgcnn_pillar, float32, one decoder layer; losses "
+          f"{runs[2].losses[0]['total']:.6f} vs {ref.losses[0]['total']:.6f})"
+          f": no group twice: losses and BN statistics bit for bit "
+          f"{repeat[0]}, gradients rel err {repeat[1][0]:.3e}, worst tensor "
+          f"{repeat[1][1]:.3e}, params max |diff| {repeat[2]:.3f} lr0; over "
+          f"NCCL against no group: {nccl[0]}, {nccl[1][0]:.3e}, "
+          f"{nccl[1][1]:.3e} (tol {NCCL_GRAD_TOL}), {nccl[2]:.3f} lr0 (lr0 "
+          f"{lr0:.3e}) on {smi}")
+    if not (nccl[0] and max(nccl[1]) <= NCCL_GRAD_TOL):
+        raise AssertionError("nccl world 1: the grouped step differs")
+
+
+def phase_camera_sharding(smi: str) -> None:
+    """Phase 26: the camera-sharded eval forward at full width, in float32
+    and in bfloat16, held bit for bit (FPN levels and head outputs) to
+    the unsharded forward whose backbone and FPN take as many cameras at
+    a time (``dryrun.chunked_features``): cuDNN picks its convolution
+    algorithms by batch size, and from ``layer2_0`` on the convolutions
+    of one or two images round otherwise than those of six (the stem and
+    ``layer1`` agree bit for bit; K1 is as close to its plain version at
+    1 and 2 images as at 6).  Against the plain unsharded forward the
+    float32 backbone is also held to :data:`SLICE_TOL` (|Δ| / (1 +
+    |ref|)); the bfloat16 one's distance, which the random-weight R101
+    amplifies, is printed."""
+    from transcar_tpu_torch.parallel import dryrun
+
+    base = _parallel_cases()["r101_eval"]
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        spec = dict(base, options=base["options"] + [
+            f"model.backbone.compute_dtype={dtype}"])
+        _zero_counts()
+        res = results[dtype] = dryrun.camera_check(spec, torch.device("cuda"))
+        print(f"camera sharding transcar_r101 {dtype} backbone, one decoder "
+              f"layer, the card listed g times: against the unsharded "
+              f"forward at g's cameras a conv, FPN levels bit for bit "
+              f"{res['same_fpn']}, head outputs bit for bit "
+              f"{res['same_equal']}; against the plain unsharded forward, "
+              f"FPN levels bit for bit {res['fpn_equal']}, |diff|/(1+|ref|) "
+              f"{res['fpn_rel_err']}; head outputs bit for bit "
+              f"{res['equal']}, |diff|/(1+|ref|) {res['rel_err']}"
+              f"{f' (tol {SLICE_TOL})' if dtype == 'float32' else ''}; K1 "
+              f"launches {res['k1']} (want 26 a camera group) on {smi}")
+        torch.cuda.empty_cache()
+    f32 = results["float32"]
+    if (any(r["k1"][g] != 26 * g for r in results.values() for g in r["k1"])
+            or not all(v for r in results.values()
+                       for v in (*r["same_fpn"].values(),
+                                 *r["same_equal"].values()))
+            or max(*f32["fpn_rel_err"].values(),
+                   *f32["rel_err"].values()) > SLICE_TOL):
+        raise AssertionError(f"camera sharding: {results}")
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -4488,6 +4779,9 @@ def main(argv=None) -> None:
     phase_pipeline(smi)
     int8_launches, int8_shapes, int8_quants = phase_int8_slices(smi)
     int8_res = phase_int8(int8_shapes, int8_quants, smi, parent)
+    phase_parallel(smi)
+    phase_nccl_world1(smi)
+    phase_camera_sharding(smi)
     for name in ("msdeform_backward_taps", "msdeform_backward_value"):
         launches[name] = train_launches[name]
     kernels = []

@@ -237,6 +237,47 @@ def test_masked_attention_kernel(dev, b, nq, nt):
     assert merge_heads(out).data_ptr() == out.data_ptr()    # a view
 
 
+def test_masked_attention_kernel_on_a_tensor_parallel_rank(dev):
+    """K2 on 4 of the 8 heads, as a rank of a 2-way split head runs it:
+    the [1, 4, 900, 32] views of a [1, L, 128] projection, 1500 tokens."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    qh, kh, vh = (split_heads(torch.randn(1, n, 128, device=dev, generator=g),
+                              4) for n in (900, 1500, 1500))
+    keep = torch.rand(1, 900, 1500, device=dev, generator=g) < 0.3
+    before = pallas_attention.mma_launches
+    out = pallas_attention.masked_attention(qh, kh, vh, keep)
+    assert pallas_attention.mma_launches == before + 1
+    torch.testing.assert_close(out, attention_core(qh, kh, vh, ~keep),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_data_parallel_step_of_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device): the tiny ``objdgcnn_pillar`` step of a global batch of 2
+    equals the one-process step (the summed gradients before the clip
+    and their norm to 0.1, ``dryrun.grad_error``: read at 1.1e-2 and
+    2.3e-2 a tensor on the H100, where the rounding of a batch of 1
+    instead of 2 moves sampling points across cell edges, against 0.5 for
+    a wrong sum; losses, parameters and running statistics to rtol =
+    atol = 1e-4), the ranks are bit for bit equal, and each rank launched
+    K7, K8 and K9."""
+    from transcar_tpu_torch.parallel import dryrun
+
+    spec = dryrun.case("objdgcnn_pillar", dryrun.TINY_PILLAR + [
+        "model.lidar_compute_dtype=float32"], batch=2, seed=3, max_gt=4)
+    ref = str(tmp_path / "ref.pt")
+    dryrun.save_reference(spec, ref, dev)
+    for r in dryrun.spawn(dryrun.dp_check, 2, spec, ref, backend="gloo",
+                          device="cuda"):
+        assert r["loss_rel_err"] <= 1e-4 and r["agree"]
+        assert max(r["grad_rel_err"], r["grad_worst"],
+                   r["norm_rel_err"]) <= 0.1, r
+        assert r["param_ratio"] <= 1.0 and r["buffer_ratio"] <= 1.0
+        assert all(r["launches"].get(k, 0) > 0 for k in (
+            "msdeform_forward", "msdeform_backward_taps",
+            "msdeform_backward_value"))
+
+
 def test_masked_attention_kernel_rejects_what_it_does_not_take(dev):
     qh = torch.zeros(1, 8, 10, 32, device=dev)
     keep = torch.ones(1, 10, 10, dtype=torch.bool, device=dev)

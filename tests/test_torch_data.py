@@ -367,11 +367,17 @@ def test_loader_batches_match_jax(fixture_root, preset, on_device):
 
 
 def test_loader_to_device_and_one_process():
+    """to_device; and a loader of several processes takes a global batch
+    that they divide (tests/test_torch_parallel.py checks its rows)."""
     batch = {"images": np.zeros((1, 2, 4, 4, 3), np.uint8),
              "num_gt": np.int32([3])}
     out = loader.to_device(batch, "cpu")
     assert out["images"].dtype == torch.uint8 and out["num_gt"].tolist() == [3]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    two = loader.PrefetchLoader(None, pconfig.DataConfig(), 4,
+                                indices=np.arange(8), process_index=1,
+                                process_count=2)
+    assert (two.process_index, two.process_count, len(two)) == (1, 2, 2)
+    with pytest.raises(ValueError, match="not divisible by 2"):
         loader.PrefetchLoader(None, pconfig.DataConfig(), 1, process_count=2)
 
 

@@ -150,20 +150,42 @@ def test_cli_train_and_test_on_the_cpu(root, tmp_path):
                                   state.last_eval.detections["boxes"])
 
 
-def test_cli_device_and_later_flags(root, capsys, monkeypatch):
+def test_cli_device_and_later_flags(root, tmp_path, capsys, monkeypatch):
+    """Without CUDA and without ``--device cpu`` both CLIs raise.
+    ``--autoscale-lr`` scales the lr by the card count / 8 (1 / 8 in one
+    process) and ``--shard-cameras`` with one device takes the one-device
+    path and says so; ``--show-dir`` belongs to a later slice and
+    raises naming its item."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["--cfg-options", *TINY, f"data.data_root={root}"]
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_train.main(["detr3d_r101", "--max-steps", "1"] + argv)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_test.main(["detr3d_r101", "x"] + argv)
-    for cli, flag, item in ((cli_test, "--shard-cameras", 7),
-                            (cli_test, "--show-dir=d", 8),
-                            (cli_train, "--autoscale-lr", 7)):
-        extra = ["x"] if cli is cli_test else []
-        with pytest.raises(SystemExit):
-            cli.main(["detr3d_r101", *extra, flag, "--device", "cpu"])
-        assert f"ROADMAP.md Queue 1 item {item}" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli_test.main(["detr3d_r101", "x", "--show-dir=d", "--device",
+                       "cpu"])
+    assert "ROADMAP.md Queue 1 item 8" in capsys.readouterr().err
+    work = str(tmp_path / "w")
+    state = cli_train.main(["detr3d_r101", "--work-dir", work,
+                            "--max-steps", "1", "--no-validate",
+                            "--autoscale-lr"] + cli_args(root))
+    lr = pconfig_lr("detr3d_r101") / 8
+    assert f"autoscale-lr: 1 devices → lr {lr:.2e}" in capsys.readouterr().out
+    assert state.scheduler.base_lrs[0] == pytest.approx(lr)
+    res = cli_test.main(["detr3d_r101", os.path.join(work, "checkpoints",
+                                                     "1"),
+                         "--shard-cameras", "--max-samples", "1",
+                         "--out", str(tmp_path / "r.json")]
+                        + cli_args(root))
+    assert "[shard-cameras] 1 device for 6 cameras: the one-device path" \
+        in capsys.readouterr().out
+    assert res.detections["boxes"].shape[0] == 1
+
+
+def pconfig_lr(preset):
+    from transcar_tpu_torch.core.config import get_preset
+    return get_preset(preset).train.optim.lr
 
 
 def test_evaluate_matches_the_jax_eval_step(root):

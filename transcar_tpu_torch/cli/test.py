@@ -4,7 +4,8 @@ Usage:
     python -m transcar_tpu_torch.cli.test <preset> <checkpoint>
         [--format-only] [--eval bbox] [--out results.json]
         [--max-samples N] [--batch-size B] [--no-fold-bn] [--device cpu]
-        [--aug-test [identity,flip]] [--cfg-options ...]
+        [--aug-test [identity,flip]] [--shard-cameras]
+        [--dist-backend nccl|gloo] [--cfg-options ...]
 
 The checkpoint is a training step dir (``work_dir/checkpoints/<step>``),
 a params-only file, or a reference ``.pth`` (converted on load).  --eval
@@ -14,9 +15,13 @@ the card unless ``--device cpu`` is given; without CUDA it raises.
 ``--aug-test`` runs test-time augmentation (``train/step.py::
 aug_eval_step``; camera presets); ``--cfg-options
 model.backbone.quantize=int8`` serves with int8 backbone convolutions
-(``ops/int8.py``), with or without it.  ``--shard-cameras`` (ROADMAP.md
-Queue 1 item 7) and ``--show-dir`` (item 8) belong to later slices and
-raise.
+(``ops/int8.py``), with or without it.  ``--shard-cameras`` runs each
+camera group's backbone and FPN on a card of its own (camera track, one
+process; ``train/loop.evaluate``).  Launched on W processes (torchrun or
+Slurm, ``transcar_tpu_torch/tools/{dist,slurm}_test.sh``) the samples
+are strided across the ranks and rank 0 writes and scores the
+submission.  ``--show-dir`` (ROADMAP.md Queue 1 item 8) belongs to a
+later slice and raises.
 """
 from __future__ import annotations
 
@@ -27,8 +32,7 @@ from transcar_tpu_torch.cli.train import _try_radar_fn
 from transcar_tpu_torch.core.config import parse_overrides
 
 #: flags of later slices → the ROADMAP.md Queue 1 item that ports them
-LATER = {"shard_cameras": ("--shard-cameras", "camera-axis sharding", 7),
-         "show_dir": ("--show-dir", "BEV plots, eval/bev_plot.py", 8)}
+LATER = {"show_dir": ("--show-dir", "BEV plots, eval/bev_plot.py", 8)}
 
 
 def main(argv=None):
@@ -54,7 +58,11 @@ def main(argv=None):
                     help="disable the default conv-BN fold at eval "
                          "(unfolded numerics)")
     ap.add_argument("--shard-cameras", action="store_true",
-                    help="not ported (ROADMAP.md Queue 1 item 7), raises")
+                    help="camera-axis model parallelism: each camera "
+                         "group's backbone and FPN on a card of its own "
+                         "(batch-1 latency, which data parallelism cannot "
+                         "cut; the output is the unsharded one; camera "
+                         "track only)")
     ap.add_argument("--aug-test", nargs="?", const="identity,flip",
                     help="test-time augmentation: comma list from "
                          "identity,flip (default both); backbone+FPN "
@@ -63,6 +71,10 @@ def main(argv=None):
                          "detr3d.py:195-219)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without CUDA) or cpu")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    help="process-group backend under torchrun or Slurm "
+                         "(default: nccl with --device cuda, gloo with "
+                         "--device cpu)")
     ap.add_argument("--cfg-options", nargs="*", default=[])
     args = ap.parse_args(argv)
     for dest, (flag, what, item) in LATER.items():
@@ -72,9 +84,13 @@ def main(argv=None):
 
     from transcar_tpu_torch.core.config import get_preset
     from transcar_tpu_torch.models.detector import build_model
+    from transcar_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed)
     from transcar_tpu_torch.train.loop import (_load_params, evaluate,
                                                resolve_device)
 
+    resolve_device(args.device)        # raises without CUDA, before a group
+    rank, _ = maybe_initialize_distributed(args.device, args.dist_backend)
     device = resolve_device(args.device)
     cfg = get_preset(args.preset, parse_overrides(args.cfg_options))
     model = build_model(cfg, device=device)
@@ -91,7 +107,10 @@ def main(argv=None):
                       batch_size=args.batch_size,
                       fold_bn=not args.no_fold_bn,
                       aug_test=(args.aug_test.split(",")
-                                if args.aug_test else None))
+                                if args.aug_test else None),
+                      shard_cameras=args.shard_cameras)
+    if rank != 0:        # rank 0 wrote the submission and scores it
+        return result
     print(f"results written to {result.path}")
 
     if args.eval_metric:

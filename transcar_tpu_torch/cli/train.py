@@ -4,15 +4,22 @@ Usage:
     python -m transcar_tpu_torch.cli.train <preset> [--work-dir D]
         [--load-from CKPT|REF.pth] [--resume-from D] [--seed N]
         [--max-steps N] [--no-validate] [--eval-samples N]
-        [--trace-dir D] [--device cpu] [--cfg-options k.subkey=value ...]
+        [--autoscale-lr] [--trace-dir D] [--device cpu]
+        [--dist-backend nccl|gloo] [--cfg-options k.subkey=value ...]
 
 Presets replace the reference's config files; --cfg-options is the deep
 override (tools/train.py:59-68 analog).  Radar tokens come from the
 dataset's nuScenes tables and radar ``.pcd`` files when the preset has
 radar fusion (``data/radar_io.py``, no devkit needed).  The run takes the
 card unless ``--device cpu`` is given; without CUDA it raises.
-``--autoscale-lr`` (scaling by the device count) waits for multi-card
-training and raises (ROADMAP.md Queue 1 item 7).
+
+Launched on W processes (torchrun, or Slurm: ``transcar_tpu_torch/tools/
+{dist,slurm}_train.sh``) it trains data-parallel, each rank on
+``cuda:LOCAL_RANK`` (``parallel/distributed.maybe_initialize_distributed``,
+backend ``--dist-backend``: nccl on the card, gloo on the CPU unless
+named); the global batch is ``data.samples_per_device`` × W.
+``--autoscale-lr`` scales the lr by the card count over the reference's
+8 (the linear scaling rule, tools/train.py:148-150).
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int)
     ap.add_argument("--max-steps", type=int)
     ap.add_argument("--autoscale-lr", action="store_true",
-                    help="linear LR scaling by device count / 8: not "
-                         "ported (ROADMAP.md Queue 1 item 7), raises")
+                    help="linear LR scaling: lr × card count / 8 (one "
+                         "card a rank)")
     ap.add_argument("--no-validate", action="store_true",
                     help="disable the mid-training eval hook "
                          "(tools/train.py:44-46 analog)")
@@ -52,14 +59,18 @@ def main(argv=None):
                     help="steps to include in the --trace-dir capture")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without CUDA) or cpu")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    help="process-group backend under torchrun or Slurm "
+                         "(default: nccl with --device cuda, gloo with "
+                         "--device cpu)")
     ap.add_argument("--cfg-options", nargs="*", default=[])
     args = ap.parse_args(argv)
-    if args.autoscale_lr:
-        ap.error("--autoscale-lr scales by the device count of a "
-                 "multi-card run, which is not ported (ROADMAP.md Queue 1 "
-                 "item 7)")
+
+    import dataclasses
 
     from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed)
 
     overrides = parse_overrides(args.cfg_options)
     if args.work_dir:
@@ -83,7 +94,19 @@ def main(argv=None):
     cfg = get_preset(args.preset, overrides)
 
     from transcar_tpu_torch.train.loop import resolve_device, train
+    resolve_device(args.device)        # raises without CUDA, before a group
+    rank, world = maybe_initialize_distributed(args.device,
+                                               args.dist_backend)
     device = resolve_device(args.device)
+    if args.autoscale_lr:
+        # the linear scaling rule against the reference's 8-GPU schedule
+        # (tools/train.py:148-150); one card a rank
+        optim = dataclasses.replace(cfg.train.optim,
+                                    lr=cfg.train.optim.lr * world / 8.0)
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, optim=optim))
+        if rank == 0:
+            print(f"autoscale-lr: {world} devices → lr {optim.lr:.2e}")
     radar_fn = None
     if cfg.model.head.with_radar_fusion:
         radar_fn = _try_radar_fn(cfg)

@@ -22,8 +22,9 @@ same shuffles, per-sample random streams and batches as the JAX loader;
   gt_labels    [B, G_max] int32
   num_gt       [B] int32
 
-One process only: the JAX loader's per-rank row slice of a global batch
-waits for the port's multi-process loading (ROADMAP.md Queue 1 item 7).
+With several processes (``process_count``) each loads its rows of every
+global batch, as the JAX loader does (``parallel/distributed.
+local_batch_slice``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch
 from transcar_tpu_torch.core.config import DataConfig
 from transcar_tpu_torch.data import pipeline as pp
 from transcar_tpu_torch.data.infos import NuScenesInfos, Sample
+from transcar_tpu_torch.parallel.distributed import local_batch_slice
 
 
 def pad_gt(gt_boxes: np.ndarray, gt_labels: np.ndarray, max_gt: int):
@@ -156,12 +158,13 @@ class PrefetchLoader:
                  seed: int = 0, workers: Optional[int] = None,
                  prefetch: int = 4, process_index: int = 0,
                  process_count: int = 1, modality: str = "camera"):
-        """``batch_size`` is the batch of the one process; a
-        ``process_count`` above 1 raises (ROADMAP.md Queue 1 item 7)."""
-        if process_count != 1:
-            raise NotImplementedError(
-                f"process_count={process_count}: multi-process loading "
-                "is not ported (ROADMAP.md Queue 1 item 7)")
+        """``batch_size`` is the global batch.  With ``process_count``
+        above 1 every process builds the same global order and loads its
+        ``local_batch_slice`` of each global batch (rank-independent:
+        a sample's draws are seeded by (seed, epoch, index))."""
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -172,6 +175,8 @@ class PrefetchLoader:
         self.seed = seed
         self.workers = workers if workers is not None else cfg.workers
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
         self.modality = modality         # "camera" (+radar) | "lidar"
 
     def __len__(self):
@@ -188,6 +193,9 @@ class PrefetchLoader:
         nb = len(order) // self.batch_size
         batches = order[: nb * self.batch_size].reshape(
             nb, self.batch_size)[start:]
+        if self.process_count > 1:
+            batches = batches[:, local_batch_slice(
+                self.process_index, self.process_count, self.batch_size)]
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

@@ -22,11 +22,17 @@ import numpy as np
 
 
 def fake_batch(rng: np.random.Generator, b: int, n: int, h: int, w: int,
-               num_radar: int, max_gt: int = 32) -> Dict[str, np.ndarray]:
+               num_radar: int, max_gt: int = 32,
+               wire: str = "fp32") -> Dict[str, np.ndarray]:
     """Arrays of one batch: images [b, n, h, w, 3] float32, lidar2img
     [b, n, 4, 4], radar_tokens [b, num_radar, 36] (40 real points, the rest
     at the sentinel), gt_boxes [b, max_gt, 9] gravity-center boxes with
-    positive dims, gt_labels [b, max_gt] int32 and num_gt [b] int32 (7)."""
+    positive dims, gt_labels [b, max_gt] int32 and num_gt [b] int32 (7).
+
+    ``wire="u8_aug"`` is the training wire of ``dryrun_multichip``:
+    uint8 images, ``img_shape`` a hair under the padded size, and drawn
+    photometric parameters (``photo_params`` / ``photo_perm``), which
+    ``train/step.normalize_batch_images`` applies on the device."""
     images = rng.normal(size=(b, n, h, w, 3)).astype(np.float32)
     # camera i faces azimuth a with z_cam = forward, x_cam = right,
     # y_cam = down
@@ -51,8 +57,19 @@ def fake_batch(rng: np.random.Generator, b: int, n: int, h: int, w: int,
     gt_boxes[:, :, 3:6] = rng.uniform(0.5, 6, (b, max_gt, 3))
     gt_labels = rng.integers(0, 10, (b, max_gt)).astype(np.int32)
     num_gt = np.full((b,), 7, np.int32)
-    return {"images": images, "lidar2img": l2i, "radar_tokens": radar,
-            "gt_boxes": gt_boxes, "gt_labels": gt_labels, "num_gt": num_gt}
+    out = {"images": images, "lidar2img": l2i, "radar_tokens": radar,
+           "gt_boxes": gt_boxes, "gt_labels": gt_labels, "num_gt": num_gt}
+    if wire == "u8_aug":
+        from transcar_tpu_torch.data.pipeline import draw_photometric_params
+
+        out["images"] = rng.integers(0, 256, (b, n, h, w, 3)).astype(
+            np.uint8)
+        out["img_shape"] = np.tile(np.asarray([h - 2, w - 3], np.int32),
+                                   (b, 1))
+        ps, pms = zip(*(draw_photometric_params(rng, n) for _ in range(b)))
+        out["photo_params"] = np.stack(ps)
+        out["photo_perm"] = np.stack(pms)
+    return out
 
 
 def fake_points(rng: np.random.Generator, b: int, n_max: int,

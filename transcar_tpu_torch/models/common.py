@@ -23,6 +23,7 @@ from torch import nn
 from transcar_tpu_torch.ops.attention import multihead_attention
 from transcar_tpu_torch.ops.int8 import dynamic_int8_conv, prepare_weight
 from transcar_tpu_torch.ops.pallas_attention import masked_mha
+from transcar_tpu_torch.parallel.distributed import global_sum
 
 LN_EPS = 1e-5
 #: Share of the old running statistics a BatchNorm train step keeps (flax
@@ -127,8 +128,24 @@ class FFN(nn.Module):
         self.linear2 = nn.Linear(hidden_dims, embed_dims)
 
     def forward(self, x):
-        y = F.dropout(F.relu(self.linear1(x)), self.dropout, self.training)
+        y = hidden_dropout(F.relu(self.linear1(x)), self.dropout,
+                           self.training, self.linear1)
         return x + F.dropout(self.linear2(y), self.dropout, self.training)
+
+
+def hidden_dropout(x: torch.Tensor, p: float, training: bool,
+                   linear: nn.Module) -> torch.Tensor:
+    """``F.dropout`` of an activation of ``linear``'s output features.
+    A column-parallel ``linear`` (``parallel/sharding.py``) gives this
+    rank's slice of them (its ``columns``: first, stop, width): the mask
+    is drawn for the whole width and sliced, so a tensor-parallel model
+    drops what the replicated one drops from the same generator."""
+    cols = getattr(linear, "columns", None)
+    if cols is None or not training or p == 0.0:
+        return F.dropout(x, p, training)
+    first, stop, width = cols
+    mask = F.dropout(x.new_ones(*x.shape[:-1], width), p, True)
+    return x * mask[..., first:stop]
 
 
 def bn_affine(gamma, beta, mean, var, eps: float = 1e-5):
@@ -189,6 +206,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.channel_dim = channel_dim
+        self.group = None       # a data group of 2+ ranks: sum over it
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -212,7 +230,10 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
     def _batch_stats(self, xf, mask, shape):
+        """(mean, biased variance) over every axis but the channel's."""
         dims = [d for d in range(xf.ndim) if d != self.channel_dim % xf.ndim]
+        if self.group is not None:
+            return self._global_stats(xf, mask, shape, dims)
         if mask is None:
             mean = xf.mean(dims)
             return mean, ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
@@ -220,6 +241,27 @@ class BatchNorm(nn.Module):
         n = (m.sum() / xf.shape[self.channel_dim]).clamp(min=1.0)
         mean = (xf * m).sum(dims) / n
         return mean, (m * (xf - mean.view(shape)) ** 2).sum(dims) / n
+
+    def _global_stats(self, xf, mask, shape, dims):
+        """:meth:`_batch_stats` over a data ``group``: the sums and counts
+        are those of every rank's rows (``parallel/distributed.
+        global_sum``, under autograd), so each rank normalizes with the
+        global batch's statistics, as the JAX step over a data mesh
+        does."""
+        c = xf.shape[self.channel_dim]
+        if mask is None:
+            n = xf.new_full((1,), xf.numel() // c)
+            sums = global_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                         n]), self.group)
+            mean, n = sums[:c] / sums[-1], sums[-1]
+            return mean, (sums[c:2 * c] / n - mean * mean).clamp(min=0.0)
+        m = mask.to(xf.dtype).unsqueeze(self.channel_dim).expand_as(xf)
+        sums = global_sum(torch.cat([(xf * m).sum(dims), m.sum()[None]]),
+                          self.group)
+        n = (sums[-1] / c).clamp(min=1.0)
+        mean = sums[:c] / n
+        return mean, global_sum((m * (xf - mean.view(shape)) ** 2).sum(dims),
+                                self.group) / n
 
 
 class Conv2d(nn.Conv2d):

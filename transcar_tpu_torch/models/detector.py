@@ -95,13 +95,7 @@ class TransCARDetector(nn.Module):
                          stop_camera_grad=stop_camera_grad)
 
     def _features(self, x: torch.Tensor, b: int, n: int):
-        """Backbone + FPN of images [B·N, H, W, 3]: the levels as
-        [B, N, h, w, C] in ``head_input_dtype``."""
-        feats = self.neck(self.backbone(x.permute(0, 3, 1, 2)))
-        head_dt = getattr(torch, self.cfg.backbone.head_input_dtype)
-        return [f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:],
-                                              f.shape[1]).to(head_dt)
-                for f in feats]
+        return camera_features(self.backbone, self.neck, self.cfg, x, b, n)
 
     def aug_forward(self, images_augs: torch.Tensor, lidar2img: torch.Tensor,
                     radar_tokens: Optional[torch.Tensor] = None):
@@ -118,6 +112,18 @@ class TransCARDetector(nn.Module):
                 acc + f for acc, f in zip(total, mlvl)]
         return self.head([f / a for f in total], lidar2img, (h, w),
                          radar_tokens)
+
+
+def camera_features(backbone: nn.Module, neck: nn.Module, cfg,
+                    x: torch.Tensor, b: int, n: int):
+    """Backbone + FPN of images [B·N, H, W, 3] (``cfg``: a
+    ``ModelConfig``): the levels as [B, N, h, w, C] in
+    ``head_input_dtype``."""
+    feats = neck(backbone(x.permute(0, 3, 1, 2)))
+    head_dt = getattr(torch, cfg.backbone.head_input_dtype)
+    return [f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:],
+                                          f.shape[1]).to(head_dt)
+            for f in feats]
 
 
 def resolve_dcn_impl(cfg) -> str:

@@ -24,7 +24,8 @@ from torch import nn
 
 from transcar_tpu_torch.core.boxes import inverse_sigmoid
 from transcar_tpu_torch.core.device import const
-from transcar_tpu_torch.models.common import LN_EPS, MLP, TorchMHA
+from transcar_tpu_torch.models.common import (LN_EPS, MLP, TorchMHA,
+                                              hidden_dropout)
 from transcar_tpu_torch.models.detr3d import Detr3DDecoderLayer
 
 
@@ -147,8 +148,10 @@ class TransCARHead(nn.Module):
             gate = keep.any(dim=-1, keepdim=True).to(query.dtype)
             query = getattr(self, f"fusion{i}_norm2")(
                 query + self._dropout(attn) * gate)
-            ffn = getattr(self, f"fusion{i}_linear2")(self._dropout(
-                F.relu(getattr(self, f"fusion{i}_linear1")(query))))
+            linear1 = getattr(self, f"fusion{i}_linear1")
+            ffn = getattr(self, f"fusion{i}_linear2")(hidden_dropout(
+                F.relu(linear1(query)), self.dropout, self.training,
+                linear1))
             query = getattr(self, f"fusion{i}_norm3")(
                 query + self._dropout(ffn))
 

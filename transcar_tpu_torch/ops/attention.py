@@ -12,7 +12,7 @@ Weight convention as in the JAX package: ``wq``/``wk``/``wv``/``wo`` are
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,19 +34,30 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention_core(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                    mask: Optional[torch.Tensor] = None,
-                   dropout: float = 0.0) -> torch.Tensor:
+                   dropout: float = 0.0,
+                   heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """softmax(QKᵀ/√hd) · V per head.
 
     qh: [B, H, Q, hd]; kh, vh: [B, H, T, hd]; mask: optional bool
     [B, Q, T], True = position MASKED (torch ``attn_mask``); dropout: the
-    rate applied to the attention probabilities.
+    rate applied to the attention probabilities.  ``heads`` = (first,
+    total) says that these H heads are heads first .. first + H of
+    ``total`` (tensor parallelism): the dropout mask is drawn for all
+    ``total`` and sliced, so the split model drops what the whole one
+    does.
     """
     logits = qh @ kh.transpose(-1, -2) / math.sqrt(qh.shape[-1])
     if mask is not None:
         logits = logits.masked_fill(mask[:, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     if dropout > 0.0:
-        probs = F.dropout(probs, dropout)
+        if heads is None:
+            probs = F.dropout(probs, dropout)
+        else:
+            first, total = heads
+            b, h, q, t = probs.shape
+            keep = F.dropout(probs.new_ones(b, total, q, t), dropout)
+            probs = probs * keep[:, first:first + h]
     return probs @ vh
 
 

@@ -21,6 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
+from transcar_tpu_torch.parallel.distributed import barrier, is_main
+
 STATE_FILE = "state.pt"
 
 
@@ -36,9 +38,18 @@ def save_checkpoint(work_dir: str, state, config_dict=None,
                     keep: int = 5) -> str:
     """Save ``state`` (a ``train.step.TrainState``) at its step; returns
     the step dir.  The file is written under a temporary name and moved
-    into place, so a step dir with a ``state.pt`` is always whole."""
+    into place, so a step dir with a ``state.pt`` is always whole.  Under
+    a process group rank 0 writes (every rank of a data-parallel run
+    holds the same state) and every rank waits for it."""
     ckpt_dir = os.path.abspath(os.path.join(work_dir, "checkpoints"))
     path = os.path.join(ckpt_dir, str(int(state.step)))
+    if is_main():
+        _write(path, ckpt_dir, state, config_dict, keep)
+    barrier()
+    return path
+
+
+def _write(path, ckpt_dir, state, config_dict, keep) -> None:
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save({"step": int(state.step),
@@ -51,14 +62,14 @@ def save_checkpoint(work_dir: str, state, config_dict=None,
             json.dump(config_dict, f, indent=2)
     for old in _steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, str(old)))
-    return path
 
 
 def restore_checkpoint(work_dir: str, state,
                        step: Optional[int] = None) -> int:
     """Full-state resume (``--resume-from``): the newest step (or
     ``step``) of ``<work_dir>/checkpoints`` loaded into ``state``'s
-    model, optimizer and schedule in place; returns the step."""
+    model, optimizer and schedule in place; returns the step.  Every rank
+    of a process group restores."""
     ckpt_dir = os.path.abspath(os.path.join(work_dir, "checkpoints"))
     steps = _steps(ckpt_dir)
     if not steps:

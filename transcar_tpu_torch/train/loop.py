@@ -3,15 +3,21 @@
 
 EpochBasedRunner analog (SURVEY.md §2.6): json + text logging that the
 log-analysis CLI parses, an EvalHook every N epochs, a checkpoint hook,
-warm start and resume.  One process drives one card: the batch is
-``data.samples_per_device`` and ``train.mesh_shape`` is a no-op, as on a
-JAX host with one device (multi-card training is ROADMAP.md Queue 1
-item 7).
+warm start and resume.  One process drives one card.  Under a process
+group (torchrun or Slurm, ``parallel/distributed.py``) the W ranks train
+data-parallel: the global batch is ``data.samples_per_device`` × W, each
+rank loads its rows of it, and the step sums what spans the batch over
+the ranks, so W ranks train what the JAX package trains on a W-device
+data mesh.  Rank 0 alone logs, writes checkpoints and traces; every rank
+restores on resume.  ``train.mesh_shape`` is a no-op: the world size is
+the data axis.
 
 Each step's random draws come from ``(train.seed, step)``
-(:func:`step_generator`): GridMask from a CPU generator, dropout from the
-device's default generator, both reseeded before the step, as the JAX
-step folds the step into its key.  So a resumed run draws what an
+(:func:`step_generator`): GridMask from a CPU generator, the same on
+every rank (one mask covers the global batch, as it covers the batch of
+one process), and dropout from the device's default generator, seeded
+from ``(train.seed, step, rank)``; both are reseeded before the step, as
+the JAX step folds the step into its key.  So a resumed run draws what an
 uninterrupted run draws.  A resumed run also skips the batches of its
 epoch that the saved step had taken (the JAX loop restarts the epoch),
 so it sees the same batches as well.
@@ -39,6 +45,10 @@ from transcar_tpu_torch.data.loader import PrefetchLoader, to_device
 from transcar_tpu_torch.eval.submission import (detections_to_nusc_annos,
                                                 write_submission)
 from transcar_tpu_torch.models.detector import build_model
+from transcar_tpu_torch.parallel.distributed import (allgather_eval_outputs,
+                                                     rank_world)
+from transcar_tpu_torch.parallel.mesh import (CameraShardedDetector,
+                                              camera_devices, make_grid)
 from transcar_tpu_torch.train import checkpoint as ckpt
 from transcar_tpu_torch.train.fold import fold_bn_into_conv, frozen_bn_names
 from transcar_tpu_torch.train.step import (TrainState, aug_eval_step,
@@ -50,12 +60,14 @@ class JsonLogger:
     """mmcv-style json-line logger (work_dirs/<name>/<ts>.log.json) — the
     format tools/analysis_tools/analyze_logs.py parses."""
 
-    def __init__(self, work_dir: str):
-        os.makedirs(work_dir, exist_ok=True)
+    def __init__(self, work_dir: str, enabled: bool = True):
+        self.enabled = enabled        # rank 0 of a process group logs
         stamp = time.strftime("%Y%m%d_%H%M%S")
         self.path = os.path.join(work_dir, f"{stamp}.log.json")
 
     def log(self, record: Dict):
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
         mode = record.get("mode", "")
@@ -65,28 +77,34 @@ class JsonLogger:
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without CUDA
-    raises (nothing runs on the CPU unless asked)."""
+    """``device`` as a ``torch.device`` (``cuda`` as the current card, which
+    a rank of a process group has set); a CUDA device without CUDA raises
+    (nothing runs on the CPU unless asked)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda, but torch.cuda.is_available() is "
                            "False (pass device=\"cpu\", or --device cpu, "
                            "for a CPU run)")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device,
+                   rank: int = 0) -> torch.Generator:
     """Reseed the default generator of ``device`` (dropout) from
-    ``(seed, step)`` and return a CPU generator (GridMask) seeded from
-    the same pair."""
+    ``(seed, step, rank)`` and return a CPU generator (GridMask) seeded
+    from ``(seed, step)``, the same on every rank.  ``rank`` is the data
+    rank: the ranks of one model group draw the same dropout."""
     s = (seed + 1) * 1_000_003 + step
     device = torch.device(device)
+    drop = s + rank * 7_919_000_017      # rank 0 draws as one process does
     if device.type == "cuda":
         index = (device.index if device.index is not None
                  else torch.cuda.current_device())
-        torch.cuda.default_generators[index].manual_seed(s)
+        torch.cuda.default_generators[index].manual_seed(drop)
     else:
-        torch.default_generator.manual_seed(s)
+        torch.default_generator.manual_seed(drop)
     return torch.Generator().manual_seed(s)
 
 
@@ -133,22 +151,32 @@ def train(cfg: TransCARConfig,
 
     Runs on ``device`` (the card unless the caller passes ``"cpu"``);
     returns the final state, whose ``last_eval`` holds the last val
-    pass's :class:`EvalResult`."""
+    pass's :class:`EvalResult`.
+
+    Under a process group every rank runs this function (see the module
+    docstring); the loader, the step and the eval hook split the work,
+    and rank 0 writes."""
     device = resolve_device(device)
+    rank, world = rank_world()
+    main = rank == 0
+    grid = make_grid() if world > 1 else None
     work_dir = cfg.train.work_dir
     os.makedirs(work_dir, exist_ok=True)
-    logger = JsonLogger(work_dir)
-    with open(os.path.join(work_dir, "config.json"), "w") as f:
-        json.dump(config_to_dict(cfg), f, indent=2)
+    logger = JsonLogger(work_dir, enabled=main)
+    if main:
+        with open(os.path.join(work_dir, "config.json"), "w") as f:
+            json.dump(config_to_dict(cfg), f, indent=2)
 
     dataset = NuScenesInfos(
         os.path.join(cfg.data.data_root, cfg.data.ann_train),
         class_names=cfg.data.class_names, data_root=cfg.data.data_root)
     indices = cbgs_indices(dataset) if cfg.data.use_cbgs else None
     modality = "lidar" if cfg.model.lidar_encoder else "camera"
-    loader = PrefetchLoader(dataset, cfg.data, cfg.data.samples_per_device,
+    loader = PrefetchLoader(dataset, cfg.data,
+                            cfg.data.samples_per_device * world,
                             training=True, indices=indices,
                             radar_fn=radar_fn, seed=cfg.train.seed,
+                            process_index=rank, process_count=world,
                             modality=modality)
     steps_per_epoch = max(len(loader), 1)
     total_steps = steps_per_epoch * cfg.train.optim.total_epochs
@@ -159,7 +187,7 @@ def train(cfg: TransCARConfig,
                         seed=cfg.train.seed)
     if cfg.train.load_from:
         model.load_state_dict(_load_params(cfg.train.load_from, cfg, model))
-    state = init_state(cfg, model, total_steps)
+    state = init_state(cfg, model, total_steps, grid=grid)
     start_epoch, skip = 0, 0
     if cfg.train.resume_from:
         step = ckpt.restore_checkpoint(cfg.train.resume_from, state)
@@ -192,13 +220,14 @@ def train(cfg: TransCARConfig,
                                   f"val_epoch{epoch + 1}_nusc.json"),
             _dataset=eval_ctx["dataset"])
         state.last_eval = result
-        rec = {"mode": "val", "epoch": epoch + 1, "iter": len(loader),
-               "step": state.step, "time": round(time.time() - t0, 4)}
-        rec.update(_metrics(result.path, cfg, eval_ctx["dataset"]))
-        logger.log(rec)
+        if main:
+            rec = {"mode": "val", "epoch": epoch + 1, "iter": len(loader),
+                   "step": state.step, "time": round(time.time() - t0, 4)}
+            rec.update(_metrics(result.path, cfg, eval_ctx["dataset"]))
+            logger.log(rec)
 
-    tracing = {"on": False, "done": trace_dir is None, "local": 0,
-               "prof": None, "t0": 0.0}
+    tracing = {"on": False, "done": trace_dir is None or not main,
+               "local": 0, "prof": None, "t0": 0.0}
 
     def trace_tick():
         """Open the window before the ``trace_start``-th local step and
@@ -254,9 +283,10 @@ def train(cfg: TransCARConfig,
                 t_tick = time.time()
                 trace_tick()
                 t_iter += time.time() - t_tick     # not the trace's export
-                gen = step_generator(cfg.train.seed, state.step, device)
+                gen = step_generator(cfg.train.seed, state.step, device,
+                                     rank)
                 losses = train_step(state, to_device(batch, device), gen)
-                if (i + 1) % log_interval == 0:
+                if main and (i + 1) % log_interval == 0:
                     rec = {"mode": "train", "epoch": epoch + 1,
                            "iter": i + 1, "step": state.step,
                            "lr": float(state.scheduler.get_last_lr()[0]),
@@ -336,6 +366,7 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
              batch_size: int = 1,
              fold_bn: bool = True,
              aug_test: Optional[Sequence[str]] = None,
+             shard_cameras: bool = False,
              _dataset: Optional[NuScenesInfos] = None) -> EvalResult:
     """Inference over the val set → nuScenes submission json
     (tools/test.py --format-only analog), with ``model`` (eval mode, on
@@ -354,6 +385,19 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
     ``aug_test`` (e.g. ``("identity", "flip")``) runs test-time
     augmentation (``train/step.py::aug_eval_step``): the backbone and FPN
     once a view, the features averaged, the head once; camera track only.
+
+    ``shard_cameras`` (camera track, one process) runs each camera
+    group's backbone and FPN on a device of its own
+    (``parallel/mesh.CameraShardedDetector``), over every visible card,
+    as many as divide the camera count (``parallel/mesh.
+    camera_devices``); with one device, under a process group or for a
+    LiDAR preset it takes the unsharded path and says so.  The output is
+    the unsharded one.
+
+    Under a process group the samples are strided across the ranks, each
+    rank's decoded rows are gathered (``parallel/distributed.
+    allgather_eval_outputs``) in sample order on every rank, and rank 0
+    writes the submission (mmdet's ``multi_gpu_test`` and collect).
 
     On the card two batches are in flight: each step's decoded rows are
     copied to pinned host memory as soon as the step is queued, and the
@@ -375,10 +419,28 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
     if fold_bn:
         model.load_state_dict(fold_bn_into_conv(model.state_dict(),
                                                 frozen_bn_names(model)))
+    rank, world = rank_world()
+    if shard_cameras and cfg.model.lidar_encoder:
+        print("[shard-cameras] a LiDAR preset has no cameras: the "
+              "unsharded path")
+    elif shard_cameras and world > 1:
+        print(f"[shard-cameras] {world} ranks split the samples: the "
+              "unsharded path on each")
+    elif shard_cameras:
+        visible = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        devices = camera_devices(cfg.model.head.num_cams, visible)
+        if len(devices) > 1:
+            model = CameraShardedDetector(model, devices)
+        else:
+            print(f"[shard-cameras] {len(devices)} device for "
+                  f"{cfg.model.head.num_cams} cameras: the one-device path")
     n = len(dataset) if max_samples is None else min(max_samples,
                                                      len(dataset))
-    my_indices = np.arange(n)
-    pad = (-n) % batch_size if n else 0
+    my_indices = np.arange(n)[rank::world]
+    n_real = len(my_indices)
+    pad = (-n_real) % batch_size if n_real else 0
     padded = (np.concatenate([my_indices, np.repeat(my_indices[:1], pad)])
               if pad else my_indices)
     loader = PrefetchLoader(
@@ -394,7 +456,7 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
             ready.synchronize()
         for row in range(batch_size):
             pos = bidx * batch_size + row
-            if pos >= n:               # padded tail rows
+            if pos >= n_real:          # padded tail rows
                 continue
             for k in keys:
                 local[k].append(out[k][row].numpy())
@@ -425,20 +487,30 @@ def evaluate(cfg: TransCARConfig, model: nn.Module,
     batches.close()
 
     k_det = cfg.model.head.max_detections
-    dets = {k: (np.stack(v) if v else np.zeros((0, k_det, 9) if k == "boxes"
-                                               else (0, k_det)))
-            for k, v in local.items() if k != "sample_idx"}
+    empty = {"boxes": ((0, k_det, 9), np.float32),
+             "scores": ((0, k_det), np.float32),
+             "labels": ((0, k_det), np.int32), "valid": ((0, k_det), bool)}
+    dets = {k: np.stack(local[k]) if local[k] else np.zeros(*empty[k])
+            for k in keys}
+    dets["sample_idx"] = np.asarray(local["sample_idx"], np.int64)
+    if world > 1:
+        dets, _ = allgather_eval_outputs(dets, n_real)
+        order = np.argsort(dets["sample_idx"], kind="stable")
+        dets = {k: v[order] for k, v in dets.items()}
+    samples = dets.pop("sample_idx")
     dets["tokens"] = np.asarray([dataset.infos[i]["token"]
-                                 for i in local["sample_idx"]])
+                                 for i in samples])
     out_path = out_path or os.path.join(cfg.train.work_dir,
                                         "results_nusc.json")
-    results: Dict[str, list] = {}
-    for row, i in enumerate(local["sample_idx"]):
-        info = dataset.infos[i]
-        results[info["token"]] = detections_to_nusc_annos(
-            dets["boxes"][row], dets["scores"][row], dets["labels"][row],
-            dets["valid"][row], info, cfg.data.class_names)
-    write_submission(results, out_path)
+    if rank == 0:
+        results: Dict[str, list] = {}
+        for row, i in enumerate(samples):
+            info = dataset.infos[i]
+            results[info["token"]] = detections_to_nusc_annos(
+                dets["boxes"][row], dets["scores"][row],
+                dets["labels"][row], dets["valid"][row], info,
+                cfg.data.class_names)
+        write_submission(results, out_path)
     return EvalResult(out_path, dets)
 
 

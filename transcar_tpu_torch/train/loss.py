@@ -10,8 +10,8 @@ detr3d_head.py:742-1001, and ``HungarianAssigner3D``).
   * bbox targets: normalized gt boxes at matched rows, weights 1 there ×
     ``code_weights``; non-finite target rows are dropped.
   * cls_avg_factor = num_pos + bg_cls_weight · num_neg, and the bbox
-    normalizer clamp(num_pos, 1), both over the whole batch; NaN losses
-    become 0.
+    normalizer clamp(num_pos, 1), both over the whole (global) batch; NaN
+    losses become 0.
 
 gt boxes arrive padded to a static G in gravity-center form (cx, cy,
 cz, w, l, h, yaw, vx, vy) with ``num_gt`` real rows; padded rows have
@@ -28,6 +28,7 @@ from transcar_tpu_torch.core.device import const
 from transcar_tpu_torch.ops.focal import (focal_loss_cost, l1_loss,
                                           sigmoid_focal_loss)
 from transcar_tpu_torch.ops.hungarian import hungarian_match
+from transcar_tpu_torch.parallel.distributed import global_sum, rank_world
 
 
 def hungarian_targets(cls_all: torch.Tensor, box_all: torch.Tensor,
@@ -66,10 +67,11 @@ def hungarian_targets(cls_all: torch.Tensor, box_all: torch.Tensor,
 
 
 def _layer_loss(cls_scores, bbox_preds, labels, bbox_targets, bbox_weights,
-                num_pos, cfg):
-    """Loss of one decoder layer over the batch (cls_scores [B, Q, C])."""
+                num_pos, batch, cfg):
+    """Loss of one decoder layer over the batch (cls_scores [B, Q, C];
+    ``num_pos`` and ``batch`` are the global batch's)."""
     b, nq, c = cls_scores.shape
-    cls_avg = torch.clamp(num_pos + cfg.bg_cls_weight * (b * nq - num_pos),
+    cls_avg = torch.clamp(num_pos + cfg.bg_cls_weight * (batch * nq - num_pos),
                           min=1.0)
     loss_cls = sigmoid_focal_loss(
         cls_scores.reshape(-1, c), labels.reshape(-1),
@@ -89,8 +91,15 @@ def _layer_loss(cls_scores, bbox_preds, labels, bbox_targets, bbox_weights,
 
 def detr3d_loss(preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
                 gt_labels: torch.Tensor, num_gt: torch.Tensor,
-                cfg) -> Dict[str, torch.Tensor]:
+                cfg, group=None) -> Dict[str, torch.Tensor]:
     """Full multi-layer loss (``cfg``: a ``HeadConfig``).
+
+    With a data ``group`` (``parallel/mesh.Grid.data_group``) this rank's
+    rows are one part of a global batch: ``num_pos`` and the batch size of
+    ``cls_avg`` are the global batch's (summed over the group, the
+    reference's ``reduce_mean``, which the JAX step gets from its global
+    batch), so each rank's loss is its rows' share of the global loss, and
+    the sum of the ranks' losses (and gradients) is the global batch's.
 
     Args:
       preds: all_cls_scores [L, B, Q, C] and all_bbox_preds [L, B, Q, 10]:
@@ -106,11 +115,13 @@ def detr3d_loss(preds: Dict[str, torch.Tensor], gt_boxes: torch.Tensor,
     nl = cls_all.shape[0]
     labels, targets, weights = hungarian_targets(
         cls_all, box_all, gt_boxes, gt_labels, num_gt, cfg)
-    num_pos = num_gt.sum().float().to(cls_all.device)
+    num_pos = global_sum(num_gt.sum().float().to(cls_all.device)[None],
+                         group)[0]
+    batch = cls_all.shape[1] * rank_world(group)[1]
     losses, total = {}, 0.0
     for lid in range(nl):
         lc, lb = _layer_loss(cls_all[lid], box_all[lid], labels[lid],
-                             targets[lid], weights[lid], num_pos, cfg)
+                             targets[lid], weights[lid], num_pos, batch, cfg)
         prefix = "" if lid == nl - 1 else f"d{lid}."
         losses[prefix + "loss_cls"] = lc
         losses[prefix + "loss_bbox"] = lb

@@ -27,7 +27,11 @@ from torch import nn
 
 from transcar_tpu_torch.core.device import const
 from transcar_tpu_torch.eval.decode import nms_free_decode
+from transcar_tpu_torch.models.common import BatchNorm
 from transcar_tpu_torch.models.detector import camera_branch_trains
+from transcar_tpu_torch.parallel import sharding
+from transcar_tpu_torch.parallel.distributed import all_reduce_, global_sum
+from transcar_tpu_torch.parallel.mesh import Grid
 from transcar_tpu_torch.train.loss import detr3d_loss
 from transcar_tpu_torch.train.optim import build_optimizer
 
@@ -46,16 +50,30 @@ class TrainState:
     grad_norm: Optional[torch.Tensor] = None
     losses: Optional[Dict[str, torch.Tensor]] = None   # the last step's
     last_eval: Optional[object] = None   # train/loop.py's last val pass
+    grid: Optional[Grid] = None          # the process groups, if several
 
 
-def init_state(cfg, model: nn.Module, total_steps: int) -> TrainState:
-    """Optimizer, schedule and freeze rules of ``cfg`` for ``model``."""
+def init_state(cfg, model: nn.Module, total_steps: int,
+               grid: Optional[Grid] = None) -> TrainState:
+    """Optimizer, schedule and freeze rules of ``cfg`` for ``model``.
+
+    With a ``grid`` (``parallel/mesh.make_grid``) the step is this rank's
+    part of a parallel one: every BatchNorm sums its statistics over a
+    data group of more than one rank, and the matmuls the rule table
+    names are split over the model group (``parallel/sharding.
+    shard_model``, before the optimizer sees the parameters)."""
+    if grid is not None:
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm) and grid.data_size > 1:
+                mod.group = grid.data_group
+        sharding.shard_model(model, grid)
     fusion_only = not camera_branch_trains(cfg)
     opt, sched = build_optimizer(
         cfg.train.optim, model, total_steps, freeze_camera=fusion_only,
         frozen_stages=cfg.model.backbone.frozen_stages,
         norm_eval=cfg.model.backbone.norm_eval)
-    return TrainState(cfg, model.train(), opt, sched, fusion_only)
+    return TrainState(cfg, model.train(), opt, sched, fusion_only,
+                      grid=grid)
 
 
 def _bgr2hsv(x: torch.Tensor) -> torch.Tensor:
@@ -224,14 +242,21 @@ def compute_losses(state: TrainState, batch: Dict[str, torch.Tensor],
     as ``new_stats``)."""
     batch = normalize_batch_images(batch, state.cfg.data)
     preds = forward(state.model, batch, state.stop_camera_grad, generator)
+    group = state.grid.data_group if state.grid is not None else None
     return detr3d_loss(preds, batch["gt_boxes"], batch["gt_labels"],
-                       batch["num_gt"], state.cfg.model.head)
+                       batch["num_gt"], state.cfg.model.head, group=group)
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
-    """One step; returns the loss dict (detached)."""
+def gradients(state: TrainState, batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
+    """Forward and backward of one batch: every trainable parameter's
+    ``grad`` is then the global batch's gradient (zeros where the loss
+    does not reach it).  Returns this rank's losses.
+
+    With a ``state.grid`` the batch is this rank's rows of the global
+    batch, and the gradients are summed over the data group by one flat
+    bucketed all-reduce after the backward, every parameter included."""
     state.optimizer.zero_grad(set_to_none=True)
     losses = compute_losses(state, batch, generator)
     losses["total"].backward()
@@ -239,10 +264,40 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     for p in params:            # as optax: unreached parameters still decay
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    state.grad_norm = torch.nn.utils.clip_grad_norm_(
-        params, state.cfg.train.optim.grad_clip_norm)
+    if state.grid is not None:
+        all_reduce_([p.grad for p in params], state.grid.data_group)
+    return losses
+
+
+def apply_gradients(state: TrainState, losses: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The update from :func:`gradients`' ``grad``: the clip at the global
+    norm, the optimizer and the schedule.  Returns the global batch's
+    losses (detached; ``losses`` summed over the data group)."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    grid = state.grid
+    clip = state.cfg.train.optim.grad_clip_norm
+    state.grad_norm = (
+        torch.nn.utils.clip_grad_norm_(params, clip)
+        if grid is None or grid.model_group is None
+        else sharding.clip_grad_norm_(params, clip, grid))
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    state.losses = {k: v.detach() for k, v in losses.items()}
+    losses = {k: v.detach() for k, v in losses.items()}
+    if grid is not None and grid.data_group is not None:
+        summed = global_sum(torch.stack(list(losses.values())),
+                            grid.data_group)
+        losses = dict(zip(losses, summed))
+    state.losses = losses
     return state.losses
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One step (:func:`gradients`, then :func:`apply_gradients`);
+    returns the loss dict (detached).  With a ``state.grid`` the returned
+    losses are the global batch's, and after the step every rank of a
+    data group holds the same parameters."""
+    return apply_gradients(state, gradients(state, batch, generator))
