@@ -37,7 +37,10 @@ non-zero):
      main path, every row (fully masked ones too), on the tensor-core
      kernel; per request (3 launches, queued back to back) beside
      ``F.scaled_dot_product_attention``, its bound as three TF32 products
-     and as float32 FMAs, and the parent's K2 with its error;
+     and as float32 FMAs, and the parent's K2 with its error; the host µs
+     a call through the registered op (``torch.ops.transcar.
+     masked_attention``, with and without inference mode) against the
+     bare wrapper it dispatches to;
   6. the flagship slice through ``transcar_tpu_torch.cli.benchmark``:
      TransCAR-R101 batch-1 inference on 6 × 928 × 1600 with 900 queries
      and 1500 radar tokens, seeded random weights; launch counts (every K1
@@ -153,7 +156,18 @@ non-zero):
      ``cli.test --aug-test`` on the hook's checkpoint: ``identity`` alone
      equal to the plain ``cli.test`` bit for bit, (identity, flip) with
      52 K1 + 3 K2 a sample and finite metrics, and the same with
-     ``quantize=int8`` (156 int8 convs a sample);
+     ``quantize=int8`` (156 int8 convs a sample); then the tools on the
+     same fixture and work dirs (:func:`phase_tools`): ``cli.export`` of
+     ``transcar_r101`` (the warm-started checkpoint),
+     ``transcar_vovnet_trainval`` and ``objdgcnn_pillar`` (its
+     checkpoint) at full width, three processes side by side, each
+     ``.pt2`` loaded and run on the card against the live eval step (max
+     |Δ| of the decoded outputs, 0 expected; exactly 26 K1 + 3 K2, 16 K4
+     + 3 K2 and 8 K7 a request, each on its main tile; ms a request beside
+     eager), ``cli.test --show-dir`` (one PNG a sample), the
+     ``parity_check`` capture → compare round trip, ``get_flops`` of the
+     six presets at full width, ``publish_model`` of the warm-started
+     run, ``print_config`` and ``analyze_logs`` on its json log;
  21. int8 serving: ``transcar_r101`` and ``transcar_vovnet_trainval`` bs1
      at full width with ``model.backbone.quantize=int8`` through
      ``cli.benchmark``: 78 int8 convs (77 on the wgmma tile, 74 codes and
@@ -334,9 +348,12 @@ def dcn_bound_ms(x, om, wt, out_or_dout, backward: bool = False) -> float:
     """Bound of one DCN forward (out = K1(x, om, w)) or backward (d_x,
     d_om, d_W from x, om, w, d_out): the 9·Cin → Cout GEMM, twice in the
     backward, over each input read once and each output written once."""
+    from transcar_tpu_torch.ops import counts
+
     n, h, w, cin = x.shape
     cout = wt.shape[-1]
-    flops = 2.0 * n * h * w * 9 * cin * cout * (2 if backward else 1)
+    flops = (counts.dcn_backward if backward else counts.dcn_forward)(
+        n, h, w, cin, cout)
     moved = nbytes(x, om, wt, out_or_dout)
     if backward:            # outputs d_x, d_om (their dtypes) and d_W
         moved += nbytes(x, om, wt)
@@ -1378,8 +1395,10 @@ def k2_bounds(qh, kh, vh, keep, out) -> tuple:
     launch: the two products as three TF32 products at 495 TFLOP/s, or as
     float32 FMAs at 67, over q, k, v and keep read once and out written
     once."""
+    from transcar_tpu_torch.ops import counts
+
     b, h, nq, hd = qh.shape
-    flops = 4.0 * b * h * nq * kh.shape[2] * hd
+    flops = counts.masked_attention(b, h, nq, kh.shape[2], hd)
     moved = nbytes(qh, kh, vh, keep, out)
     t_ops, t_mem = 3 * flops / TF32_FLOPS, moved / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem
@@ -1442,7 +1461,14 @@ def phase_k2(parent=None) -> dict:
             lib = kernel_lib.library()
             rows = pallas_attention.keep_rows(keep)
             entry = lib["masked_attention_wgmma_f32"]
-            host = {"wrapper": host_us(wrap), "entry": host_us(call),
+            # through the registered op (the model's and the exported
+            # program's route) against the bare wrapper it dispatches to
+            with torch.inference_mode():       # as the eval step calls
+                op_inference = host_us(wrap)
+            host = {"op": host_us(wrap), "op in inference mode": op_inference,
+                    "wrapper": host_us(
+                        lambda: pallas_attention.kernel(qh, kh, vh, keep)),
+                    "entry": host_us(call),
                     "typing the entry": host_us(lambda: setattr(
                         entry, "argtypes",
                         list(pallas_attention.ENTRY_ARGTYPES))),
@@ -1456,7 +1482,8 @@ def phase_k2(parent=None) -> dict:
                 host["parent entry"] = host_us(old)
             print(f"K2 host µs a call [1x{heads}, {nq}x{t}]: "
                   + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
-                  + f"; back to back, no queue ahead: wrapper "
+                  + f" (op dispatch {host['op'] - host['wrapper']:.2f} µs "
+                  f"a call); back to back, no queue ahead: op "
                   f"{cuda_ms(wrap, iters=50):.4f} ms, entry "
                   f"{cuda_ms(call, iters=50):.4f} ms a launch", flush=True)
         plain_ms = cuda_ms(lambda: attention_core(qh, kh, vh, ~keep),
@@ -1831,7 +1858,7 @@ def phase_k4(parent=None) -> dict:
     beside the parent commit's K4 (``parent``: its kernel library) when
     given, both timed through their bare entries.  The bfloat16 weights are the K-major views the model caches
     (``pallas_osa.kmajor_weights``)."""
-    from transcar_tpu_torch.ops import pallas_osa
+    from transcar_tpu_torch.ops import counts, pallas_osa
 
     g = torch.Generator(device="cuda").manual_seed(4)
     own = own_library()
@@ -1887,7 +1914,8 @@ def phase_k4(parent=None) -> dict:
                 lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xcat,
                                                                     wcat))
                 del xcat, wcat
-                bound, kind = bound_ms(2.0 * n * h * w * sum(widths) * cout,
+                bound, kind = bound_ms(counts.osa_reduce(n, h, w, widths,
+                                                         cout),
                                        dtype, nbytes(*pieces, *ws, s, b, out,
                                                      sums))
                 bound_kinds.add(kind)
@@ -2589,7 +2617,7 @@ def phase_k7(parent=None) -> dict:
     parent's K7); per request (2 encoder + 6 decoder launches), beside the
     parent commit's K7 (``parent``) when given, both timed through their
     bare entries."""
-    from transcar_tpu_torch.ops import kernel_lib, pallas_msdeform
+    from transcar_tpu_torch.ops import counts, kernel_lib, pallas_msdeform
     from transcar_tpu_torch.ops.msdeform import ms_deform_attn_core
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -2637,7 +2665,8 @@ def phase_k7(parent=None) -> dict:
         # whole of it and no more than the 4 taps of every sample, which
         # is far less at a decoder call
         taps = wgt.numel() * 4 * value.shape[3] * value.element_size()
-        bound, kind = bound_ms(10.0 * value.shape[3] * wgt.numel(),
+        bound, kind = bound_ms(counts.msdeform_forward(wgt.numel(),
+                                                       value.shape[3]),
                                torch.float32,
                                nbytes(loc, wgt, out)
                                + min(nbytes(value), taps))
@@ -3586,12 +3615,15 @@ def _normalize_check(cfg, dataset, tokens_fn) -> tuple:
     return torch.equal(c0, g0), (c1 - g1).abs().max().item()
 
 
-def phase_pipeline(smi: str) -> None:
+def phase_pipeline(smi: str, then=None) -> None:
     """The data pipeline, checkpoints, train loop, eval hook and the
     train / test CLIs at full width on a nuScenes-layout fixture
     (:func:`write_fixture`: 4 train and 2 val samples, six 900 × 1600
     JPEGs, 5 radars × 5 sweeps, LiDAR key frame + 9 sweeps of 300 000
-    points; :func:`write_reference_pth` at full R101 depth)."""
+    points; :func:`write_reference_pth` at full R101 depth).  ``then(tmp,
+    data)``, if given, runs before the fixture and the runs' work dirs
+    under ``tmp`` are removed (``data``: the ``--cfg-options`` that point
+    at the fixture)."""
     import shutil
     import tempfile
 
@@ -3658,9 +3690,12 @@ def phase_pipeline(smi: str) -> None:
             print("pipeline camera runs: not run, this host has neither "
                   "Pillow nor libjpeg's headers, so no route reads a JPEG")
         _pipeline_lidar_run(tmp, data, smi)
+        print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s on "
+              f"{smi}")
+        if then is not None:
+            then(tmp, data)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
 def _pipeline_counts() -> dict:
@@ -3910,6 +3945,340 @@ def _pipeline_lidar_run(tmp: str, data: list, smi: str) -> None:
           f"losses finite {st['finite']} on {smi}")
     if not st["finite"] or st["steps"] != 2 or n_eval != 1:
         raise AssertionError(f"pipeline objdgcnn_pillar: {st}")
+
+
+# --- the tools on the pipeline's fixture (phase 20, last part) ---------------
+
+#: The exported programs the tools phase loads and runs: preset → kernel
+#: launches a request, each on its main tile (every K1 on the Hopper tile,
+#: every K2 on the tensor-core kernel, every K4 on the wgmma tile, every K7
+#: on the lane-group kernel), and nothing else.
+EXPORTS = {
+    "transcar_r101": {"K1": 26, "K1 tile": 26, "K2": 3, "K2 tile": 3,
+                      "K4": 0, "K7": 0},
+    "transcar_vovnet_trainval": {"K1": 0, "K2": 3, "K2 tile": 3, "K4": 16,
+                                 "K4 tile": 16, "K7": 0},
+    "objdgcnn_pillar": {"K1": 0, "K2": 0, "K4": 0, "K7": 8, "K7 tile": 8},
+}
+#: The loaded program against the live eval step, max |Δ| of each decoded
+#: output.  R101 and the pillar run the same ops on the same kernels in the
+#: same order, which repeat bit for bit, so 0.  VoVNet's K4 adds its
+#: channel sums with float32 atomics, whose order changes from run to run
+#: (a relative error of order 1e-6 in the eSE gate's mean), so two eager
+#: requests differ too: its program is held to twice the larger of that
+#: repeat's own |Δ| and 1e-4 on the scores and boxes, and its labels to
+#: the repeat's count of differing rows.
+EXPORT_EXACT = ("transcar_r101", "objdgcnn_pillar")
+#: The parity round trip on the card (the JAX self-test's tolerances).
+PARITY_TOL = {"box": 1e-4, "score": 1e-5}
+
+
+def _tool_counts() -> dict:
+    from transcar_tpu_torch.ops import (pallas_attention, pallas_dcn,
+                                        pallas_msdeform, pallas_osa)
+
+    return {"K1": pallas_dcn.launches, "K1 tile": pallas_dcn.wgmma_launches,
+            "K2": pallas_attention.launches,
+            "K2 tile": pallas_attention.mma_launches,
+            "K4": pallas_osa.launches, "K4 tile": pallas_osa.wgmma_launches,
+            "K7": pallas_msdeform.launches,
+            "K7 tile": pallas_msdeform.group_launches}
+
+
+def _latest_step(work_dir: str):
+    steps = sorted(int(p.name) for p in pathlib.Path(
+        work_dir, "checkpoints").glob("*") if p.name.isdigit())
+    return os.path.join(work_dir, "checkpoints", str(steps[-1])) \
+        if steps else None
+
+
+def _program_batch(cfg, device) -> dict:
+    """The fixture's first val sample through the eval loader, on the
+    card and normalized: the exported program's input."""
+    import numpy as np
+
+    from transcar_tpu_torch.cli.train import _try_radar_fn
+    from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.data.infos import NuScenesInfos
+    from transcar_tpu_torch.data.loader import PrefetchLoader, to_device
+    from transcar_tpu_torch.train.step import normalize_batch_images
+
+    ann = get_preset("transcar_r101").data.ann_val       # the fixture's
+    ds = NuScenesInfos(os.path.join(cfg.data.data_root, ann),
+                       class_names=cfg.data.class_names, test_mode=True,
+                       data_root=cfg.data.data_root)
+    lidar = bool(cfg.model.lidar_encoder)
+    loader = PrefetchLoader(
+        ds, cfg.data, batch_size=1, training=False, indices=np.arange(1),
+        radar_fn=(_try_radar_fn(cfg) if cfg.model.head.with_radar_fusion
+                  else None), modality="lidar" if lidar else "camera")
+    batch = next(iter(loader.epoch(0)))
+    batch = normalize_batch_images(to_device(batch, device), cfg.data)
+    keys = (("points", "num_points") if lidar else
+            ("images", "lidar2img", "radar_tokens"))
+    return {k: batch[k] for k in keys if k in batch}
+
+
+def export_child(preset: str, tmp: str, ckpt: str, data: list) -> None:
+    """One exported program, in a process of its own (``--export-child``;
+    :func:`phase_tools` runs one a preset side by side, as tracing is host
+    work): ``cli.export`` of ``preset`` at full width into ``tmp``, the
+    ``.pt2`` loaded and the live eval step built on the same weights (the
+    checkpoint ``ckpt``, or ``-`` for the seeded ones, folded), then
+    ``ready`` on stdout and a wait for a line on stdin, so that the card
+    and the host are this process's alone while it runs the fixture batch
+    through both: max |Δ| a decoded output, launches, ms a request in
+    turns with eager.  Prints its report as one JSON line and raises on a
+    failed check."""
+    import sys
+
+    from transcar_tpu_torch.cli import export as cli_export
+    from transcar_tpu_torch.core.config import get_preset, parse_overrides
+    from transcar_tpu_torch.models.detector import build_model
+    from transcar_tpu_torch.train.fold import (fold_bn_into_conv,
+                                               frozen_bn_names)
+    from transcar_tpu_torch.train.loop import _load_params
+    from transcar_tpu_torch.train.step import eval_step
+
+    ckpt = None if ckpt == "-" else ckpt
+    out = os.path.join(tmp, f"{preset}.pt2")
+    t0 = time.perf_counter()
+    cli_export.main([preset, "--out", out,
+                     *(["--checkpoint", ckpt] if ckpt else []),
+                     "--cfg-options", *data])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = torch.export.load(out).module()
+    load_s = time.perf_counter() - t0
+    sidecar = json.loads(pathlib.Path(out + ".json").read_text())
+    graph_ops = sorted({str(n.target) for n in program.graph.nodes
+                        if str(n.target).startswith("transcar.")})
+    cfg = get_preset(preset, parse_overrides(data))
+    model = build_model(cfg)
+    if ckpt:
+        model.load_state_dict(_load_params(ckpt, cfg, model))
+    model.load_state_dict(fold_bn_into_conv(model.state_dict(),
+                                            frozen_bn_names(model)))
+    batch = _program_batch(cfg, torch.device("cuda"))
+    print("ready", flush=True)
+    sys.stdin.readline()
+    with torch.inference_mode():
+        _zero_counts()
+        got = program(batch)
+        torch.cuda.synchronize()
+        counts = _tool_counts()
+        ref = eval_step(model, batch, cfg)
+        again = eval_step(model, batch, cfg)
+        err = {k: (got[k].double() - ref[k].double()).abs().max().item()
+               for k in ("boxes", "scores")}
+        rep = {k: (again[k].double() - ref[k].double()).abs().max().item()
+               for k in ("boxes", "scores")}
+        labels = [int((got["labels"] != ref["labels"]).sum()),
+                  int((again["labels"] != ref["labels"]).sum())]
+        same_valid = bool(torch.equal(got["valid"], ref["valid"]))
+        turns = [cuda_ms(f, iters=5, warmup=1) for f in (
+            lambda: eval_step(model, batch, cfg), lambda: program(batch),
+            lambda: program(batch), lambda: eval_step(model, batch, cfg))]
+    exact = preset in EXPORT_EXACT
+    bound = {k: 0.0 if exact else 2 * max(v, 1e-4) for k, v in rep.items()}
+    outputs = cli_export.tree_doc(got)
+    report = {
+        "preset": preset, "export_s": export_s, "load_s": load_s,
+        "mib": os.path.getsize(out) / 2**20, "graph_ops": graph_ops,
+        "max_abs": err, "bound": bound, "eager_repeat_max_abs": rep,
+        "labels_differing": labels[0], "eager_repeat_labels": labels[1],
+        "valid_equal": same_valid,
+        "finite": bool(torch.isfinite(got["boxes"]).all()),
+        "outputs_as_sidecar": outputs == sidecar["outputs"],
+        "launches": counts, "want": EXPORTS[preset],
+        "eager_ms": [turns[0], turns[3]], "exported_ms": turns[1:3]}
+    print(json.dumps(report), flush=True)
+    ops = {k.split()[0] for k, v in EXPORTS[preset].items() if v}
+    if not (counts == {**{k: 0 for k in counts}, **EXPORTS[preset]}
+            and all(err[k] <= bound[k] for k in err)
+            and report["finite"] and same_valid
+            and labels[0] <= (0 if exact else labels[1])
+            and report["outputs_as_sidecar"] and len(graph_ops) == len(ops)):
+        raise AssertionError(f"tools export {preset}: the loaded program "
+                             f"disagrees with the eval step or missed its "
+                             f"kernels")
+
+
+def _start_export_children(tmp: str, data: list, ckpts: dict) -> dict:
+    """One :func:`export_child` a preset, all started together."""
+    import sys
+
+    script = str(pathlib.Path(__file__).resolve())
+    return {preset: subprocess.Popen(
+        [sys.executable, script, "--export-child", preset, tmp,
+         ckpt or "-", *data], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for preset, ckpt in ckpts.items()}
+
+
+def _finish_export_child(preset: str, proc, smi: str) -> None:
+    """Wait for the child's ``ready``, let it run, print its report."""
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.strip() == "ready":
+                break
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+        lines += proc.stdout.readlines()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reports = [json.loads(line) for line in lines if line.startswith("{")]
+    if rc != 0 or not reports:
+        print("".join(lines[-40:]), flush=True)
+        raise AssertionError(f"tools export {preset}: child exited {rc}")
+    r = reports[-1]
+    print(f"tools export {preset}: cli.export {r['export_s']:.1f} s (three "
+          f"presets side by side), torch.export.load {r['load_s']:.1f} s, "
+          f"{r['mib']:.1f} MiB; graph ops {r['graph_ops']}; the loaded "
+          f"program against the live eval step: max |Δ| {r['max_abs']} "
+          f"(bound {r['bound']}; eager against eager "
+          f"{r['eager_repeat_max_abs']}), labels differing "
+          f"{r['labels_differing']} (eager repeat "
+          f"{r['eager_repeat_labels']}), valid equal {r['valid_equal']}, "
+          f"finite {r['finite']}, outputs as the sidecar's "
+          f"{r['outputs_as_sidecar']}; launches {r['launches']} (want "
+          f"{r['want']}); ms a request eager "
+          f"{r['eager_ms'][0]:.2f} / {r['eager_ms'][1]:.2f}, exported "
+          f"{r['exported_ms'][0]:.2f} / {r['exported_ms'][1]:.2f} (exported"
+          f" / eager {min(r['exported_ms']) / min(r['eager_ms']):.3f}) on "
+          f"{smi}", flush=True)
+
+
+def phase_tools(tmp: str, data: list, smi: str) -> None:
+    """The tools on the pipeline phase's fixture and work dirs: ``cli.export``
+    of three presets, each in a process of its own started first
+    (:func:`export_child`); meanwhile ``cli.test --show-dir``, the
+    ``parity_check`` capture → compare round trip, ``get_flops`` of the six
+    presets at full width, ``publish_model`` of the ``transcar_r101`` run,
+    ``print_config`` and ``analyze_logs`` on its json log; then each
+    program's run on the card, one at a time."""
+    t_phase = time.perf_counter()
+    w2 = os.path.join(tmp, "w_transcar")
+    ckpt6 = os.path.join(w2, "checkpoints", "6")
+    children = _start_export_children(tmp, data, {
+        "transcar_r101": ckpt6, "transcar_vovnet_trainval": None,
+        "objdgcnn_pillar": _latest_step(os.path.join(tmp, "w_pillar"))})
+    try:
+        _host_tools(tmp, data, w2, ckpt6)
+        for preset, proc in children.items():
+            _finish_export_child(preset, proc, smi)
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def _host_tools(tmp: str, data: list, w2: str, ckpt6: str) -> None:
+    """The tools phase's CLIs besides ``cli.export`` (see
+    :func:`phase_tools`)."""
+    import csv
+
+    from transcar_tpu_torch.cli import (analyze_logs, get_flops,
+                                        parity_check, print_config,
+                                        publish_model)
+    from transcar_tpu_torch.cli import test as cli_test
+    from transcar_tpu_torch.cli.train import _try_radar_fn
+    from transcar_tpu_torch.core.config import (config_to_dict, get_preset,
+                                                list_presets,
+                                                parse_overrides)
+    from transcar_tpu_torch.models.detector import build_model
+    from transcar_tpu_torch.train import checkpoint as ckpt_io
+    from transcar_tpu_torch.train.loop import _load_params
+
+    # cli.test --show-dir: one BEV PNG a sample
+    show = os.path.join(tmp, "show")
+    res = cli_test.main(["transcar_r101", ckpt6, "--out",
+                         os.path.join(tmp, "show.json"), "--show-dir", show,
+                         "--cfg-options", *data])
+    pngs = sorted(pathlib.Path(show).glob("*.png"))
+    n = len(res.detections["tokens"])
+    print(f"tools cli.test --show-dir: {len(pngs)} PNGs for {n} samples, "
+          f"{[p.stat().st_size for p in pngs]} bytes")
+    if len(pngs) != n or not all(p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+                                 for p in pngs):
+        raise AssertionError("tools: --show-dir wrote no PNG a sample")
+
+    # parity_check: capture on the card, then the CLI compares
+    cfg = get_preset("transcar_r101", parse_overrides(data))
+    model = build_model(cfg)
+    model.load_state_dict(_load_params(ckpt6, cfg, model))
+    npz = os.path.join(tmp, "capture.npz")
+    t0 = time.perf_counter()
+    parity_check.capture_outputs(cfg, model, npz,
+                                 radar_fn=_try_radar_fn(cfg))
+    capture_s = time.perf_counter() - t0
+    report_path = os.path.join(tmp, "parity.json")
+    rc, text = _run_cli(parity_check.main, [
+        "transcar_r101", "--checkpoint", ckpt6, "--reference-npz", npz,
+        "--box-tol", str(PARITY_TOL["box"]), "--score-tol",
+        str(PARITY_TOL["score"]), "--report-out", report_path,
+        "--cfg-options", *data])
+    report = json.loads(pathlib.Path(report_path).read_text())
+    print(f"tools parity_check round trip: capture {capture_s:.1f} s, "
+          f"{report['n_samples']} samples, {report['compared_rows']} rows: "
+          f"box max |Δ| {report['box_max_abs']:.3g}, score max |Δ| "
+          f"{report['score_max_abs']:.3g} (tol {PARITY_TOL}), labels "
+          f"{report['label_agree_min']}, rc {rc}")
+    if rc != 0 or "PARITY PASSED" not in text or not report["n_samples"]:
+        raise AssertionError("tools: the parity round trip failed")
+    del model
+
+    # get_flops at full width, every preset (on the meta device)
+    t0 = time.perf_counter()
+    flops = {p: get_flops.count_flops(get_preset(p), 928, 1600)
+             for p in list_presets()}
+    print(f"tools get_flops ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(f"{p} {r['gflops']} GFLOP, {r['params_m']} M params, "
+                      f"kernels {r['kernel_gflops']}"
+                      for p, r in flops.items()))
+    if not all(r["gflops"] > 0 and r["params_m"] > 0 and r["kernel_gflops"]
+               for r in flops.values()):
+        raise AssertionError(f"tools: get_flops {flops}")
+
+    # publish_model, print_config, analyze_logs
+    pub, _ = _run_cli(publish_model.main, [w2, os.path.join(tmp, "pub",
+                                                            "transcar")])
+    published = torch.load(pub, map_location="cpu", weights_only=True)
+    latest = ckpt_io.load_params_only(_latest_step(w2))
+    same = (list(published) == list(latest) and all(
+        torch.equal(published[k], latest[k]) for k in latest))
+    digest = publish_model.state_digest(latest)[:8]
+    _, text = _run_cli(print_config.main, ["transcar_r101"])
+    printed = json.loads(text) == json.loads(json.dumps(config_to_dict(
+        get_preset("transcar_r101"))))
+    log = sorted(pathlib.Path(w2).glob("*.log.json"))[0]
+    train_recs = [r for r in analyze_logs.load_records(log)
+                  if r.get("mode") == "train" and "total" in r]
+    _, timing = _run_cli(analyze_logs.main, ["cal_train_time", str(log)])
+    curve = os.path.join(tmp, "curve.png")
+    _, plotted = _run_cli(analyze_logs.main, [
+        "plot_curve", str(log), "--keys", "total", "--out", curve])
+    wrote = curve if os.path.exists(curve) else curve[:-4] + ".csv"
+    rows = (len(list(csv.reader(open(wrote)))) - 1
+            if wrote.endswith(".csv") else None)
+    print(f"tools publish_model: {os.path.basename(pub)} (hash {digest}), "
+          f"equal to the latest step's state {same}; print_config JSON = "
+          f"config_to_dict {printed}; analyze_logs: cal_train_time "
+          f"{'overall mean' in timing}, plot_curve wrote "
+          f"{os.path.basename(wrote)} ({rows} rows for {len(train_recs)} "
+          f"train records)")
+    if (not same or not pub.endswith(digest) or not printed
+            or "overall mean" not in timing
+            or (rows is not None and rows != len(train_recs))):
+        raise AssertionError("tools: publish_model / print_config / "
+                             "analyze_logs")
 
 
 # --- int8 serving (phases 21 and 22) -----------------------------------------
@@ -4745,7 +5114,11 @@ def main(argv=None) -> None:
                     help="instead of the phases: build and time the knock-out "
                          "variants of the K1, K2, K5, K6, K7, K8, K9 or int8 "
                          "kernels (VARIANTS), then exit")
+    ap.add_argument("--export-child", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.export_child:           # one process of phase_tools
+        export_child(*args.export_child[:3], args.export_child[3:])
+        return
     smi = phase_device()
     if args.variants:
         phase_variants(VARIANT_KINDS if args.variants == "all"
@@ -4776,7 +5149,8 @@ def main(argv=None) -> None:
     phase_lidar_train(smi, "objdgcnn_voxel")
     phase_lidar_train_check("objdgcnn_voxel")
     phase_sync()
-    phase_pipeline(smi)
+    phase_pipeline(smi, then=lambda tmp, data: phase_tools(tmp, data,
+                                                           smi))
     int8_launches, int8_shapes, int8_quants = phase_int8_slices(smi)
     int8_res = phase_int8(int8_shapes, int8_quants, smi, parent)
     phase_parallel(smi)

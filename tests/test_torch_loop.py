@@ -154,18 +154,13 @@ def test_cli_device_and_later_flags(root, tmp_path, capsys, monkeypatch):
     """Without CUDA and without ``--device cpu`` both CLIs raise.
     ``--autoscale-lr`` scales the lr by the card count / 8 (1 / 8 in one
     process) and ``--shard-cameras`` with one device takes the one-device
-    path and says so; ``--show-dir`` belongs to a later slice and
-    raises naming its item."""
+    path and says so; ``--show-dir`` writes one BEV PNG a sample."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["--cfg-options", *TINY, f"data.data_root={root}"]
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_train.main(["detr3d_r101", "--max-steps", "1"] + argv)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_test.main(["detr3d_r101", "x"] + argv)
-    with pytest.raises(SystemExit):
-        cli_test.main(["detr3d_r101", "x", "--show-dir=d", "--device",
-                       "cpu"])
-    assert "ROADMAP.md Queue 1 item 8" in capsys.readouterr().err
     work = str(tmp_path / "w")
     state = cli_train.main(["detr3d_r101", "--work-dir", work,
                             "--max-steps", "1", "--no-validate",
@@ -176,11 +171,16 @@ def test_cli_device_and_later_flags(root, tmp_path, capsys, monkeypatch):
     res = cli_test.main(["detr3d_r101", os.path.join(work, "checkpoints",
                                                      "1"),
                          "--shard-cameras", "--max-samples", "1",
-                         "--out", str(tmp_path / "r.json")]
+                         "--out", str(tmp_path / "r.json"),
+                         "--show-dir", str(tmp_path / "show")]
                         + cli_args(root))
+    out = capsys.readouterr().out
     assert "[shard-cameras] 1 device for 6 cameras: the one-device path" \
-        in capsys.readouterr().out
+        in out
     assert res.detections["boxes"].shape[0] == 1
+    pngs = list((tmp_path / "show").glob("*.png"))
+    assert len(pngs) == 1 and f"rendered {pngs[0]}" in out
+    assert pngs[0].read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
 def pconfig_lr(preset):

@@ -3,8 +3,8 @@
 Usage:
     python -m transcar_tpu_torch.cli.test <preset> <checkpoint>
         [--format-only] [--eval bbox] [--out results.json]
-        [--max-samples N] [--batch-size B] [--no-fold-bn] [--device cpu]
-        [--aug-test [identity,flip]] [--shard-cameras]
+        [--max-samples N] [--show-dir D] [--batch-size B] [--no-fold-bn]
+        [--device cpu] [--aug-test [identity,flip]] [--shard-cameras]
         [--dist-backend nccl|gloo] [--cfg-options ...]
 
 The checkpoint is a training step dir (``work_dir/checkpoints/<step>``),
@@ -20,8 +20,8 @@ camera group's backbone and FPN on a card of its own (camera track, one
 process; ``train/loop.evaluate``).  Launched on W processes (torchrun or
 Slurm, ``transcar_tpu_torch/tools/{dist,slurm}_test.sh``) the samples
 are strided across the ranks and rank 0 writes and scores the
-submission.  ``--show-dir`` (ROADMAP.md Queue 1 item 8) belongs to a
-later slice and raises.
+submission.  ``--show-dir D`` renders one BEV PNG a sample of the
+submission into ``D`` (``eval/bev_plot.py``), on rank 0.
 """
 from __future__ import annotations
 
@@ -30,9 +30,6 @@ import os
 
 from transcar_tpu_torch.cli.train import _try_radar_fn
 from transcar_tpu_torch.core.config import parse_overrides
-
-#: flags of later slices → the ROADMAP.md Queue 1 item that ports them
-LATER = {"show_dir": ("--show-dir", "BEV plots, eval/bev_plot.py", 8)}
 
 
 def main(argv=None):
@@ -44,8 +41,9 @@ def main(argv=None):
     ap.add_argument("--eval", dest="eval_metric", nargs="?", const="bbox")
     ap.add_argument("--out")
     ap.add_argument("--max-samples", type=int)
-    ap.add_argument("--show-dir", help="not ported (ROADMAP.md Queue 1 "
-                                       "item 8), raises")
+    ap.add_argument("--show-dir",
+                    help="render BEV PNGs of the predictions into this "
+                         "directory (tools/test.py:43-45 analog, headless)")
     ap.add_argument("--batch-size", type=int, default=1,
                     help="inference batch size (samples_per_gpu analog, "
                          "tools/test.py:183-189); the tail batch is padded "
@@ -77,10 +75,6 @@ def main(argv=None):
                          "--device cpu)")
     ap.add_argument("--cfg-options", nargs="*", default=[])
     args = ap.parse_args(argv)
-    for dest, (flag, what, item) in LATER.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} ({what}) is not ported yet: ROADMAP.md "
-                     f"Queue 1 item {item}")
 
     from transcar_tpu_torch.core.config import get_preset
     from transcar_tpu_torch.models.detector import build_model
@@ -112,6 +106,10 @@ def main(argv=None):
     if rank != 0:        # rank 0 wrote the submission and scores it
         return result
     print(f"results written to {result.path}")
+
+    if args.show_dir:
+        from transcar_tpu_torch.eval.bev_plot import render_submission
+        render_submission(result.path, args.show_dir)
 
     if args.eval_metric:
         metrics = None

@@ -38,7 +38,11 @@ def cached_copy(module: nn.Module, name: str, params: Sequence[torch.Tensor],
     """``build()`` (a kernel's layout of ``params`` in ``dtype``), kept on
     ``module`` under ``name`` and rebuilt when a parameter changes (in
     place, which bumps its ``_version``, or moved or replaced), when
-    ``dtype`` does or when the inference mode does."""
+    ``dtype`` does or when the inference mode does.  Under tracing
+    (``torch.export``) the tensors have no storage to key a cache on, so
+    the layout is built in the traced graph, at each call of the program."""
+    if torch.compiler.is_compiling():
+        return build()
     key = (tuple((id(w), w._version, w.data_ptr(), w.device) for w in params),
            dtype, torch.is_inference_mode_enabled())
     hit = module.__dict__.get(name)

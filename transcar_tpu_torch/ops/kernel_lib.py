@@ -11,6 +11,13 @@ so an edited source rebuilds and an unchanged one is reused.
 The build happens at first use, never at import: the CPU tests import
 every module on machines with no CUDA toolkit.  A missing ``nvcc`` or a
 failed build raises; nothing falls back to the plain versions.
+
+:func:`register_op` makes a kernel wrapper a ``torch.library`` op of the
+``transcar`` namespace, so that ``torch.export`` traces it and
+``FlopCounterMode`` counts it.  It defines the op through
+``torch.library.Library`` rather than ``torch.library.custom_op``, whose
+Python dispatch layers cost a serving call several times as much host
+time.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
@@ -29,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _functions: dict = {}
+_ops_library = None         # the transcar op namespace (register_op)
 
 
 def _nvcc() -> str:
@@ -126,3 +136,21 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = library().tck_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def register_op(schema: str, cuda, cpu, fake):
+    """Define ``transcar::<schema>`` with ``cuda`` (the kernel wrapper) and
+    ``cpu`` (the plain version) as its implementations and ``fake`` as its
+    shape function (the meta device's too); returns the op's default
+    overload, ``torch.ops.transcar.<name>.default``.  The op has no
+    autograd formula: the callers that need a gradient take the plain
+    version or their autograd functions."""
+    global _ops_library
+    if _ops_library is None:
+        _ops_library = torch.library.Library("transcar", "DEF")
+    name = schema.split("(", 1)[0]
+    _ops_library.define(schema)
+    _ops_library.impl(name, cuda, "CUDA")
+    _ops_library.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"transcar::{name}", fake, lib=_ops_library)
+    return getattr(torch.ops.transcar, name).default

@@ -42,8 +42,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib
+from transcar_tpu_torch.ops import counts, kernel_lib
 from transcar_tpu_torch.ops.attention import (attention_core, merge_heads,
                                               split_heads)
 
@@ -85,18 +86,47 @@ def keep_rows(keep: torch.Tensor) -> torch.Tensor:
     return F.pad(keep, (0, pad)) if pad else keep
 
 
-def masked_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-                     keep: torch.Tensor) -> torch.Tensor:
-    """The attention core: qh [B, H, Q, hd], kh/vh [B, H, T, hd] float32,
-    keep bool [B, Q, T] (True = token visible) → [B, H, Q, hd].
+def _masked_attention_cpu(qh, kh, vh, keep):
+    out = _empty_out(qh)
+    return out.copy_(attention_core(qh, kh, vh, ~keep))
 
-    A CPU tensor takes the plain version (``ops/attention.py``).  A CUDA
-    tensor launches the kernel or raises; it takes views with a unit-stride
-    head dim as they are (``split_heads``) and returns a view of a
-    [B, Q, H, hd] buffer.
-    """
-    if qh.device.type == "cpu":
-        return attention_core(qh, kh, vh, ~keep)
+
+def _masked_attention_fake(qh, kh, vh, keep):
+    return _empty_out(qh)
+
+
+#: The attention core as a registered op,
+#: ``torch.ops.transcar.masked_attention(qh, kh, vh, keep)``: qh [B, H, Q,
+#: hd], kh/vh [B, H, T, hd] float32, keep bool [B, Q, T] (True = token
+#: visible) → [B, H, Q, hd], a view of a [B, Q, H, hd] buffer.  A CUDA
+#: tensor launches the kernel (:func:`kernel`) or raises; a CPU tensor
+#: takes the plain version (``ops/attention.py``), returned in the same
+#: layout, as the fake gives it, so the exported program's strides are the
+#: eager ones.
+masked_attention = kernel_lib.register_op(
+    "masked_attention(Tensor qh, Tensor kh, Tensor vh, Tensor keep) "
+    "-> Tensor", cuda=lambda *a: kernel(*a), cpu=_masked_attention_cpu,
+    fake=_masked_attention_fake)
+
+
+@register_flop_formula(torch.ops.transcar.masked_attention)
+def _masked_attention_flops(q_shape, k_shape, v_shape, keep_shape, *,
+                            out_shape=None, **kwargs) -> float:
+    b, h, nq, hd = q_shape
+    return counts.masked_attention(b, h, nq, k_shape[2], hd)
+
+
+def _empty_out(qh: torch.Tensor) -> torch.Tensor:
+    """The [B, H, Q, hd] output as a view of a fresh [B, Q, H, hd]
+    float32 buffer."""
+    b, h, nq, hd = qh.shape
+    return qh.new_empty((b, nq, h, hd), dtype=torch.float32).transpose(1, 2)
+
+
+def kernel(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+           keep: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors (see :data:`masked_attention`): it takes
+    views with a unit-stride head dim as they are (``split_heads``)."""
     global launches, mma_launches
     b, h, nq, hd = qh.shape
     t = kh.shape[2]
@@ -120,8 +150,7 @@ def masked_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
             or keep.device != dev):
         raise ValueError("attention kernel: all tensors must be on one "
                          "CUDA device")
-    out = torch.empty((b, nq, h, hd), dtype=torch.float32,
-                      device=dev).transpose(1, 2)
+    out = _empty_out(qh)
     keep = keep_rows(keep)
     strides = kernel_strides(qh, kh, vh, out) + list(keep.stride()[:2])
     fn = kernel_lib.function("masked_attention_wgmma_f32", *ENTRY_ARGTYPES)

@@ -92,8 +92,9 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib
+from transcar_tpu_torch.ops import counts, kernel_lib
 from transcar_tpu_torch.ops.dcn import modulated_deform_conv
 
 #: K1 (forward) launches since the count was last set to 0.
@@ -130,23 +131,56 @@ def fused_deform_conv(x: torch.Tensor, offset_mask: torch.Tensor,
     Returns:
       [N, H, W, Cout] in x.dtype.
 
-    A CPU tensor takes the plain version (``ops/dcn.py`` under autograd);
-    a CUDA tensor launches K1 forward and K3 backward, or raises.
+    Where no gradient is wanted (serving, and the exported program) it
+    calls the registered op :data:`dcn_forward`: K1 on a CUDA tensor, the
+    plain version on a CPU one.  Where one is, a CPU tensor takes the
+    plain version (``ops/dcn.py``) under autograd and a CUDA tensor
+    :class:`FusedDeformConvFunction`, K1 forward (the op) and K3 backward;
+    a CUDA call the kernels do not take raises.
     """
-    if x.device.type == "cpu":
-        return modulated_deform_conv(x, offset_mask, weight.to(x.dtype))
-    return FusedDeformConvFunction.apply(x, offset_mask, weight, weight_kmajor)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, offset_mask, weight)):
+        if x.device.type == "cpu":
+            return modulated_deform_conv(x, offset_mask, weight.to(x.dtype))
+        return FusedDeformConvFunction.apply(x, offset_mask, weight,
+                                             weight_kmajor)
+    return dcn_forward(x, offset_mask, weight, weight_kmajor)
+
+
+def _dcn_forward_cpu(x, offset_mask, weight, weight_kmajor=None):
+    return modulated_deform_conv(x, offset_mask, weight.to(x.dtype))
+
+
+def _dcn_forward_fake(x, offset_mask, weight, weight_kmajor=None):
+    return x.new_empty((*x.shape[:3], weight.shape[-1]))
+
+
+#: K1 as a registered op, ``torch.ops.transcar.dcn_forward(x, offset_mask,
+#: weight, weight_kmajor=None)``: :func:`forward_kernel` on CUDA, the plain
+#: version on the CPU; its fake gives the contiguous [N, H, W, Cout] output
+#: in x.dtype, so ``torch.export`` traces it and the meta device runs it.
+dcn_forward = kernel_lib.register_op(
+    "dcn_forward(Tensor x, Tensor offset_mask, Tensor weight, "
+    "Tensor? weight_kmajor=None) -> Tensor",
+    cuda=lambda *a: forward_kernel(*a), cpu=_dcn_forward_cpu,
+    fake=_dcn_forward_fake)
+
+
+@register_flop_formula(torch.ops.transcar.dcn_forward)
+def _dcn_forward_flops(x_shape, om_shape, w_shape, wk_shape=None, *,
+                       out_shape=None, **kwargs) -> float:
+    return counts.dcn_forward(*x_shape, w_shape[-1])
 
 
 class FusedDeformConvFunction(torch.autograd.Function):
-    """K1 forward, K3 backward (the custom VJP of the JAX package's
-    ``fused_deform_conv_ad``)."""
+    """K1 forward (the registered op), K3 backward (the custom VJP of the
+    JAX package's ``fused_deform_conv_ad``)."""
 
     @staticmethod
     def forward(ctx, x, offset_mask, weight, weight_kmajor=None):
         x, offset_mask = x.contiguous(), offset_mask.contiguous()
         ctx.save_for_backward(x, offset_mask, weight)
-        return forward_kernel(x, offset_mask, weight, weight_kmajor)
+        return dcn_forward(x, offset_mask, weight, weight_kmajor)
 
     @staticmethod
     def backward(ctx, d_out):

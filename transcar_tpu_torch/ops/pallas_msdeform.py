@@ -141,11 +141,13 @@ autograd differentiates.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import math
+from typing import List, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib
+from transcar_tpu_torch.ops import counts, kernel_lib
 from transcar_tpu_torch.ops.msdeform import level_starts, ms_deform_attn_core
 
 #: K7 launches since the count was last set to 0.
@@ -174,21 +176,81 @@ def ms_deform_attn(value: torch.Tensor,
     [B, Q, H, L, P, 2] (x, y in [0, 1] per level), attention_weights
     [B, Q, H, L, P] → [B, Q, H·D], differentiable in all three.
 
-    A CPU tensor takes the plain version
+    Where no gradient is wanted (serving, and the exported program) it
+    calls the registered op :data:`msdeform_forward`: K7 on a CUDA tensor,
+    the plain version
     (:func:`~transcar_tpu_torch.ops.msdeform.ms_deform_attn_core`, whose
-    ``query_chunk`` bounds its intermediates) under autograd; a CUDA tensor
-    launches K7, and K8 and K9 in the backward, or raises.
+    ``query_chunk`` bounds its intermediates) on a CPU one.  Where one
+    is, a CPU tensor takes the plain version under autograd and a CUDA
+    tensor :class:`MSDeformAttnFunction`: K7 (the op), and K8 and K9 in
+    the backward; a CUDA call the kernels do not take raises.
     """
-    if value.device.type == "cpu":
-        return ms_deform_attn_core(value, spatial_shapes, sampling_locations,
-                                   attention_weights, query_chunk)
-    return MSDeformAttnFunction.apply(value, tuple(spatial_shapes),
-                                      sampling_locations, attention_weights)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations,
+                                      attention_weights)):
+        if value.device.type == "cpu":
+            return ms_deform_attn_core(value, spatial_shapes,
+                                       sampling_locations, attention_weights,
+                                       query_chunk)
+        return MSDeformAttnFunction.apply(value, tuple(spatial_shapes),
+                                          sampling_locations,
+                                          attention_weights)
+    return msdeform_forward(value, flat_shapes(spatial_shapes),
+                            sampling_locations, attention_weights,
+                            query_chunk)
+
+
+def flat_shapes(spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """The levels' (H, W) as the op takes them: [H₀, W₀, H₁, W₁, ...]."""
+    return [int(v) for hw in spatial_shapes for v in hw]
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((flat[i], flat[i + 1]) for i in range(0, len(flat), 2))
+
+
+def _msdeform_forward_cuda(value, spatial_shapes, sampling_locations,
+                           attention_weights, query_chunk=0):
+    return kernel(value, _pairs(spatial_shapes), sampling_locations,
+                  attention_weights)
+
+
+def _msdeform_forward_cpu(value, spatial_shapes, sampling_locations,
+                          attention_weights, query_chunk=0):
+    return ms_deform_attn_core(value, _pairs(spatial_shapes),
+                               sampling_locations, attention_weights,
+                               query_chunk)
+
+
+def _msdeform_forward_fake(value, spatial_shapes, sampling_locations,
+                           attention_weights, query_chunk=0):
+    b, _, h, d = value.shape
+    return value.new_empty((b, sampling_locations.shape[1], h * d),
+                           dtype=torch.float32)
+
+
+#: K7 as a registered op, ``torch.ops.transcar.msdeform_forward(value,
+#: spatial_shapes, sampling_locations, attention_weights, query_chunk=0)``,
+#: the levels' shapes as :func:`flat_shapes`: :func:`kernel` on CUDA
+#: (``query_chunk`` unused), the plain version on the CPU; its fake gives
+#: the contiguous [B, Q, H·D] float32 output.
+msdeform_forward = kernel_lib.register_op(
+    "msdeform_forward(Tensor value, int[] spatial_shapes, "
+    "Tensor sampling_locations, Tensor attention_weights, "
+    "int query_chunk=0) -> Tensor", cuda=_msdeform_forward_cuda,
+    cpu=_msdeform_forward_cpu, fake=_msdeform_forward_fake)
+
+
+@register_flop_formula(torch.ops.transcar.msdeform_forward)
+def _msdeform_forward_flops(value_shape, spatial_shapes, loc_shape,
+                            wgt_shape, query_chunk=0, *, out_shape=None,
+                            **kwargs) -> float:
+    return counts.msdeform_forward(math.prod(wgt_shape), value_shape[3])
 
 
 class MSDeformAttnFunction(torch.autograd.Function):
-    """K7 forward; K8 (d_attn, d_loc) and K9 (d_value) backward, the
-    counterpart of the JAX package's custom VJP
+    """K7 forward (the registered op); K8 (d_attn, d_loc) and K9 (d_value)
+    backward, the counterpart of the JAX package's custom VJP
     ``pallas_msdeform_encoder_ad``.  Saves the value, the locations and the
     weights, not the output."""
 
@@ -200,8 +262,8 @@ class MSDeformAttnFunction(torch.autograd.Function):
                                      attention_weights))
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, sampling_locations, attention_weights)
-        return kernel(value, spatial_shapes, sampling_locations,
-                      attention_weights)
+        return msdeform_forward(value, flat_shapes(spatial_shapes),
+                                sampling_locations, attention_weights)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

@@ -45,8 +45,9 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib
+from transcar_tpu_torch.ops import counts, kernel_lib
 
 #: K4 launches since the count was last set to 0.
 launches = 0
@@ -110,14 +111,38 @@ def osa_reduce(pieces: Sequence[torch.Tensor],
     Returns:
       ([N, H, W, Cout] in the pieces' dtype, [N, Cout] float32 sums).
 
-    A CPU tensor takes :func:`plain_osa_reduce`; a CUDA tensor launches K4
-    or raises.
+    It calls the registered op :data:`osa_reduce_op`: a CPU tensor takes
+    :func:`plain_osa_reduce`, a CUDA tensor launches K4 or raises.
     """
     del rows_per_step
     check_forward_only("osa_reduce", *pieces, *weights, scale, bias)
-    if pieces[0].device.type == "cpu":
-        return plain_osa_reduce(pieces, weights, scale, bias, relu)
-    return kernel(pieces, weights, scale, bias, relu)
+    return osa_reduce_op(list(pieces), list(weights), scale, bias, relu)
+
+
+def _osa_reduce_fake(pieces, weights, scale, bias, relu=True):
+    n, h, w, _ = pieces[0].shape
+    cout = weights[0].shape[-1]
+    return (pieces[0].new_empty((n, h, w, cout)),
+            pieces[0].new_empty((n, cout), dtype=torch.float32))
+
+
+#: K4 as a registered op, ``torch.ops.transcar.osa_reduce(pieces, weights,
+#: scale, bias, relu=True)``: :func:`kernel` on CUDA,
+#: :func:`plain_osa_reduce` on the CPU; its fake gives the contiguous [N, H,
+#: W, Cout] output and the [N, Cout] float32 sums.
+osa_reduce_op = kernel_lib.register_op(
+    "osa_reduce(Tensor[] pieces, Tensor[] weights, Tensor scale, "
+    "Tensor bias, bool relu=True) -> (Tensor, Tensor)",
+    cuda=lambda *a: kernel(*a), cpu=lambda *a: plain_osa_reduce(*a),
+    fake=_osa_reduce_fake)
+
+
+@register_flop_formula(torch.ops.transcar.osa_reduce)
+def _osa_reduce_flops(piece_shapes, weight_shapes, scale_shape, bias_shape,
+                      relu=True, *, out_shape=None, **kwargs) -> float:
+    n, h, w, _ = piece_shapes[0]
+    return counts.osa_reduce(n, h, w, [p[-1] for p in piece_shapes],
+                             weight_shapes[0][-1])
 
 
 def kmajor_weights(weight: torch.Tensor, widths: Sequence[int],

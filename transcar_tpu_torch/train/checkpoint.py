@@ -85,12 +85,14 @@ def restore_checkpoint(work_dir: str, state,
 
 
 def save_params_only(path: str, model) -> None:
-    """publish_model analog: the model's ``state_dict`` without the
-    optimizer.  Name the file without a ``.pth`` / ``.pt`` suffix: as in
-    the JAX package, ``train/loop._load_params`` reads those as reference
-    checkpoints to convert."""
+    """publish_model analog: the ``state_dict`` of ``model`` (a module, or
+    a ``state_dict`` itself) without the optimizer.  Name the file
+    without a ``.pth`` / ``.pt`` suffix: as in the JAX package,
+    ``train/loop._load_params`` reads those as reference checkpoints to
+    convert."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(model.state_dict(), path)
+    torch.save(model.state_dict() if hasattr(model, "state_dict")
+               else dict(model), path)
 
 
 def load_params_only(path: str, template: Optional[Dict] = None
