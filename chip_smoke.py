@@ -159,15 +159,20 @@ non-zero):
      ``quantize=int8`` (156 int8 convs a sample); then the tools on the
      same fixture and work dirs (:func:`phase_tools`): ``cli.export`` of
      ``transcar_r101`` (the warm-started checkpoint),
-     ``transcar_vovnet_trainval`` and ``objdgcnn_pillar`` (its
-     checkpoint) at full width, three processes side by side, each
-     ``.pt2`` loaded and run on the card against the live eval step (max
-     |Δ| of the decoded outputs, 0 expected; exactly 26 K1 + 3 K2, 16 K4
-     + 3 K2 and 8 K7 a request, each on its main tile; ms a request beside
-     eager), ``cli.test --show-dir`` (one PNG a sample), the
-     ``parity_check`` capture → compare round trip, ``get_flops`` of the
-     six presets at full width, ``publish_model`` of the warm-started
-     run, ``print_config`` and ``analyze_logs`` on its json log;
+     ``transcar_vovnet_trainval``, ``objdgcnn_pillar`` (its checkpoint)
+     and the opt-in serving configurations (R101 int8, VoVNet
+     ``osa_reduce_impl=fused``, R101 ``block_impl=fused``) at full width,
+     six processes side by side, each ``.pt2`` (weights and the layouts
+     derived from them as its state) loaded and run on the card against
+     the live eval step (max |Δ| of the decoded outputs, 0 expected but
+     for VoVNet's atomics; exactly eager's launches a request, each on its
+     main tile, :data:`EXPORTS`; device kernels a request against eager's;
+     ms a request beside eager), ``cli.test --show-dir`` (one PNG a
+     sample), the ``parity_check`` capture → compare round trip,
+     ``get_flops`` of the six presets at full width and of the opt-in
+     configurations beside their twins, ``publish_model`` of the
+     warm-started run, ``print_config`` and ``analyze_logs`` on its json
+     log;
  21. int8 serving: ``transcar_r101`` and ``transcar_vovnet_trainval`` bs1
      at full width with ``model.backbone.quantize=int8`` through
      ``cli.benchmark``: 78 int8 convs (77 on the wgmma tile, 74 codes and
@@ -185,7 +190,8 @@ non-zero):
      ConvBN's epilogue and amax; timed (:func:`queued_ms`) per shape and per
      request beside the bound, ``torch._int_mm`` over an im2col of the
      same codes, cuDNN's bf16 convolution of the same shape and cuDNN
-     plus the module's BN and ReLU passes;
+     plus the module's BN and ReLU passes; the host µs a call of the
+     ``transcar::int8_*`` ops against the bare wrappers they dispatch to;
  23. data parallelism, 2 ranks on the one card over gloo (NCCL refuses
      two ranks on one device; ``transcar_tpu_torch/parallel``): a
      ``transcar_r101`` fusion-only step (6 × 928 × 1600, 900 queries,
@@ -1992,15 +1998,15 @@ def phase_k5(parent=None) -> dict:
     convs, then K4) and beside the parent commit's K5 (``parent``: its
     kernel library) when given.  The weights are the K-major copies and
     views the model caches."""
-    from transcar_tpu_torch.ops import pallas_osa, pallas_osa_block
+    from transcar_tpu_torch.ops import counts, pallas_osa, pallas_osa_block
 
     g = torch.Generator(device="cuda").manual_seed(5)
     res = _kernel_result()
     res["parent_ms"] = 0.0 if parent is not None else None
     per_req = {"chain": 0.0, "reduce": 0.0, "cudnn_chain": 0.0}
-    counts = lambda: (pallas_osa_block.launches,
-                      pallas_osa_block.wgmma_launches, pallas_osa.launches,
-                      pallas_osa.wgmma_launches)
+    launch_counts = lambda: (pallas_osa_block.launches,
+                             pallas_osa_block.wgmma_launches,
+                             pallas_osa.launches, pallas_osa.wgmma_launches)
     for dtype in (torch.bfloat16, torch.float32):
         for h, w, c0, ch, cout, per_req_calls in VOV_BLOCKS:
             n = 6
@@ -2019,10 +2025,10 @@ def phase_k5(parent=None) -> dict:
             raff = _affine(g, cout)
             wks = [pallas_osa_block.kmajor_conv_weight(w9, dtype) for w9 in w9s]
             args = (x, w9s, affs, rws, raff)
-            before = counts()
+            before = launch_counts()
             out, sums = pallas_osa_block.osa_block_fused(*args,
                                                          conv_kmajor=wks)
-            got = tuple(a - b for a, b in zip(counts(), before))
+            got = tuple(a - b for a, b in zip(launch_counts(), before))
             ref, ref_sums = pallas_osa_block.plain_osa_block(*args)
             torch.cuda.synchronize()
             err, rel = _rel_err(out, ref)
@@ -2067,8 +2073,7 @@ def phase_k5(parent=None) -> dict:
                 del xs, wcs, chain
                 plain_ms = cuda_ms(lambda: pallas_osa_block.plain_osa_block(
                     *args), iters=3, warmup=1)
-                flops = 2.0 * n * h * w * (9 * (c0 * ch + 4 * ch * ch)
-                                           + sum(widths) * cout)
+                flops = counts.osa_block(n, h, w, c0, ch, len(w9s), cout)
                 bound, kind = bound_ms(flops, dtype, nbytes(
                     x, *w9s, *rws, *[t for a in affs for t in a], *raff,
                     out, sums))
@@ -2175,7 +2180,7 @@ def phase_k6(parent=None) -> dict:
     apart, beside cuDNN's bf16 convolutions of the same shapes (a
     reference line) and the parent commit's K6 (``parent``) when given,
     both timed through their bare entries."""
-    from transcar_tpu_torch.ops import kernel_lib, pallas_bottleneck
+    from transcar_tpu_torch.ops import counts, kernel_lib, pallas_bottleneck
 
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -2247,8 +2252,7 @@ def phase_k6(parent=None) -> dict:
                 del xc, h1c, h2c, wc, h1, h2
                 plain_ms = cuda_ms(lambda: pallas_bottleneck.plain_bottleneck(
                     *args, **kw), iters=5, warmup=1)
-                flops = 2.0 * 6 * h * w * (cin * cm + 9 * cm * cm + cm * cout
-                                           + (cin * cout if ds else 0))
+                flops = counts.bottleneck(6, h, w, cin, cm, cout, ds)
                 extra = [kw["wd"], *kw["affd"]] if ds else []
                 bound, kind = bound_ms(flops, dtype, nbytes(
                     x, *ws, *[t for a in affs for t in a], *extra, out))
@@ -3949,40 +3953,93 @@ def _pipeline_lidar_run(tmp: str, data: list, smi: str) -> None:
 
 # --- the tools on the pipeline's fixture (phase 20, last part) ---------------
 
-#: The exported programs the tools phase loads and runs: preset → kernel
-#: launches a request, each on its main tile (every K1 on the Hopper tile,
-#: every K2 on the tensor-core kernel, every K4 on the wgmma tile, every K7
-#: on the lane-group kernel), and nothing else.
+#: The exported programs the tools phase loads and runs: a name → (preset,
+#: the configuration's --cfg-options, kernel launches a request, each on
+#: its main tile: every K1 on the Hopper tile, every K2 on the tensor-core
+#: kernel, every K4 on the wgmma tile (K5's reduce counts as a K4), every
+#: K5 chain conv and K6 call on theirs, every K7 on the lane-group kernel,
+#: 77 of R101's 78 int8 convs on the wgmma tile, the stem on the mma.sync
+#: one, and nothing else; the ``transcar`` ops its graph calls).  Eager's
+#: launches in the same process must be the same.
 EXPORTS = {
-    "transcar_r101": {"K1": 26, "K1 tile": 26, "K2": 3, "K2 tile": 3,
-                      "K4": 0, "K7": 0},
-    "transcar_vovnet_trainval": {"K1": 0, "K2": 3, "K2 tile": 3, "K4": 16,
-                                 "K4 tile": 16, "K7": 0},
-    "objdgcnn_pillar": {"K1": 0, "K2": 0, "K4": 0, "K7": 8, "K7 tile": 8},
+    "transcar_r101": ("transcar_r101", [], {
+        "K1": 26, "K1 tile": 26, "K2": 3, "K2 tile": 3},
+        ("dcn_forward", "masked_attention")),
+    "transcar_vovnet_trainval": ("transcar_vovnet_trainval", [], {
+        "K2": 3, "K2 tile": 3, "K4": 16, "K4 tile": 16},
+        ("masked_attention", "osa_reduce")),
+    "objdgcnn_pillar": ("objdgcnn_pillar", [], {"K7": 8, "K7 tile": 8},
+                        ("msdeform_forward",)),
+    "transcar_r101 int8": ("transcar_r101", [
+        "model.backbone.quantize=int8"], {
+        "K1": 26, "K1 tile": 26, "K2": 3, "K2 tile": 3, "int8 conv": 78,
+        "int8 tile": 77, "int8 codes": 74, "int8 amax": 60},
+        ("dcn_forward", "int8_amax", "int8_codes", "int8_conv",
+         "masked_attention")),
+    "transcar_vovnet_trainval osa_fused": ("transcar_vovnet_trainval", [
+        "model.backbone.osa_reduce_impl=fused"], {
+        "K2": 3, "K2 tile": 3, "K4": 16, "K4 tile": 16, "K5": 16,
+        "K5 tile": 80}, ("masked_attention", "osa_block")),
+    "transcar_r101 block_fused": ("transcar_r101", [
+        "model.backbone.block_impl=fused"], {
+        "K1": 26, "K1 tile": 26, "K2": 3, "K2 tile": 3, "K6": 6,
+        "K6 tile": 6}, ("bottleneck", "dcn_forward", "masked_attention")),
 }
 #: The loaded program against the live eval step, max |Δ| of each decoded
-#: output.  R101 and the pillar run the same ops on the same kernels in the
-#: same order, which repeat bit for bit, so 0.  VoVNet's K4 adds its
-#: channel sums with float32 atomics, whose order changes from run to run
-#: (a relative error of order 1e-6 in the eSE gate's mean), so two eager
-#: requests differ too: its program is held to twice the larger of that
-#: repeat's own |Δ| and 1e-4 on the scores and boxes, and its labels to
-#: the repeat's count of differing rows.
-EXPORT_EXACT = ("transcar_r101", "objdgcnn_pillar")
+#: output.  R101 (also int8, whose amax reductions take a max, and with
+#: K6) and the pillar run the same ops on the same kernels in the same
+#: order, which repeat bit for bit, so 0.  VoVNet's K4 (also as K5's
+#: reduce) adds its channel sums with float32 atomics, whose order changes
+#: from run to run (a relative error of order 1e-6 in the eSE gate's
+#: mean), so two eager requests differ too: its programs are held to twice
+#: the larger of that repeat's own |Δ| and 1e-4 on the scores and boxes,
+#: and their labels to the repeat's count of differing rows.
+EXPORT_EXACT = ("transcar_r101", "objdgcnn_pillar", "transcar_r101 int8",
+                "transcar_r101 block_fused")
 #: The parity round trip on the card (the JAX self-test's tolerances).
 PARITY_TOL = {"box": 1e-4, "score": 1e-5}
 
 
 def _tool_counts() -> dict:
-    from transcar_tpu_torch.ops import (pallas_attention, pallas_dcn,
-                                        pallas_msdeform, pallas_osa)
+    """The launch counters an exported program's kernels add to, by name;
+    zero ones left out."""
+    from transcar_tpu_torch.ops import (int8, pallas_attention,
+                                        pallas_bottleneck, pallas_dcn,
+                                        pallas_msdeform, pallas_osa,
+                                        pallas_osa_block)
 
-    return {"K1": pallas_dcn.launches, "K1 tile": pallas_dcn.wgmma_launches,
-            "K2": pallas_attention.launches,
-            "K2 tile": pallas_attention.mma_launches,
-            "K4": pallas_osa.launches, "K4 tile": pallas_osa.wgmma_launches,
-            "K7": pallas_msdeform.launches,
-            "K7 tile": pallas_msdeform.group_launches}
+    got = {"K1": pallas_dcn.launches, "K1 tile": pallas_dcn.wgmma_launches,
+           "K2": pallas_attention.launches,
+           "K2 tile": pallas_attention.mma_launches,
+           "K4": pallas_osa.launches, "K4 tile": pallas_osa.wgmma_launches,
+           "K5": pallas_osa_block.launches,
+           "K5 tile": pallas_osa_block.wgmma_launches,
+           "K6": pallas_bottleneck.launches,
+           "K6 tile": pallas_bottleneck.wgmma_launches,
+           "K7": pallas_msdeform.launches,
+           "K7 tile": pallas_msdeform.group_launches,
+           "int8 conv": int8.launches, "int8 tile": int8.wgmma_launches,
+           "int8 codes": int8.quantize_launches,
+           "int8 amax": int8.amax_launches}
+    return {k: v for k, v in got.items() if v}
+
+
+def _device_kernels(fn, path: str) -> tuple:
+    """(device kernels, device busy ms) of one call of ``fn``, from a
+    torch.profiler trace written to ``path`` and removed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from transcar_tpu_torch.cli.benchmark import trace_summary
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    summary = trace_summary(path, 1.0, 1)
+    os.remove(path)
+    return int(summary["kernels_per_iter"]), \
+        summary["device_busy_ms_per_iter"]
 
 
 def _latest_step(work_dir: str):
@@ -4019,17 +4076,19 @@ def _program_batch(cfg, device) -> dict:
     return {k: batch[k] for k in keys if k in batch}
 
 
-def export_child(preset: str, tmp: str, ckpt: str, data: list) -> None:
-    """One exported program, in a process of its own (``--export-child``;
-    :func:`phase_tools` runs one a preset side by side, as tracing is host
-    work): ``cli.export`` of ``preset`` at full width into ``tmp``, the
-    ``.pt2`` loaded and the live eval step built on the same weights (the
-    checkpoint ``ckpt``, or ``-`` for the seeded ones, folded), then
-    ``ready`` on stdout and a wait for a line on stdin, so that the card
-    and the host are this process's alone while it runs the fixture batch
-    through both: max |Δ| a decoded output, launches, ms a request in
-    turns with eager.  Prints its report as one JSON line and raises on a
-    failed check."""
+def export_child(name: str, tmp: str, ckpt: str, data: list) -> None:
+    """One exported program of :data:`EXPORTS`, in a process of its own
+    (``--export-child``; :func:`phase_tools` runs them side by side, as
+    tracing is host work): ``cli.export`` of its preset and options at
+    full width into ``tmp``, the ``.pt2`` loaded and the live eval step
+    built on the same weights (the checkpoint ``ckpt``, or ``-`` for the
+    seeded ones, folded), then ``ready`` on stdout and a wait for a line on
+    stdin, so that the card and the host are this process's alone while it
+    runs the fixture batch through both: max |Δ| a decoded output,
+    launches of each, device kernels of each (a profiled request: a
+    program that rebuilt or re-quantized a weight would launch more), ms
+    a request in turns with eager.  Prints its report as one JSON line and
+    raises on a failed check."""
     import sys
 
     from transcar_tpu_torch.cli import export as cli_export
@@ -4040,12 +4099,13 @@ def export_child(preset: str, tmp: str, ckpt: str, data: list) -> None:
     from transcar_tpu_torch.train.loop import _load_params
     from transcar_tpu_torch.train.step import eval_step
 
+    preset, options, want, want_ops = EXPORTS[name]
     ckpt = None if ckpt == "-" else ckpt
-    out = os.path.join(tmp, f"{preset}.pt2")
+    out = os.path.join(tmp, f"{name.replace(' ', '_')}.pt2")
     t0 = time.perf_counter()
     cli_export.main([preset, "--out", out,
                      *(["--checkpoint", ckpt] if ckpt else []),
-                     "--cfg-options", *data])
+                     "--cfg-options", *data, *options])
     export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     program = torch.export.load(out).module()
@@ -4053,7 +4113,8 @@ def export_child(preset: str, tmp: str, ckpt: str, data: list) -> None:
     sidecar = json.loads(pathlib.Path(out + ".json").read_text())
     graph_ops = sorted({str(n.target) for n in program.graph.nodes
                         if str(n.target).startswith("transcar.")})
-    cfg = get_preset(preset, parse_overrides(data))
+    held = sum(1 for k, _ in program.named_buffers() if "_held" in k)
+    cfg = get_preset(preset, parse_overrides([*data, *options]))
     model = build_model(cfg)
     if ckpt:
         model.load_state_dict(_load_params(ckpt, cfg, model))
@@ -4067,7 +4128,10 @@ def export_child(preset: str, tmp: str, ckpt: str, data: list) -> None:
         got = program(batch)
         torch.cuda.synchronize()
         counts = _tool_counts()
+        _zero_counts()
         ref = eval_step(model, batch, cfg)
+        torch.cuda.synchronize()
+        eager_counts = _tool_counts()
         again = eval_step(model, batch, cfg)
         err = {k: (got[k].double() - ref[k].double()).abs().max().item()
                for k in ("boxes", "scores")}
@@ -4076,47 +4140,57 @@ def export_child(preset: str, tmp: str, ckpt: str, data: list) -> None:
         labels = [int((got["labels"] != ref["labels"]).sum()),
                   int((again["labels"] != ref["labels"]).sum())]
         same_valid = bool(torch.equal(got["valid"], ref["valid"]))
+        trace = os.path.join(tmp, f"{name.replace(' ', '_')}.trace.json")
+        kernels = {"eager": _device_kernels(
+                       lambda: eval_step(model, batch, cfg), trace),
+                   "exported": _device_kernels(lambda: program(batch),
+                                               trace)}
         turns = [cuda_ms(f, iters=5, warmup=1) for f in (
             lambda: eval_step(model, batch, cfg), lambda: program(batch),
             lambda: program(batch), lambda: eval_step(model, batch, cfg))]
-    exact = preset in EXPORT_EXACT
+    exact = name in EXPORT_EXACT
     bound = {k: 0.0 if exact else 2 * max(v, 1e-4) for k, v in rep.items()}
     outputs = cli_export.tree_doc(got)
     report = {
-        "preset": preset, "export_s": export_s, "load_s": load_s,
+        "name": name, "preset": preset, "options": options,
+        "export_s": export_s, "load_s": load_s,
         "mib": os.path.getsize(out) / 2**20, "graph_ops": graph_ops,
-        "max_abs": err, "bound": bound, "eager_repeat_max_abs": rep,
+        "held": held, "max_abs": err, "bound": bound, "exact": exact,
+        "eager_repeat_max_abs": rep,
         "labels_differing": labels[0], "eager_repeat_labels": labels[1],
         "valid_equal": same_valid,
         "finite": bool(torch.isfinite(got["boxes"]).all()),
         "outputs_as_sidecar": outputs == sidecar["outputs"],
-        "launches": counts, "want": EXPORTS[preset],
+        "launches": counts, "eager_launches": eager_counts, "want": want,
+        "device_kernels": kernels,
         "eager_ms": [turns[0], turns[3]], "exported_ms": turns[1:3]}
     print(json.dumps(report), flush=True)
-    ops = {k.split()[0] for k, v in EXPORTS[preset].items() if v}
-    if not (counts == {**{k: 0 for k in counts}, **EXPORTS[preset]}
+    if not (counts == eager_counts == want
+            and kernels["exported"][0] <= kernels["eager"][0]
             and all(err[k] <= bound[k] for k in err)
             and report["finite"] and same_valid
             and labels[0] <= (0 if exact else labels[1])
-            and report["outputs_as_sidecar"] and len(graph_ops) == len(ops)):
-        raise AssertionError(f"tools export {preset}: the loaded program "
-                             f"disagrees with the eval step or missed its "
-                             f"kernels")
+            and report["outputs_as_sidecar"]
+            and graph_ops == [f"transcar.{op}.default" for op in want_ops]):
+        raise AssertionError(f"tools export {name}: the loaded program "
+                             f"disagrees with the eval step, launched other"
+                             f" kernels than eager, or missed its kernels")
 
 
 def _start_export_children(tmp: str, data: list, ckpts: dict) -> dict:
-    """One :func:`export_child` a preset, all started together."""
+    """One :func:`export_child` a program of :data:`EXPORTS`, all started
+    together (``ckpts``: name → checkpoint or None)."""
     import sys
 
     script = str(pathlib.Path(__file__).resolve())
-    return {preset: subprocess.Popen(
-        [sys.executable, script, "--export-child", preset, tmp,
+    return {name: subprocess.Popen(
+        [sys.executable, script, "--export-child", name, tmp,
          ckpt or "-", *data], stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for preset, ckpt in ckpts.items()}
+        for name, ckpt in ckpts.items()}
 
 
-def _finish_export_child(preset: str, proc, smi: str) -> None:
+def _finish_export_child(name: str, proc, smi: str) -> None:
     """Wait for the child's ``ready``, let it run, print its report."""
     lines = []
     try:
@@ -4135,19 +4209,25 @@ def _finish_export_child(preset: str, proc, smi: str) -> None:
     reports = [json.loads(line) for line in lines if line.startswith("{")]
     if rc != 0 or not reports:
         print("".join(lines[-40:]), flush=True)
-        raise AssertionError(f"tools export {preset}: child exited {rc}")
+        raise AssertionError(f"tools export {name}: child exited {rc}")
     r = reports[-1]
-    print(f"tools export {preset}: cli.export {r['export_s']:.1f} s (three "
-          f"presets side by side), torch.export.load {r['load_s']:.1f} s, "
-          f"{r['mib']:.1f} MiB; graph ops {r['graph_ops']}; the loaded "
+    kern = r["device_kernels"]
+    print(f"tools export {name}: cli.export {r['export_s']:.1f} s "
+          f"({len(EXPORTS)} programs side by side), torch.export.load "
+          f"{r['load_s']:.1f} s, {r['mib']:.1f} MiB, {r['held']} derived "
+          f"tensors held as state; graph ops {r['graph_ops']}; the loaded "
           f"program against the live eval step: max |Δ| {r['max_abs']} "
-          f"(bound {r['bound']}; eager against eager "
-          f"{r['eager_repeat_max_abs']}), labels differing "
-          f"{r['labels_differing']} (eager repeat "
+          f"(bound {r['bound']}: "
+          f"{'bit for bit' if r['exact'] else 'within the eager repeat'}; "
+          f"eager against eager {r['eager_repeat_max_abs']}), labels "
+          f"differing {r['labels_differing']} (eager repeat "
           f"{r['eager_repeat_labels']}), valid equal {r['valid_equal']}, "
           f"finite {r['finite']}, outputs as the sidecar's "
-          f"{r['outputs_as_sidecar']}; launches {r['launches']} (want "
-          f"{r['want']}); ms a request eager "
+          f"{r['outputs_as_sidecar']}; launches a request {r['launches']}, "
+          f"eager {r['eager_launches']} (want {r['want']}); device kernels "
+          f"a request exported {kern['exported'][0]} "
+          f"({kern['exported'][1]:.2f} ms busy), eager {kern['eager'][0]} "
+          f"({kern['eager'][1]:.2f} ms busy); ms a request eager "
           f"{r['eager_ms'][0]:.2f} / {r['eager_ms'][1]:.2f}, exported "
           f"{r['exported_ms'][0]:.2f} / {r['exported_ms'][1]:.2f} (exported"
           f" / eager {min(r['exported_ms']) / min(r['eager_ms']):.3f}) on "
@@ -4156,22 +4236,26 @@ def _finish_export_child(preset: str, proc, smi: str) -> None:
 
 def phase_tools(tmp: str, data: list, smi: str) -> None:
     """The tools on the pipeline phase's fixture and work dirs: ``cli.export``
-    of three presets, each in a process of its own started first
-    (:func:`export_child`); meanwhile ``cli.test --show-dir``, the
-    ``parity_check`` capture → compare round trip, ``get_flops`` of the six
-    presets at full width, ``publish_model`` of the ``transcar_r101`` run,
-    ``print_config`` and ``analyze_logs`` on its json log; then each
-    program's run on the card, one at a time."""
+    of the six programs of :data:`EXPORTS` (three presets, and int8,
+    fused-OSA and fused-bottleneck serving), each in a process of its own
+    started first (:func:`export_child`); meanwhile ``cli.test
+    --show-dir``, the ``parity_check`` capture → compare round trip,
+    ``get_flops`` of the six presets at full width (and of the opt-in
+    configurations beside their twins), ``publish_model`` of the
+    ``transcar_r101`` run, ``print_config`` and ``analyze_logs`` on its
+    json log; then each program's run on the card, one at a time."""
     t_phase = time.perf_counter()
     w2 = os.path.join(tmp, "w_transcar")
     ckpt6 = os.path.join(w2, "checkpoints", "6")
+    pillar = _latest_step(os.path.join(tmp, "w_pillar"))
     children = _start_export_children(tmp, data, {
-        "transcar_r101": ckpt6, "transcar_vovnet_trainval": None,
-        "objdgcnn_pillar": _latest_step(os.path.join(tmp, "w_pillar"))})
+        name: (ckpt6 if preset == "transcar_r101" else
+               pillar if preset == "objdgcnn_pillar" else None)
+        for name, (preset, *_) in EXPORTS.items()})
     try:
         _host_tools(tmp, data, w2, ckpt6)
-        for preset, proc in children.items():
-            _finish_export_child(preset, proc, smi)
+        for name, proc in children.items():
+            _finish_export_child(name, proc, smi)
     finally:
         for proc in children.values():
             if proc.poll() is None:
@@ -4246,6 +4330,15 @@ def _host_tools(tmp: str, data: list, w2: str, ckpt6: str) -> None:
     if not all(r["gflops"] > 0 and r["params_m"] > 0 and r["kernel_gflops"]
                for r in flops.values()):
         raise AssertionError(f"tools: get_flops {flops}")
+    # the opt-in serving configurations count their twins' totals
+    for name, (preset, options, _, _) in EXPORTS.items():
+        if options:
+            r = get_flops.count_flops(
+                get_preset(preset, parse_overrides(options)), 928, 1600)
+            print(f"tools get_flops {name}: {r['gflops']} GFLOP (twin "
+                  f"{flops[preset]['gflops']}), kernels {r['kernel_gflops']}")
+            if r["gflops"] != flops[preset]["gflops"]:
+                raise AssertionError(f"tools: get_flops {name} {r}")
 
     # publish_model, print_config, analyze_logs
     pub, _ = _run_cli(publish_model.main, [w2, os.path.join(tmp, "pub",
@@ -4352,15 +4445,17 @@ def int8_main_shapes() -> dict:
 
 
 def _record_int8_calls() -> tuple:
-    """Wrap the int8 conv and quantize kernel entries so that each call
-    records its shape: the conv's (N, Cin, H, W, Cout, k, stride, padding)
-    with its epilogue flags (affine, relu, amax taken), and the quantize's
-    (N, C, H, W) with whether an amax came with it.  Returns the two lists
-    and a function that unwraps them."""
+    """Wrap the int8 conv, amax and codes kernel wrappers (which the
+    registered ops' CUDA implementations call) so that each call records
+    its shape: the conv's (N, Cin, H, W, Cout, k, stride, padding) with its
+    epilogue flags (affine, relu, amax taken), and each codes pass's (N,
+    C, H, W) with whether its amax came with it (no amax pass ran for it).
+    Returns the two lists and a function that unwraps them."""
     from transcar_tpu_torch.ops import int8
 
-    convs, quants = [], []
-    conv, quant = int8.conv_kernel, int8.quantize_kernel
+    convs, quants, amax_pass = [], [], []
+    conv, amax_kernel, codes = (int8.conv_kernel, int8.amax_kernel,
+                                int8.codes_kernel)
 
     def recording_conv(xq, s_x, weight_q, stride=1, padding=0, dilation=1,
                        out_dtype=torch.bfloat16, affine=None, relu=False,
@@ -4372,14 +4467,21 @@ def _record_int8_calls() -> tuple:
         return conv(xq, s_x, weight_q, stride, padding, dilation, out_dtype,
                     affine, relu, want_amax)
 
-    def recording_quant(x, amax=None, channels=None):
-        quants.append((tuple(x.shape), amax is not None))
-        return quant(x, amax, channels)
+    def recording_amax(x):
+        amax_pass.append(True)
+        return amax_kernel(x)
 
-    int8.conv_kernel, int8.quantize_kernel = recording_conv, recording_quant
+    def recording_codes(x, amax, channels=None):
+        quants.append((tuple(x.shape), not amax_pass))
+        amax_pass.clear()
+        return codes(x, amax, channels)
+
+    int8.conv_kernel, int8.amax_kernel, int8.codes_kernel = (
+        recording_conv, recording_amax, recording_codes)
 
     def unwrap():
-        int8.conv_kernel, int8.quantize_kernel = conv, quant
+        int8.conv_kernel, int8.amax_kernel, int8.codes_kernel = (
+            conv, amax_kernel, codes)
     return convs, quants, unwrap
 
 
@@ -4621,7 +4723,7 @@ def phase_int8(shapes: dict, quants: dict, smi: str, parent=None) -> dict:
     ``transcar_r101`` request."""
     import torch.nn.functional as F
 
-    from transcar_tpu_torch.ops import int8
+    from transcar_tpu_torch.ops import counts, int8
 
     bf16 = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -4742,12 +4844,14 @@ def phase_int8(shapes: dict, quants: dict, smi: str, parent=None) -> dict:
         # the activation codes the taps cover, at the conv's own Cin (a 1x1
         # stride-2 conv reads a quarter of the pixels)
         act = n * min(h * w, k * k * (m // n)) * cin
-        bound, kind = bound_ms(2.0 * m * cout * kk, torch.int8,
-                               act + cout * kk + 4 * cout + 4
-                               + 2 * got.numel())
+        bound, kind = bound_ms(
+            counts.int8_conv(n, *got.shape[2:], cin, cout, k, k), torch.int8,
+            act + cout * kk + 4 * cout + 4 + 2 * got.numel())
         kinds.add(kind)
-        amax_bound = 1e3 * (2 * x.numel() + 4) / HBM_BYTES_PER_S
-        codes_bound = 1e3 * (3 * x.numel() + 8) / HBM_BYTES_PER_S
+        amax_bound = 1e3 * counts.int8_amax_bytes(
+            x.numel(), x.element_size()) / HBM_BYTES_PER_S
+        codes_bound = 1e3 * counts.int8_codes_bytes(
+            x.numel(), x.element_size()) / HBM_BYTES_PER_S
         vals = dict(zip(keys, (ms, conv_ms, plain_ms, bound, mm_ms, dnn_ms,
                                dnn_bn_ms, parent_ms, q_parent_ms,
                                ms if cq != cin else 0.0,
@@ -4826,6 +4930,46 @@ def phase_int8(shapes: dict, quants: dict, smi: str, parent=None) -> dict:
           + (f"; parent {_int8_timer(lambda: parent_int8_quantize(parent, x)):.4f}"
              f" / {cuda_ms(lambda: parent_int8_quantize(parent, x), iters=10, warmup=2):.4f} ms"
              if parent is not None else "") + f" on {smi}")
+    # the registered ops (the main path's route, eager and exported)
+    # against the bare wrappers they dispatch to, at the same activation
+    # and its 224 -> 224 3x3 conv with ConvBN's epilogue (12 a VoVNet
+    # request), in inference mode as the eval step calls them; the least
+    # of three turns, op and wrapper in turns
+    wt = torch.randn(224, 224, 3, 3, device="cuda",
+                     generator=g) / math.sqrt(9 * 224)
+    wq = int8.prepare_weight(wt)
+    sc, bi = _affine(g, 224)
+    xq, s_x = int8.quantize_kernel(x)
+    tr = torch.ops.transcar
+    pairs = {
+        "amax": (lambda: tr.int8_amax(x), lambda: int8.amax_kernel(x)),
+        "codes": (lambda: tr.int8_codes(x, amax_x, 224),
+                  lambda: int8.codes_kernel(x, amax_x)),
+        "conv": (lambda: tr.int8_conv(xq, s_x, wq.q, wq.scale, wq.kmajor, 1,
+                                      1, 1, bf16, sc, bi, True, True),
+                 lambda: int8.conv_kernel(xq, s_x, wq, 1, 1, 1, bf16,
+                                          (sc, bi), True, True)),
+        "conv without amax": (
+            lambda: tr.int8_conv(xq, s_x, wq.q, wq.scale, wq.kmajor, 1, 1,
+                                 1, bf16, sc, bi, True, False),
+            lambda: int8.conv_kernel(xq, s_x, wq, 1, 1, 1, bf16, (sc, bi),
+                                     True, False)),
+        "ConvBN's call (amax + codes + conv)": (
+            lambda: int8.dynamic_int8_conv(
+                x, wt, weight_q=wq, stride=1, padding=1,
+                out_dtype=bf16, affine=(sc, bi), relu=True),
+            lambda: int8.conv_kernel(*int8.quantize_kernel(x), wq, 1, 1, 1,
+                                     bf16, (sc, bi), True)),
+    }
+    parts = []
+    with torch.inference_mode():
+        for name, (op, bare) in pairs.items():
+            turns = [(host_us(op), host_us(bare)) for _ in range(3)]
+            a, b = (min(t[i] for t in turns) for i in (0, 1))
+            parts.append(f"{name} op {a:.2f}, wrapper {b:.2f} (op dispatch "
+                         f"{a - b:+.2f})")
+    print("int8 host µs a call at 6x224x29x50 (inference mode): "
+          + "; ".join(parts) + f" on {smi}", flush=True)
     print(f"int8 phase: {time.perf_counter() - t0:.1f} s")
     r101 = totals["transcar_r101"]
     note = ("no TPU kernel: the JAX package runs this in XLA, "

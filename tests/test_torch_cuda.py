@@ -1162,3 +1162,148 @@ def test_int8_convbn_takes_the_kernel_and_caches_the_codes(dev):
     assert int8.launches == before + 2 and torch.equal(a, b)
     wq = m.__dict__["_int8"][1]
     assert wq.kmajor is not None and wq.kmajor.shape == (96, 576)
+
+
+# --- the opt-in serving kernels as registered ops ----------------------------
+
+def _counted(module, attr, fn):
+    before = getattr(module, attr)
+    out = fn()
+    return out, getattr(module, attr) - before
+
+
+def test_int8_ops_equal_their_wrappers(dev):
+    # torch.ops.transcar.int8_amax / int8_codes / int8_conv launch the
+    # kernels of the bare wrappers, once a call, bit for bit
+    from transcar_tpu_torch.ops import int8
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    x = cl(torch.randn(2, 32, 13, 17, device=dev, generator=g)).to(
+        torch.bfloat16)
+    img = cl(torch.randn(1, 3, 19, 23, device=dev, generator=g))
+    amax, n = _counted(int8, "amax_launches", lambda: int8.int8_amax(x))
+    assert n == 1 and amax.shape == () and torch.equal(
+        amax, int8.amax_kernel(x))
+    for t, ch in ((x, 32), (img, 4)):
+        m = int8.amax_kernel(t)
+        (q, s), n = _counted(int8, "quantize_launches",
+                             lambda: int8.int8_codes(t, m, ch))
+        q_ref, s_ref = int8.codes_kernel(t, m, ch)
+        assert n == 1 and torch.equal(q, q_ref) and torch.equal(s, s_ref)
+        assert q.stride() == q_ref.stride()
+    xq, s_x = int8.quantize_kernel(x)
+    for cout, k, stride, pad, out_dtype, fold, want in (
+            (48, 3, 1, 1, torch.bfloat16, True, True),
+            (64, 1, 2, 0, torch.float32, False, False)):
+        wq = int8.prepare_weight(torch.randn(cout, 32, k, k, device=dev,
+                                             generator=g) * 0.1)
+        aff = _int8_affine(dev, cout, cout) if fold else None
+        sc, bi = aff if fold else (None, None)
+        (y, m), n = _counted(int8, "launches", lambda: int8.int8_conv(
+            xq, s_x, wq.q, wq.scale, wq.kmajor, stride, pad, 1, out_dtype,
+            sc, bi, fold, want))
+        ref = int8.conv_kernel(xq, s_x, wq, stride, pad, 1, out_dtype, aff,
+                               fold, want)
+        ref_y, ref_m = ref if want else (ref, None)
+        assert n == 1 and torch.equal(y, ref_y)
+        assert y.stride() == ref_y.stride()
+        assert torch.equal(m, ref_m) if want else m.shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_osa_block_op_equals_its_wrapper(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(22)
+    n, h, w, c0, ch, cr = 2, 9, 13, 32, 24, 48
+    x = torch.randn(n, h, w, c0, device=dev, generator=g).to(dtype)
+    w9s = [torch.randn(3, 3, c, ch, device=dev, generator=g) * 0.1
+           for c in (c0, ch, ch)]
+    affs = [(torch.rand(ch, device=dev, generator=g) + 0.5,
+             torch.randn(ch, device=dev, generator=g)) for _ in w9s]
+    rws = pallas_osa.kmajor_weights(
+        torch.randn(cr, c0 + 3 * ch, device=dev, generator=g) * 0.1,
+        [c0, ch, ch, ch], dtype)
+    raff = (torch.rand(cr, device=dev, generator=g) + 0.5,
+            torch.randn(cr, device=dev, generator=g))
+    wks = [pallas_osa_block.kmajor_conv_weight(w9, dtype) for w9 in w9s]
+    (out, sums), k = _counted(pallas_osa_block, "launches", lambda: (
+        pallas_osa_block.osa_block(x, w9s, [a[0] for a in affs],
+                                   [a[1] for a in affs], rws, *raff, wks)))
+    ref, ref_sums = pallas_osa_block.kernel(x, w9s, affs, rws, raff, wks)
+    # the output bit for bit; the channel sums meet in float32 atomics
+    assert k == 1 and torch.equal(out, ref)
+    assert (sums - ref_sums).abs().max() <= 1e-4 * ref_sums.abs().max()
+
+
+@pytest.mark.parametrize("downsample", [True, False])
+def test_bottleneck_op_equals_its_wrapper(dev, downsample):
+    g = torch.Generator(device=dev).manual_seed(23)
+    n, h, w, cin, cm = 2, 11, 14, 64, 16
+    cout = 64 if not downsample else 96
+    r = lambda *s: torch.randn(*s, device=dev, generator=g) * 0.1
+    aff = lambda c: (torch.rand(c, device=dev, generator=g) + 0.5, r(c))
+    x = r(n, h, w, cin).to(torch.bfloat16)
+    w1, w2, w3 = r(cin, cm), r(3, 3, cm, cm), r(cm, cout)
+    a1, a2, a3 = aff(cm), aff(cm), aff(cout)
+    wd, ad = (r(cin, cout), aff(cout)) if downsample else (None, None)
+    ks = pallas_bottleneck.kmajor_weights(w1, w2, w3, wd)
+    out, k = _counted(pallas_bottleneck, "launches", lambda: (
+        pallas_bottleneck.bottleneck(
+            x, w1, *a1, w2, *a2, w3, *a3, wd, *(ad or (None, None)),
+            [t for t in ks if t is not None])))
+    ref = pallas_bottleneck.kernel(x, w1, a1, w2, a2, w3, a3, wd, ad, ks)
+    assert k == 1 and torch.equal(out, ref)
+
+
+#: A tiny ``transcar_r101`` (ResNet-50 trunk at its widths, 64 × 96
+#: images, one decoder layer of 16 queries), as the CPU tests' overrides.
+TINY_R50 = ["model.backbone.kind=resnet50",
+            "model.backbone.with_dcn=[false,false,false,false]",
+            "model.head.num_query=16", "model.head.num_decoder_layers=1",
+            "data.img_hw=[64,96]"]
+
+
+@pytest.mark.parametrize("option", ["model.backbone.quantize=int8",
+                                    "model.backbone.block_impl=fused"])
+def test_exported_opt_in_program_launches_what_eager_does(dev, option,
+                                                         tmp_path):
+    # the loaded program equals the live eval step bit for bit and
+    # launches exactly its kernels a request: the weights' codes, scales,
+    # affines and K-major copies are its state, computed at export
+    from transcar_tpu_torch.cli import export
+    from transcar_tpu_torch.core.config import get_preset, parse_overrides
+    from transcar_tpu_torch.models.detector import build_model
+    from transcar_tpu_torch.ops import int8
+    from transcar_tpu_torch.train.fold import (fold_bn_into_conv,
+                                               frozen_bn_names)
+    from transcar_tpu_torch.train.step import eval_step
+
+    over = TINY_R50 + [option]
+    path = str(tmp_path / "m.pt2")
+    export.main(["transcar_r101", "--out", path, "--cfg-options", *over])
+    program = torch.export.load(path).module()
+    cfg = get_preset("transcar_r101", parse_overrides(over))
+    model = build_model(cfg)
+    model.load_state_dict(fold_bn_into_conv(model.state_dict(),
+                                            frozen_bn_names(model)))
+    g = torch.Generator(device=dev).manual_seed(24)
+    batch = {k: torch.randn(v.shape, device=dev, generator=g)
+             for k, v in export.example_batch(cfg, 1, dev).items()}
+    counters = (
+        (int8, "launches"), (int8, "quantize_launches"),
+        (int8, "amax_launches"), (pallas_bottleneck, "launches"),
+        (pallas_bottleneck, "wgmma_launches"), (pallas_attention,
+                                                "launches"))
+    read = lambda: [getattr(m, a) for m, a in counters]
+    with torch.inference_mode():
+        eval_step(model, batch, cfg)            # warm the eager caches
+        before = read()
+        want = eval_step(model, batch, cfg)
+        mid = read()
+        got = program(batch)
+        after = read()
+    eager = [b - a for a, b in zip(before, mid)]
+    assert [b - a for a, b in zip(mid, after)] == eager
+    assert eager[0 if "int8" in option else 3] > 0
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

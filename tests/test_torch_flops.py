@@ -7,9 +7,13 @@
     ``jax.eval_shape``: no compile);
   * each op's flop formula, read by ``FlopCounterMode``, equal to the
     shared count of ``ops/counts.py`` that ``chip_smoke.py``'s bounds
-    read;
+    read (the int8 conv, K5 and K6 too);
+  * the opt-in serving configurations (int8, ``osa_reduce_impl=fused``,
+    ``block_impl=fused``) count, through their ops, the total of their
+    default twins, whose arithmetic they repeat;
   * ``params_m`` of every other model at its full widths equal to JAX's.
 """
+import functools
 import json
 
 import jax
@@ -23,8 +27,10 @@ from transcar_tpu.core import config as jconfig
 from transcar_tpu.models.detector import build_model as jbuild_model
 from transcar_tpu_torch.cli import get_flops
 from transcar_tpu_torch.core.config import get_preset, parse_overrides
-from transcar_tpu_torch.ops import (counts, pallas_attention, pallas_dcn,
-                                    pallas_msdeform, pallas_osa)
+from transcar_tpu_torch.ops import (counts, int8, pallas_attention,
+                                    pallas_bottleneck, pallas_dcn,
+                                    pallas_msdeform, pallas_osa,
+                                    pallas_osa_block)
 
 CAMERA = ["model.head.with_radar_fusion=false", *TINY]
 
@@ -97,6 +103,49 @@ def test_each_op_counts_the_shared_count():
     wgt = torch.rand(1, 6, 2, 2, 3, generator=g)
     assert _flops(lambda: pallas_msdeform.ms_deform_attn(
         value, shapes, loc, wgt)) == counts.msdeform_forward(wgt.numel(), 8)
+    xc = torch.randn(2, 16, 9, 11, generator=g)
+    wc = torch.randn(24, 16, 3, 3, generator=g)
+    assert _flops(lambda: int8.dynamic_int8_conv(xc, wc, stride=2,
+                                                 padding=1)) \
+        == counts.int8_conv(2, 5, 6, 16, 24, 3, 3)
+    aff = lambda c: (torch.ones(c), torch.zeros(c))
+    x = torch.randn(2, 5, 6, 16, generator=g)
+    w9s = [torch.randn(3, 3, 16, 8, generator=g),
+           torch.randn(3, 3, 8, 8, generator=g)]
+    rws = [torch.randn(c, 24, generator=g) for c in (16, 8, 8)]
+    assert _flops(lambda: pallas_osa_block.osa_block_fused(
+        x, w9s, [aff(8), aff(8)], rws, aff(24))) \
+        == counts.osa_block(2, 5, 6, 16, 8, 2, 24)
+    for wd in (None, torch.randn(16, 32, generator=g)):
+        cout = 16 if wd is None else 32
+        assert _flops(lambda: pallas_bottleneck.bottleneck_fused(
+            x, torch.randn(16, 8, generator=g), aff(8), w9s[1], aff(8),
+            torch.randn(8, cout, generator=g), aff(cout), wd,
+            None if wd is None else aff(cout))) \
+            == counts.bottleneck(2, 5, 6, 16, 8, cout, wd is not None)
+
+
+@functools.lru_cache(maxsize=None)
+def _default_count(preset: str) -> dict:
+    return get_flops.count_flops(get_preset(preset), 64, 96)
+
+
+@pytest.mark.parametrize("preset,option,op", [
+    ("transcar_r101", "model.backbone.quantize=int8", "int8_conv"),
+    ("transcar_vovnet_trainval", "model.backbone.osa_reduce_impl=fused",
+     "osa_block"),
+    ("transcar_r101", "model.backbone.block_impl=fused", "bottleneck"),
+])
+def test_opt_in_configurations_count_as_their_twins(preset, option, op):
+    """int8 serving, the fused OSA block and the fused bottleneck do their
+    default twin's arithmetic, so ``get_flops`` counts the same total,
+    with the op's share named (the camera presets at their own widths, a
+    small image)."""
+    twin = _default_count(preset)
+    rec = get_flops.count_flops(
+        get_preset(preset, parse_overrides([option])), 64, 96)
+    assert rec["gflops"] == twin["gflops"] > 0
+    assert rec["kernel_gflops"][op] > 0 and op not in twin["kernel_gflops"]
 
 
 @pytest.mark.parametrize("preset", ["transcar_r101",

@@ -392,14 +392,23 @@ def test_codes_pass_given_the_amax_equals_the_plain_quantize():
 
 
 def _count_quantizes(monkeypatch):
-    calls = []
-    plain = int8.plain_quantize_per_tensor
+    """Records, for each activation codes pass (the ``int8_codes`` op),
+    whether its amax came with it (True, from a conv's epilogue) rather
+    than from an amax pass (the ``int8_amax`` op) run for it (False)."""
+    calls, amax_pass = [], []
+    amax_op, codes_op = int8.int8_amax, int8.int8_codes
 
-    def counting(x, amax=None):
-        calls.append(amax is not None)
-        return plain(x, amax)
+    def counting_amax(x):
+        amax_pass.append(True)
+        return amax_op(x)
 
-    monkeypatch.setattr(int8, "plain_quantize_per_tensor", counting)
+    def counting_codes(x, amax, channels):
+        calls.append(not amax_pass)
+        amax_pass.clear()
+        return codes_op(x, amax, channels)
+
+    monkeypatch.setattr(int8, "int8_amax", counting_amax)
+    monkeypatch.setattr(int8, "int8_codes", counting_codes)
     return calls
 
 

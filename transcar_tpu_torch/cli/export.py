@@ -7,14 +7,21 @@ head → ``eval/decode.nms_free_decode`` (``train/step.eval_step`` on a
 normalized float32 batch), traced in eval mode under ``torch.no_grad()``.
 The hand-written kernels on that path are ``torch.library`` ops
 (``transcar::dcn_forward``, ``masked_attention``, ``osa_reduce``,
-``msdeform_forward``), so the graph calls them by name and the loaded
-program launches them on the card.  Unlike the JAX artifact, which takes
-the parameters as call arguments, the program holds the model's
-``state_dict`` as its state: the weights of ``--checkpoint`` (seeded
-random ones without it), with the frozen BatchNorms folded into the convs
-as ``evaluate()`` folds them (``train/fold.py``) unless ``--no-fold-bn``.
-The LiDAR track's BatchNorm statistics are buffers in that state, so the
-program takes no ``batch_stats`` argument.
+``msdeform_forward``; with ``model.backbone.osa_reduce_impl=fused``
+``osa_block``, with ``block_impl=fused`` ``bottleneck``, with
+``quantize=int8`` ``int8_amax``, ``int8_codes`` and ``int8_conv``), so
+the graph calls them by name and the loaded program launches them on the
+card.  Unlike the JAX artifact, which takes the parameters as call
+arguments, the program holds the model's ``state_dict`` as its state: the
+weights of ``--checkpoint`` (seeded random ones without it), with the
+frozen BatchNorms folded into the convs as ``evaluate()`` folds them
+(``train/fold.py``) unless ``--no-fold-bn``.  Beside them it holds what
+the kernels read derived from those weights, computed once at export by
+one eager forward (``models/common.derived_weights_held``): the K-major
+weight copies of K1, K4, K5 and K6, and int8's per-channel weight codes,
+scales and folded affines, so a call rebuilds and re-quantizes none of
+them.  The LiDAR track's BatchNorm statistics are buffers in that state,
+so the program takes no ``batch_stats`` argument.
 
 Usage:
     python -m transcar_tpu_torch.cli.export <preset> --out model.pt2
@@ -28,9 +35,7 @@ program cannot load without them):
     out = program(batch)     # dict: boxes, scores, labels, valid
 
 ``batch`` is the dict the sidecar ``model.pt2.json`` lists, on the device
-the program was exported on.  The opt-in kernels (int8 serving, the fused
-OSA block and bottleneck) are not registered ops yet and refuse to
-export.
+the program was exported on.
 """
 from __future__ import annotations
 
@@ -42,17 +47,8 @@ import torch
 from torch import nn
 
 from transcar_tpu_torch.eval.decode import nms_free_decode
+from transcar_tpu_torch.models.common import derived_weights_held
 from transcar_tpu_torch.train.step import forward
-
-#: Options whose kernels are not registered ops → the ROADMAP.md entry
-#: that would register them.
-NOT_EXPORTABLE = (
-    ("model.backbone.quantize", "int8"),
-    ("model.backbone.osa_reduce_impl", "fused"),
-    ("model.backbone.block_impl", "fused"),
-)
-ROADMAP_ROW = ("ROADMAP.md Queue 2: the opt-in and backward kernels as "
-               "registered ops")
 
 
 class EvalProgram(nn.Module):
@@ -67,16 +63,6 @@ class EvalProgram(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         return nms_free_decode(forward(self.model, batch), self.head_cfg)
-
-
-def check_exportable(cfg) -> None:
-    """Raise for a configuration whose kernels the program cannot call."""
-    bc = cfg.model.backbone
-    for key, value in NOT_EXPORTABLE:
-        if getattr(bc, key.rsplit(".", 1)[1]) == value:
-            raise ValueError(f"{key}={value} runs a kernel that is not a "
-                             f"registered op yet, so it cannot be exported "
-                             f"({ROADMAP_ROW})")
 
 
 def example_batch(cfg, batch_size: int, device) -> Dict[str, torch.Tensor]:
@@ -116,10 +102,9 @@ def output_specs(exported) -> Dict[str, torch.Tensor]:
 def export_eval_step(cfg, model: nn.Module, batch_size: int = 1,
                      fold_bn: bool = True):
     """Returns (``torch.export.ExportedProgram``, sidecar dict) of
-    ``model`` (eval mode, on its device) with its weights as state;
-    ``fold_bn`` folds the frozen BatchNorms into ``model`` in place
-    first."""
-    check_exportable(cfg)
+    ``model`` (eval mode, on its device) with its weights and the layouts
+    derived from them as state; ``fold_bn`` folds the frozen BatchNorms
+    into ``model`` in place first."""
     if fold_bn:
         from transcar_tpu_torch.train.fold import (fold_bn_into_conv,
                                                    frozen_bn_names)
@@ -129,9 +114,12 @@ def export_eval_step(cfg, model: nn.Module, batch_size: int = 1,
     batch = example_batch(cfg, batch_size, device)
     grads = [(p, p.requires_grad) for p in model.parameters()]
     model.requires_grad_(False)        # a graph without autograd state
+    program = EvalProgram(model, cfg).eval()
     try:
-        exported = torch.export.export(EvalProgram(model, cfg).eval(),
-                                       (batch,))
+        with torch.no_grad():
+            program(batch)             # builds the derived layouts
+        with derived_weights_held(model) as n_held:
+            exported = torch.export.export(program, (batch,))
     finally:
         for p, wanted in grads:
             p.requires_grad_(wanted)
@@ -146,6 +134,9 @@ def export_eval_step(cfg, model: nn.Module, batch_size: int = 1,
         "params": ("the model's state_dict, held in the program "
                    + ("(fold_bn_into_conv applied, as evaluate() folds)"
                       if fold_bn else "(unfolded)")),
+        "derived": (f"{n_held} tensors derived from the weights at export "
+                    "(K-major copies, int8 codes, scales and folded "
+                    "affines), held as non-persistent buffers"),
         "ops": "import transcar_tpu_torch.ops before torch.export.load",
     }
     return exported, sidecar
@@ -176,7 +167,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_preset(args.preset, parse_overrides(args.cfg_options))
-    check_exportable(cfg)
     model = build_model(cfg, device=device)
     if args.checkpoint:
         model.load_state_dict(_load_params(args.checkpoint, cfg, model))

@@ -14,11 +14,14 @@ Conventions:
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from transcar_tpu_torch.ops.attention import multihead_attention
 from transcar_tpu_torch.ops.int8 import dynamic_int8_conv, prepare_weight
@@ -39,10 +42,18 @@ def cached_copy(module: nn.Module, name: str, params: Sequence[torch.Tensor],
     ``module`` under ``name`` and rebuilt when a parameter changes (in
     place, which bumps its ``_version``, or moved or replaced), when
     ``dtype`` does or when the inference mode does.  Under tracing
-    (``torch.export``) the tensors have no storage to key a cache on, so
-    the layout is built in the traced graph, at each call of the program."""
+    (``torch.export``) the tensors have no storage to key a cache on: the
+    layout is the one :func:`derived_weights_held` holds as the module's
+    state, and a traced call without it raises (a layout built in the
+    graph would be rebuilt at each call of the program)."""
     if torch.compiler.is_compiling():
-        return build()
+        held = module.__dict__.get(_HELD, {}).get(name)
+        if held is None:
+            raise RuntimeError(
+                f"{type(module).__name__}.{name}: traced without its held "
+                f"layout; run one eager forward, then trace inside "
+                f"derived_weights_held(model)")
+        return held()
     key = (tuple((id(w), w._version, w.data_ptr(), w.device) for w in params),
            dtype, torch.is_inference_mode_enabled())
     hit = module.__dict__.get(name)
@@ -50,7 +61,61 @@ def cached_copy(module: nn.Module, name: str, params: Sequence[torch.Tensor],
         with torch.no_grad():
             hit = (key, build())
         module.__dict__[name] = hit
+        module.__dict__.setdefault(_CACHED, set()).add(name)
     return hit[1]
+
+
+_CACHED = "_cached_copy_names"      # the names cached_copy keeps on a module
+_HELD = "_held_copies"              # name → rebuild from held buffers
+
+
+def _dense_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in storage of its own, dense in the order of ``t``'s
+    strides (a K-major view of a wider weight stays K-major)."""
+    order = sorted(range(t.dim()), key=lambda d: -t.stride(d))
+    dense = t.permute(order).clone(memory_format=torch.contiguous_format)
+    return dense.permute([order.index(d) for d in range(t.dim())])
+
+
+@contextlib.contextmanager
+def derived_weights_held(model: nn.Module):
+    """Within the block, each kernel layout that :func:`cached_copy` keeps
+    on a module of ``model`` (what its last forward built: K-major
+    weights, int8 codes and scales, folded affines) is also a
+    non-persistent buffer of that module, in storage of its own, and a
+    traced :func:`cached_copy` returns those buffers: ``torch.export``
+    lifts them into the program's state, computed once, so the program
+    builds none of them at a call.  They are the eager caches' values bit
+    for bit.  The buffers are removed at the end of the block.  Yields the
+    number of tensors held."""
+    added = []
+    for mod in model.modules():
+        for name in sorted(mod.__dict__.get(_CACHED, ())):
+            leaves, spec = tree_flatten(mod.__dict__[name][1])
+            slots = []              # (buffer name, None) or (None, leaf)
+            for i, leaf in enumerate(leaves):
+                if isinstance(leaf, torch.Tensor):
+                    buf = f"{name}_held{i}"
+                    mod.register_buffer(buf, _dense_copy(leaf),
+                                        persistent=False)
+                    added.append((mod, buf))
+                    slots.append((buf, None))
+                else:
+                    slots.append((None, leaf))
+            mod.__dict__.setdefault(_HELD, {})[name] = functools.partial(
+                _from_buffers, mod, slots, spec)
+    try:
+        yield len(added)
+    finally:
+        for mod, buf in added:
+            del mod._buffers[buf]
+        for mod in model.modules():
+            mod.__dict__.pop(_HELD, None)
+
+
+def _from_buffers(mod: nn.Module, slots: list, spec):
+    return tree_unflatten([leaf if buf is None else getattr(mod, buf)
+                           for buf, leaf in slots], spec)
 
 
 def disable_tf32() -> None:

@@ -5,6 +5,8 @@ flop formulas of the registered ops (``torch.utils.flop_counter``, read by
 ``cli/get_flops.py``) and the bounds ``chip_smoke.py`` prints beside each
 kernel's time both read these, so a FLOP count and a bound cannot drift
 apart.  An operation is a multiply or an add (a multiply-add is two).
+The int8 quantize passes do no product: they are counted in the bytes
+they must move, and have no flop formula.
 """
 from __future__ import annotations
 
@@ -43,3 +45,45 @@ def msdeform_forward(samples: int, head_dim: int) -> float:
     bilinear taps and the attention weight, a multiply-add each;
     ``samples`` is B·Q·H·L·P (the attention weights' element count)."""
     return 10.0 * head_dim * samples
+
+
+def osa_block(n: int, h: int, w: int, c0: int, ch: int, n_convs: int,
+              cout: int) -> float:
+    """K5: the chain's ``n_convs`` 3×3 convs (C0 → Ch, then Ch → Ch) and
+    the K4 reduce of the C0 + n_convs·Ch concatenation → Cout, at each of
+    N·H·W pixels (affines, ReLUs and channel sums not counted)."""
+    chain = 9 * (c0 * ch + (n_convs - 1) * ch * ch)
+    return 2.0 * n * h * w * (chain + (c0 + n_convs * ch) * cout)
+
+
+def bottleneck(n: int, h: int, w: int, cin: int, cm: int, cout: int,
+               downsample: bool) -> float:
+    """K6: conv1 (1×1, Cin → Cm), conv2 (3×3, Cm → Cm), conv3 (1×1, Cm →
+    Cout) and, with ``downsample``, the 1×1 Cin → Cout of the identity, at
+    each of N·H·W pixels (affines, ReLUs and the residual add not
+    counted)."""
+    macs = cin * cm + 9 * cm * cm + cm * cout + (cin * cout if downsample
+                                                  else 0)
+    return 2.0 * n * h * w * macs
+
+
+def int8_conv(n: int, ho: int, wo: int, cin: int, cout: int, kh: int,
+              kw: int) -> float:
+    """The int8 conv: the kh·kw·Cin → Cout product at each of N·Ho·Wo
+    output pixels, as a float conv of the same shape counts it (Cin is the
+    weight's, not a stem's 4 code channels; the dequantize and epilogue
+    are not counted)."""
+    return 2.0 * (n * ho * wo) * cout * (kh * kw * cin)
+
+
+def int8_amax_bytes(numel: int, itemsize: int) -> int:
+    """Bytes the amax pass must move: the activation read once and its
+    float32 max written."""
+    return itemsize * numel + 4
+
+
+def int8_codes_bytes(numel: int, itemsize: int) -> int:
+    """Bytes the codes pass must move: the activation read once, a code
+    byte written an element (a stem's zero codes past its Cin not
+    counted), the amax read and the scale written."""
+    return (itemsize + 1) * numel + 8

@@ -11,11 +11,15 @@ Layouts are the port's: activations NCHW tensors in channels-last
 memory, weights OIHW.  The public functions take the JAX package's
 arguments (``stride``, ``padding``, ``dilation``, ``out_dtype``).
 
-On a CPU tensor :func:`dynamic_int8_conv` runs the plain version: the
-quantizers in float32 (a true division, round half to even), the codes
-convolved as float64 by ``F.conv2d``, which is exact (|sum| ≤ K·127² <
-2⁵³), then int32 → float32 and the dequantize in JAX's order.  On a CUDA
-tensor it launches the kernels of ``csrc/int8_conv.cu`` or raises.
+:func:`dynamic_int8_conv` calls three registered ops, the amax pass
+(:data:`int8_amax`), the codes pass (:data:`int8_codes`) and the conv
+(:data:`int8_conv`), so that ``torch.export`` traces an int8 model and
+``FlopCounterMode`` counts it.  On a CPU tensor they run the plain
+versions: the quantizers in float32 (a true division, round half to
+even), the codes convolved as float64 by ``F.conv2d``, which is exact
+(|sum| ≤ K·127² < 2⁵³), then int32 → float32 and the dequantize in JAX's
+order.  On a CUDA tensor they launch the kernels of ``csrc/int8_conv.cu``
+or raise.
 
 The kernels replace no TPU kernel: the JAX package computes this
 convolution in XLA (``transcar_tpu/ops/int8.py:48``,
@@ -76,8 +80,9 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib
+from transcar_tpu_torch.ops import counts, kernel_lib
 
 #: int8 convolution kernel launches since the count was last set to 0.
 launches = 0
@@ -108,16 +113,20 @@ class QuantWeight(NamedTuple):
     kmajor: Optional[torch.Tensor]
 
 
-def quantize_per_tensor(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
+def quantize_per_tensor(x: torch.Tensor, amax: Optional[torch.Tensor] = None,
+                        channels: Optional[int] = None):
     """Symmetric per-tensor int8 quantization: (codes int8 in ``x``'s
     layout, scale float32 0-d).  ``s = max(max|x|, 1e-8) / 127``,
     ``q = clip(round(x / s), -127, 127)``, in float32.  ``amax`` is
     ``max|x|`` where the caller has it (a conv epilogue's); then only the
-    codes pass runs.  A CPU tensor takes :func:`plain_quantize_per_tensor`;
-    a CUDA tensor launches the quantize kernels or raises."""
-    if x.device.type == "cpu":
-        return plain_quantize_per_tensor(x, amax)
-    return quantize_kernel(x, amax)
+    codes pass (:data:`int8_codes`) runs, else the amax pass
+    (:data:`int8_amax`) runs first.  ``channels`` = 4 writes a stem's
+    4-channel codes (:func:`code_channels`; the card's conv reads them).
+    The ops run their plain versions on a CPU tensor and launch the
+    quantize kernels on a CUDA tensor, or raise."""
+    if amax is None:
+        amax = int8_amax(x)
+    return int8_codes(x, amax, x.shape[1] if channels is None else channels)
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -140,6 +149,18 @@ def plain_quantize_per_tensor(x: torch.Tensor,
     xf = x.float()
     s = _scale(plain_amax(x) if amax is None else amax.float())
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def plain_codes(x: torch.Tensor, amax: torch.Tensor, channels: int):
+    """The codes pass's plain version: :func:`plain_quantize_per_tensor`
+    from ``amax``, a stem's codes widened to ``channels`` (zero codes, in
+    channels-last memory) as the card writes them."""
+    q, s = plain_quantize_per_tensor(x, amax)
+    if channels != x.shape[1]:
+        _check_quad(x, channels)
+        q = F.pad(q, (0, 0, 0, 0, 0, channels - x.shape[1])).contiguous(
+            memory_format=torch.channels_last)
+    return q, s
 
 
 def quantize_weight_per_channel(weight: torch.Tensor):
@@ -236,16 +257,14 @@ def dynamic_int8_conv(x: torch.Tensor, weight: torch.Tensor, *,
     if weight_q is None:
         weight_q = prepare_weight(weight)
     if codes is None:
-        codes = (plain_quantize_per_tensor(x, amax) if x.device.type == "cpu"
-                 else quantize_kernel(x, amax,
-                                      code_channels(weight_q.q.shape[1])))
+        codes = quantize_per_tensor(
+            x, amax, code_channels(weight_q.q.shape[1]) if x.is_cuda else None)
     xq, s_x = codes
-    if x.device.type == "cpu":
-        out = plain_int8_convbn(xq, s_x, weight_q.q, weight_q.scale, stride,
-                                padding, dilation, out_dtype, affine, relu)
-        return (out, plain_amax(out)) if want_amax else out
-    return conv_kernel(xq, s_x, weight_q, stride, padding, dilation,
-                       out_dtype, affine, relu, want_amax)
+    scale, bias = affine if affine is not None else (None, None)
+    out, out_amax = int8_conv(xq, s_x, weight_q.q, weight_q.scale,
+                              weight_q.kmajor, stride, padding, dilation,
+                              out_dtype, scale, bias, relu, want_amax)
+    return (out, out_amax) if want_amax else out
 
 
 def _channels_last(x: torch.Tensor) -> bool:
@@ -267,69 +286,93 @@ def _scratch(device: torch.device) -> torch.Tensor:
     return pair
 
 
-def quantize_kernel(x: torch.Tensor, amax: Optional[torch.Tensor] = None,
-                    channels: Optional[int] = None):
-    """The quantize pass on a CUDA tensor (float32 or bfloat16, dense in
-    NCHW or channels-last memory): codes in ``x``'s layout and the scale
-    as a 0-d device tensor, never read on the host.  Without ``amax`` the
-    amax pass runs first (one launch), then the codes pass (one launch).
-    ``channels`` = 4 for a channels-last x of fewer channels (a stem's
-    image, :func:`code_channels`) writes 4-channel codes [N, 4, H, W] in
-    channels-last memory, the added channels zero codes."""
-    global quantize_launches, amax_launches
+def _check_activation(x: torch.Tensor, name: str) -> None:
     if not x.is_cuda:
-        raise ValueError("int8 quantize kernel: the tensor must be on a CUDA "
-                         "device")
+        raise ValueError(f"{name}: the tensor must be on a CUDA device")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"int8 quantize kernel takes float32 or bfloat16, "
-                        f"not {x.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16, not {x.dtype}")
     if not (x.is_contiguous() or _channels_last(x)):
-        raise ValueError("int8 quantize kernel: the tensor must be dense "
-                         "(contiguous or channels-last)")
-    if amax is not None and (amax.device != x.device
-                             or amax.dtype != torch.float32
-                             or amax.numel() != 1):
-        raise ValueError("int8 quantize kernel: amax must be a float32 "
-                         "scalar on the tensor's device")
-    quad = channels is not None and channels != x.shape[1]
-    if quad and (channels != QUAD or x.dim() != 4 or x.shape[1] >= QUAD
-                 or not _channels_last(x)):
+        raise ValueError(f"{name}: the tensor must be dense (contiguous or "
+                         f"channels-last)")
+
+
+def _check_quad(x: torch.Tensor, channels: int) -> None:
+    if (channels != QUAD or x.dim() != 4 or x.shape[1] >= QUAD
+            or not _channels_last(x)):
         raise ValueError(f"int8 quantize kernel: codes of {channels} "
                          f"channels are written for a channels-last image of "
                          f"fewer than {QUAD}, not {tuple(x.shape)}")
+
+
+def amax_kernel(x: torch.Tensor) -> torch.Tensor:
+    """The amax pass on a CUDA tensor (float32 or bfloat16, dense in NCHW
+    or channels-last memory): ``max|x|`` as a 0-d float32 device tensor,
+    never read on the host; one launch."""
+    global amax_launches
+    _check_activation(x, "int8 amax kernel")
+    amax = torch.empty((), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = kernel_lib.function("int8_amax", _P, _I, ctypes.c_longlong, _P,
+                                 _P, _P)(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(),
+            amax.data_ptr(), _scratch(x.device).data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    kernel_lib.check(rc, "int8_amax")
+    amax_launches += 1
+    return amax
+
+
+def codes_kernel(x: torch.Tensor, amax: torch.Tensor,
+                 channels: Optional[int] = None):
+    """The codes pass on a CUDA tensor (as :func:`amax_kernel`) from its
+    ``amax`` (a float32 device scalar): codes in ``x``'s layout and the
+    scale as a 0-d device tensor; one launch.  ``channels`` = 4 for a
+    channels-last x of fewer channels (a stem's image,
+    :func:`code_channels`) writes 4-channel codes [N, 4, H, W] in
+    channels-last memory, the added channels zero codes."""
+    global quantize_launches
+    _check_activation(x, "int8 quantize kernel")
+    if (amax.device != x.device or amax.dtype != torch.float32
+            or amax.numel() != 1):
+        raise ValueError("int8 quantize kernel: amax must be a float32 "
+                         "scalar on the tensor's device")
+    quad = channels is not None and channels != x.shape[1]
     if quad:
+        _check_quad(x, channels)
         n, _, h, w = x.shape
         q = torch.empty((n, h, w, QUAD), dtype=torch.int8,
                         device=x.device).permute(0, 3, 1, 2)
     else:
         q = torch.empty_like(x, dtype=torch.int8)
-    buf = torch.empty(2, dtype=torch.float32, device=x.device)  # s, amax
+    s = torch.empty((), dtype=torch.float32, device=x.device)
     x_bf16 = int(x.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if amax is None:
-            amax = buf[1]
-            rc = kernel_lib.function("int8_amax", _P, _I, ctypes.c_longlong,
-                                     _P, _P, _P)(
-                x.data_ptr(), x_bf16, x.numel(), amax.data_ptr(),
-                _scratch(x.device).data_ptr(), stream)
-            kernel_lib.check(rc, "int8_amax")
-            amax_launches += 1
         if quad:
             name = "int8_codes_quad"
             rc = kernel_lib.function(name, _P, _I, ctypes.c_longlong, _I, _P,
                                      _P, _P, _P)(
                 x.data_ptr(), x_bf16, x.numel() // x.shape[1], x.shape[1],
-                amax.data_ptr(), q.data_ptr(), buf.data_ptr(), stream)
+                amax.data_ptr(), q.data_ptr(), s.data_ptr(), stream)
         else:
             name = "int8_codes"
             rc = kernel_lib.function(name, _P, _I, ctypes.c_longlong, _P, _P,
                                      _P, _P)(
                 x.data_ptr(), x_bf16, x.numel(), amax.data_ptr(),
-                q.data_ptr(), buf.data_ptr(), stream)
+                q.data_ptr(), s.data_ptr(), stream)
     kernel_lib.check(rc, name)
     quantize_launches += 1
-    return q, buf[0]
+    return q, s
+
+
+def quantize_kernel(x: torch.Tensor, amax: Optional[torch.Tensor] = None,
+                    channels: Optional[int] = None):
+    """The quantize passes on a CUDA tensor, as the model runs them: the
+    amax pass (:func:`amax_kernel`) unless ``amax`` is given, then the
+    codes pass (:func:`codes_kernel`)."""
+    if amax is None:
+        amax = amax_kernel(x)
+    return codes_kernel(x, amax, channels)
 
 
 def takes_wgmma(cin: int, cout: int) -> bool:
@@ -426,3 +469,97 @@ def conv_kernel(xq: torch.Tensor, s_x: torch.Tensor, weight_q: QuantWeight,
     wgmma_launches += wgmma
     out = out.permute(0, 3, 1, 2)
     return (out, amax) if want_amax else out
+
+
+def _no_amax(like: torch.Tensor) -> torch.Tensor:
+    """What :data:`int8_conv` returns for the amax without ``want_amax``:
+    an empty [0] float32 tensor (no bytes, no launch)."""
+    return like.new_empty((0,), dtype=torch.float32)
+
+
+def _affine_pair(scale, bias):
+    if (scale is None) != (bias is None):
+        raise ValueError("int8 conv: the affine takes both a scale and a "
+                         "bias, or neither")
+    return None if scale is None else (scale, bias)
+
+
+def _conv_cuda(xq, s_x, wq, s_w, wk, stride, padding, dilation, out_dtype,
+               scale, bias, relu, want_amax):
+    out = conv_kernel(xq, s_x, QuantWeight(wq, s_w, wk), stride, padding,
+                      dilation, out_dtype, _affine_pair(scale, bias), relu,
+                      want_amax)
+    return out if want_amax else (out, _no_amax(out))
+
+
+def _conv_cpu(xq, s_x, wq, s_w, wk, stride, padding, dilation, out_dtype,
+              scale, bias, relu, want_amax):
+    out = plain_int8_convbn(xq, s_x, wq, s_w, stride, padding, dilation,
+                            out_dtype, _affine_pair(scale, bias), relu)
+    # the card's layout, which the fake gives (a no-op for the model's
+    # channels-last activations)
+    out = out.contiguous(memory_format=torch.channels_last)
+    return out, plain_amax(out) if want_amax else _no_amax(out)
+
+
+def _conv_fake(xq, s_x, wq, s_w, wk, stride, padding, dilation, out_dtype,
+               scale, bias, relu, want_amax):
+    n, _, h, w = xq.shape
+    cout, _, kh, kw = wq.shape
+    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
+    wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    out = xq.new_empty((n, ho, wo, cout), dtype=out_dtype).permute(0, 3, 1, 2)
+    return out, (xq.new_empty((), dtype=torch.float32) if want_amax
+                 else _no_amax(xq))
+
+
+def _codes_fake(x, amax, channels):
+    if channels != x.shape[1]:
+        n, _, h, w = x.shape
+        q = x.new_empty((n, h, w, channels), dtype=torch.int8).permute(
+            0, 3, 1, 2)
+    else:
+        q = torch.empty_like(x, dtype=torch.int8)
+    return q, x.new_empty((), dtype=torch.float32)
+
+
+#: The amax pass as a registered op, ``torch.ops.transcar.int8_amax(x)``:
+#: :func:`amax_kernel` on CUDA, :func:`plain_amax` on the CPU; a 0-d float32
+#: result.  The scratch pair the kernel meets in stays inside it.
+int8_amax = kernel_lib.register_op(
+    "int8_amax(Tensor x) -> Tensor",
+    cuda=lambda x: amax_kernel(x), cpu=lambda x: plain_amax(x),
+    fake=lambda x: x.new_empty((), dtype=torch.float32))
+
+#: The codes pass as a registered op, ``torch.ops.transcar.int8_codes(x,
+#: amax, channels)`` → (codes, scale): :func:`codes_kernel` on CUDA
+#: (``int8_codes``, or ``int8_codes_quad`` where ``channels`` exceeds x's),
+#: :func:`plain_codes` on the CPU; the codes in x's layout (a stem's in
+#: channels-last memory), the scale 0-d float32.
+int8_codes = kernel_lib.register_op(
+    "int8_codes(Tensor x, Tensor amax, int channels) -> (Tensor, Tensor)",
+    cuda=lambda *a: codes_kernel(*a), cpu=lambda *a: plain_codes(*a),
+    fake=_codes_fake)
+
+#: The int8 convolution as a registered op, ``torch.ops.transcar.int8_conv(
+#: xq, s_x, wq, s_w, wk, stride, padding, dilation, out_dtype, scale, bias,
+#: relu, want_amax)`` → (out, amax): :func:`conv_kernel` on CUDA (``wk`` the
+#: K-major codes of :func:`prepare_weight`), :func:`plain_int8_convbn` on the
+#: CPU (``wk`` unused).  ``scale`` / ``bias`` are FrozenBN's folded affine or
+#: None; out is [N, Cout, Ho, Wo] in channels-last memory, amax its 0-d
+#: float32 ``max|out|`` with ``want_amax`` and an empty [0] tensor without.
+int8_conv = kernel_lib.register_op(
+    "int8_conv(Tensor xq, Tensor s_x, Tensor wq, Tensor s_w, Tensor? wk, "
+    "int stride, int padding, int dilation, ScalarType out_dtype, "
+    "Tensor? scale, Tensor? bias, bool relu, bool want_amax) -> "
+    "(Tensor, Tensor)",
+    cuda=lambda *a: _conv_cuda(*a), cpu=lambda *a: _conv_cpu(*a),
+    fake=_conv_fake)
+
+
+@register_flop_formula(torch.ops.transcar.int8_conv)
+def _int8_conv_flops(xq_shape, sx_shape, wq_shape, *args, out_shape=None,
+                     **kwargs) -> float:
+    n, _, ho, wo = out_shape[0]
+    cout, cin, kh, kw = wq_shape
+    return counts.int8_conv(n, ho, wo, cin, cout, kh, kw)

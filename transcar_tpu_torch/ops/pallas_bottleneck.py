@@ -59,8 +59,9 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib
+from transcar_tpu_torch.ops import counts, kernel_lib
 from transcar_tpu_torch.ops.pallas_osa import check_forward_only
 from transcar_tpu_torch.ops.pallas_osa_block import (conv3x3_affine_relu,
                                                      kmajor_conv_weight)
@@ -125,15 +126,55 @@ def bottleneck_fused(x: torch.Tensor, w1, aff1: Affine, w2, aff2: Affine,
         device it reads; the other tile ignores them.
     Returns: [N, H, W, Cout] in x's dtype.
 
-    A CPU tensor takes :func:`plain_bottleneck`; a CUDA tensor launches K6
-    or raises.
+    It calls the registered op :data:`bottleneck`: a CPU tensor takes
+    :func:`plain_bottleneck`, a CUDA tensor launches K6 or raises.
     """
     del rows_per_chunk
     affs = [t for a in (aff1, aff2, aff3, affd) if a is not None for t in a]
     check_forward_only("bottleneck_fused", x, w1, w2, w3, wd, *affs)
-    if x.device.type == "cpu":
-        return plain_bottleneck(x, w1, aff1, w2, aff2, w3, aff3, wd, affd)
-    return kernel(x, w1, aff1, w2, aff2, w3, aff3, wd, affd, kmajor)
+    affd = affd if wd is not None else (None, None)
+    return bottleneck(x, w1, *aff1, w2, *aff2, w3, *aff3, wd, *affd,
+                      [k for k in kmajor or () if k is not None])
+
+
+def _split(args):
+    """The op's arguments as :func:`kernel` takes them."""
+    (x, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd, kmajor) = args
+    if wd is not None and (sd is None or bd is None):
+        raise ValueError("bottleneck: a downsample needs its affine")
+    ks = (*kmajor, None)[:4] if kmajor else None
+    return (x, w1, (s1, b1), w2, (s2, b2), w3, (s3, b3), wd,
+            None if wd is None else (sd, bd), ks)
+
+
+def _bottleneck_fake(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, wd, sd, bd,
+                     kmajor):
+    return x.new_empty((*x.shape[:3], w3.shape[-1]))
+
+
+#: K6 as a registered op, ``torch.ops.transcar.bottleneck(x, w1, s1, b1, w2,
+#: s2, b2, w3, s3, b3, wd, sd, bd, kmajor)``: :func:`kernel` on CUDA (its
+#: three launches), :func:`plain_bottleneck` on the CPU; each affine comes
+#: as its scale and bias, the downsample and its affine are None without
+#: one, and ``kmajor`` lists the :func:`kmajor_weights` that are not None
+#: (empty where the caller has none); its fake gives the contiguous [N, H,
+#: W, Cout] output.
+bottleneck = kernel_lib.register_op(
+    "bottleneck(Tensor x, Tensor w1, Tensor s1, Tensor b1, Tensor w2, "
+    "Tensor s2, Tensor b2, Tensor w3, Tensor s3, Tensor b3, Tensor? wd, "
+    "Tensor? sd, Tensor? bd, Tensor[] kmajor) -> Tensor",
+    cuda=lambda *a: kernel(*_split(a)),
+    cpu=lambda *a: plain_bottleneck(*_split(a)[:-1]),
+    fake=_bottleneck_fake)
+
+
+@register_flop_formula(torch.ops.transcar.bottleneck)
+def _bottleneck_flops(x_shape, w1_shape, s1, b1, w2_shape, s2, b2, w3_shape,
+                      s3, b3, wd_shape, *args, out_shape=None,
+                      **kwargs) -> float:
+    n, h, w, cin = x_shape
+    return counts.bottleneck(n, h, w, cin, w2_shape[-1], w3_shape[-1],
+                             wd_shape is not None)
 
 
 def kmajor_weights(w1, w2, w3, wd=None, dtype=torch.bfloat16) -> tuple:

@@ -52,8 +52,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
-from transcar_tpu_torch.ops import kernel_lib, pallas_osa
+from transcar_tpu_torch.ops import counts, kernel_lib, pallas_osa
 from transcar_tpu_torch.ops.pallas_osa import (check_forward_only,
                                                plain_osa_reduce)
 
@@ -116,17 +117,57 @@ def osa_block_fused(x: torch.Tensor, conv_w9s: Sequence[torch.Tensor],
       ([N, H, W, Cr] after the ReLU, before the eSE gate, in x's dtype;
        [N, Cr] float32 per-image channel sums).
 
-    A CPU tensor takes :func:`plain_osa_block`; a CUDA tensor launches K5
-    or raises.
+    It calls the registered op :data:`osa_block`: a CPU tensor takes
+    :func:`plain_osa_block`, a CUDA tensor launches K5 or raises.
     """
     del rows_per_chunk
     check_forward_only("osa_block_fused", x, *conv_w9s, *reduce_ws,
                        *(t for a in (*conv_affines, reduce_affine) for t in a))
-    if x.device.type == "cpu":
-        return plain_osa_block(x, conv_w9s, conv_affines, reduce_ws,
-                               reduce_affine)
-    return kernel(x, conv_w9s, conv_affines, reduce_ws, reduce_affine,
-                  conv_kmajor)
+    return osa_block(x, list(conv_w9s), [a[0] for a in conv_affines],
+                     [a[1] for a in conv_affines], list(reduce_ws),
+                     *reduce_affine, list(conv_kmajor or []))
+
+
+def _osa_block_cuda(x, conv_w9s, conv_scales, conv_biases, reduce_ws,
+                    reduce_scale, reduce_bias, conv_kmajor):
+    return kernel(x, conv_w9s, list(zip(conv_scales, conv_biases)),
+                  reduce_ws, (reduce_scale, reduce_bias), conv_kmajor or None)
+
+
+def _osa_block_cpu(x, conv_w9s, conv_scales, conv_biases, reduce_ws,
+                   reduce_scale, reduce_bias, conv_kmajor):
+    return plain_osa_block(x, conv_w9s, list(zip(conv_scales, conv_biases)),
+                           reduce_ws, (reduce_scale, reduce_bias))
+
+
+def _osa_block_fake(x, conv_w9s, conv_scales, conv_biases, reduce_ws,
+                    reduce_scale, reduce_bias, conv_kmajor):
+    n, h, w, _ = x.shape
+    cr = reduce_ws[0].shape[-1]
+    return (x.new_empty((n, h, w, cr)),
+            x.new_empty((n, cr), dtype=torch.float32))
+
+
+#: K5 as a registered op, ``torch.ops.transcar.osa_block(x, conv_w9s,
+#: conv_scales, conv_biases, reduce_ws, reduce_scale, reduce_bias,
+#: conv_kmajor)``: :func:`kernel` on CUDA, :func:`plain_osa_block` on the
+#: CPU; the chain affines come split into scales and biases, and
+#: ``conv_kmajor`` is empty where the caller has no K-major copies; its fake
+#: gives the contiguous [N, H, W, Cr] output and the [N, Cr] float32 sums.
+osa_block = kernel_lib.register_op(
+    "osa_block(Tensor x, Tensor[] conv_w9s, Tensor[] conv_scales, "
+    "Tensor[] conv_biases, Tensor[] reduce_ws, Tensor reduce_scale, "
+    "Tensor reduce_bias, Tensor[] conv_kmajor) -> (Tensor, Tensor)",
+    cuda=lambda *a: _osa_block_cuda(*a), cpu=lambda *a: _osa_block_cpu(*a),
+    fake=_osa_block_fake)
+
+
+@register_flop_formula(torch.ops.transcar.osa_block)
+def _osa_block_flops(x_shape, w9_shapes, *args, out_shape=None,
+                     **kwargs) -> float:
+    n, h, w, c0 = x_shape
+    return counts.osa_block(n, h, w, c0, w9_shapes[0][-1], len(w9_shapes),
+                            out_shape[0][-1])
 
 
 def kmajor_conv_weight(w9: torch.Tensor, dtype) -> torch.Tensor:
