@@ -53,7 +53,7 @@ non-zero):
      ``detr3d_r101`` full-backbone recipe (K1 forward, K3 backward) and
      the ``transcar_r101`` fusion-only recipe (K1 only), bfloat16
      backbone; finite losses, launch counts per step (every K1 launch on
-     the Hopper tile), which parameters
+     the Hopper tile; one Hungarian matching launch), which parameters
      moved, peak memory, ms/step; then one float32 step of each recipe,
      kernel path against plain path (see phase_train_check);
   8. K4 (OSA concat-reduce), K5 (whole OSA block) and K6 (fused
@@ -84,8 +84,9 @@ non-zero):
      Hopper tiles) + 3 K2 per request,
      float32 against the plain path, samples/s beside the default path;
  12. one ``transcar_vovnet_trainval --train`` fusion-only run: finite
-     loss, camera frozen, no kernel launches (training takes the plain
-     OSA tail, as in JAX), ms/step and peak memory;
+     loss, camera frozen, no kernel launches but one Hungarian matching a
+     step (training takes the plain OSA tail, as in JAX), ms/step and
+     peak memory;
  13. K7 (multi-scale deformable attention) against its plain version at
      the ObjDGCNN pillar shapes: one encoder call (87 040 queries over the
      256² / 128² / 64² / 32² BEV levels) and one decoder call (300
@@ -109,7 +110,8 @@ non-zero):
  16. ``objdgcnn_pillar`` training through ``benchmark --train`` at the
      same width (dropout 0.1, batch statistics, clip 35, AdamW with the
      VFE and SECOND at lr × 0.1): 8 K7 + 8 K8 + 8 K9 launches per step
-     (all on the lane-group kernels) and no other kernel, finite losses, trainable elements and BN running
+     (all on the lane-group kernels), one Hungarian matching and no
+     other kernel, finite losses, trainable elements and BN running
      statistics moved, ms/step and peak memory; then one float32 step
      with one decoder layer and dropout 0, kernel path against plain path
      (gradients per leaf);
@@ -126,7 +128,8 @@ non-zero):
      held finite and timed, with its peak memory;
  18. ``objdgcnn_voxel`` training through ``benchmark --train`` at the
      same width: 8 K7 + 8 K8 + 8 K9 launches per step (all on the
-     lane-group kernels) and no other kernel, finite losses, trainable
+     lane-group kernels), one Hungarian matching and no other kernel,
+     finite losses, trainable
      elements (the middle encoder's among them) and BN running
      statistics moved, ms/step and peak memory; then, as for the pillar,
      one float32 step with one decoder layer and dropout 0, kernel path
@@ -137,7 +140,12 @@ non-zero):
      ``torch.cuda.set_sync_debug_mode("error")``, after a positive control
      (a pageable host-to-device copy must raise), the same reported for
      ``objdgcnn_pillar`` and ``objdgcnn_voxel``, and the warm voxel
-     middle encoder alone on its voxelized inputs (asserted);
+     middle encoder alone on its voxelized inputs (asserted); then one
+     warm train step at full width, batch 1, of ``transcar_r101`` and
+     ``detr3d_r101`` (asserted: the matching runs on the card) and of
+     ``objdgcnn_pillar`` and ``objdgcnn_voxel`` (reported, with where a
+     sync was made), after a second positive control (the host matching,
+     ``hungarian_match_host``, must raise);
  20. the data pipeline, checkpoints, train loop, eval hook and the train
      / test CLIs (``cli.train``, ``cli.test``, called in-process) on a
      nuScenes-layout fixture written to a temporary directory
@@ -201,8 +209,9 @@ non-zero):
      gradients before the clip and their norm to ``DP_GRAD_TOL``; losses,
      and parameters and BN running statistics to rtol = atol = 1e-4) with
      the ranks bit for bit equal; then both at full depth in bfloat16, ms
-     a step a rank, launches a rank a step (26 K1; 8 each of K7-K9), peak
-     memory a rank and the gradient all-reduce's ms;
+     a step a rank, launches a rank a step (26 K1; 8 each of K7-K9; one
+     Hungarian matching), peak memory a rank and the gradient
+     all-reduce's ms;
  24. the same data-parallel code over NCCL at world size 1: a float32
      pillar step's losses and BatchNorm running statistics bit for bit
      those of the step with no group, its summed gradients to
@@ -220,13 +229,27 @@ non-zero):
      backbone and FPN take as many cameras at a time (cuDNN picks its
      algorithms by batch size), and float32 within 1e-3 of the plain
      unsharded forward; and, in phase 20, ``cli.test --shard-cameras``
-     taking the one-device path on one card.
+     taking the one-device path on one card;
+ 27. the Hungarian matching kernel (``csrc/hungarian.cu``, replacing the
+     JAX package's on-device solver, ``transcar_tpu/ops/hungarian.py``)
+     against its plain version on the card, matches, validity and scans
+     identical, and against scipy's optimum of the sanitized costs, at
+     the train steps' problems (:data:`HUNGARIAN_CASES`: 3 and 6 × 900
+     queries × 32 gt slots with 7 gts, 6 × 300 × 32, a nuScenes-like
+     6 × 900 × 128 with 128 / 64 / 40 / 7 / 1 / 0 gts, tied integer
+     costs and non-finite costs at 6 × 900 × 32 with 32 / 20 / 7 / 7 / 1
+     / 0 gts); per call the kernel's time (queued behind a spin), its
+     Dijkstra scans (all, and the longest problem's, which sets the time:
+     the blocks run side by side) and µs a scan of the longest problem,
+     the bound, the plain version's time and the host solve's (scipy
+     with its two copies).
 
 The line before the last is the kernel summary as JSON; the last line is
-``{"ok": true, "device": {...}}``; it lists the int8 conv and quantize
-kernels after K1-K9, with ``"replaces": null`` and a note.  There is no
-CPU path: without CUDA the
-script raises.
+``{"ok": true, "device": {...}}``; it lists the Hungarian matching after
+K1-K9 (with its ``host_ms``, ``scans`` and ``scans_longest``;
+``library_ms`` null: no PyTorch call solves an assignment), then the
+int8 conv and quantize kernels, with ``"replaces": null`` and a note.
+There is no CPU path: without CUDA the script raises.
 """
 from __future__ import annotations
 
@@ -1658,6 +1681,206 @@ def phase_sync() -> None:
                              f"the host: {found}")
 
 
+def _sync_site(err: BaseException) -> str:
+    """The first line of a sync-debug error and the innermost frame of the
+    port (or of torch) that raised it, so a report says where to look."""
+    import traceback
+
+    frames = traceback.extract_tb(err.__traceback__)
+    ours = [f for f in frames if "transcar_tpu_torch" in f.filename]
+    at = (ours or frames)[-1]
+    return (f"{str(err).splitlines()[0]} at "
+            f"{os.path.relpath(at.filename)}:{at.lineno} ({at.name})")
+
+
+def warm_step_syncs(preset: str) -> list:
+    """One warm train step of ``preset`` at full width, batch 1 (as
+    ``benchmark --train`` sets it up), under
+    ``torch.cuda.set_sync_debug_mode("error")``; the host synchronization
+    it made, if any, with where it was made."""
+    from transcar_tpu_torch.cli import benchmark
+    from transcar_tpu_torch.train.step import init_state, train_step
+
+    args = benchmark.parse_args([preset, "--train"])
+    cfg, model, batch, _ = benchmark._setup(args, training=True)
+    state = init_state(cfg, model, total_steps=2)
+    gen = torch.Generator().manual_seed(args.seed + 2)
+    train_step(state, batch, gen)                                 # warmup
+    torch.cuda.synchronize()
+    found = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(state, batch, gen)
+    except RuntimeError as e:
+        found.append(_sync_site(e))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return found
+
+
+def phase_step_sync() -> None:
+    """No host sync in a warm camera train step (``transcar_r101``,
+    ``detr3d_r101``: the matching runs on the card), after the positive
+    controls: a pageable copy, and the host matching
+    (``hungarian_match_host``), must raise; the ObjDGCNN steps are
+    reported."""
+    from transcar_tpu_torch.ops import hungarian
+
+    _sync_check_armed()
+    cost = torch.rand(6, 900, 32, device="cuda")
+    n = torch.full((6,), 7, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hungarian.hungarian_match_host(cost, n)
+        caught = None
+    except RuntimeError as e:
+        caught = _sync_site(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"sync check (armed) hungarian_match_host (the host matching): "
+          f"{'raised ok: ' + caught if caught else 'did not raise'}")
+    if caught is None:
+        raise AssertionError("the sync check did not flag the host matching")
+    reported = ("objdgcnn_pillar", "objdgcnn_voxel")
+    for preset in ("transcar_r101", "detr3d_r101", *reported):
+        found = warm_step_syncs(preset)
+        print(f"sync check (set_sync_debug_mode, armed) {preset} warm bs1 "
+              f"train step: "
+              + ("no host sync ok" if not found else f"host syncs {found}")
+              + (" (reported only)" if preset in reported else ""))
+        if found and preset not in reported:
+            raise AssertionError(f"{preset}: a train step synchronized with "
+                                 f"the host: {found}")
+
+
+#: Phase 27's problems: (name, P problems, Q queries, G gt slots, the gt
+#: counts, the costs).  The train steps' (L·B problems; the synthetic
+#: batch's 7 gts of 32 slots): ``transcar_r101``'s 3 fusion layers and
+#: ``detr3d_r101``'s 6 decoder layers over 900 queries, ObjDGCNN's 6 over
+#: 300; a nuScenes-like batch of counts up to the 128-slot pad; integer
+#: costs (ties everywhere) and non-finite costs.
+HUNGARIAN_CASES = (
+    ("transcar_r101", 3, 900, 32, (7,) * 3, "uniform"),
+    ("detr3d_r101", 6, 900, 32, (7,) * 6, "uniform"),
+    ("objdgcnn", 6, 300, 32, (7,) * 6, "uniform"),
+    ("nuScenes-like", 6, 900, 128, (128, 64, 40, 7, 1, 0), "uniform"),
+    ("ties", 6, 900, 32, (32, 20, 7, 7, 1, 0), "integer"),
+    ("non-finite", 6, 900, 32, (32, 20, 7, 7, 1, 0), "non-finite"),
+)
+#: The case whose times stand in the kernels line: the ``detr3d_r101``
+#: step's problems.
+HUNGARIAN_MAIN = "detr3d_r101"
+#: The optimum check against scipy (float32 sums of up to ±1e7 costs).
+HUNGARIAN_RTOL, HUNGARIAN_ATOL = 1e-6, 1e-3
+
+
+def _hungarian_costs(g, p: int, q: int, gts: int, kind: str):
+    """[P, Q, G] float32 costs on the card: uniform in [0, 10) (a focal
+    plus L1 cost's range), integers in [0, 4), or uniform with NaN, ±inf
+    and values past the ±1e7 clip (one problem all NaN)."""
+    if kind == "integer":
+        return torch.randint(0, 4, (p, q, gts), device="cuda",
+                             generator=g).float()
+    cost = torch.rand(p, q, gts, device="cuda", generator=g) * 10
+    if kind == "non-finite":
+        cost[0, 3, 2] = float("nan")
+        cost[0, 7] = float("inf")
+        cost[1, :, 1] = float("-inf")
+        holes = torch.rand(q, gts, device="cuda", generator=g) < 0.3
+        cost[2][holes] = float("nan")
+        cost[3, :5] = 3e9
+        cost[4] = float("nan")
+    return cost
+
+
+def _optimum_gap(cost, counts, matched) -> tuple:
+    """(real slots distinct and padded ones Q in every problem, the
+    largest |matched total − scipy's optimum| over the sanitized costs,
+    within HUNGARIAN_RTOL / ATOL)."""
+    from scipy.optimize import linear_sum_assignment
+
+    from transcar_tpu_torch.ops.hungarian import sanitize_cost
+
+    p, q, gts = cost.shape
+    sane = sanitize_cost(cost).double().cpu().numpy()
+    m = matched.cpu().numpy()
+    shape_ok, gap, ok = True, 0.0, True
+    for i, n in enumerate(counts):
+        shape_ok &= bool((m[i, n:] == q).all()
+                         and len(set(m[i, :n].tolist())) == n)
+        got = sane[i, m[i, :n], list(range(n))].sum()
+        rows, cols = linear_sum_assignment(sane[i, :, :n])
+        want = sane[i, rows, cols].sum()
+        gap = max(gap, abs(got - want))
+        ok &= abs(got - want) <= HUNGARIAN_ATOL + HUNGARIAN_RTOL * abs(want)
+    return shape_ok, gap, ok
+
+
+def phase_hungarian(smi: str) -> dict:
+    """The matching kernel (``csrc/hungarian.cu``) against its plain
+    version on the card at every :data:`HUNGARIAN_CASES` shape (matches,
+    validity and scans identical), and against scipy's optimum; timed
+    beside its bound, the plain version and the host solve with its two
+    copies.  Returns the kernels line's entry of :data:`HUNGARIAN_MAIN`."""
+    from transcar_tpu_torch.ops import counts, hungarian
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    out, bad = {}, []
+    for name, p, q, gts, gt_counts, kind in HUNGARIAN_CASES:
+        cost = _hungarian_costs(g, p, q, gts, kind)
+        n = torch.tensor(gt_counts, dtype=torch.int32, device="cuda")
+        scans_k = torch.zeros(p, dtype=torch.int32, device="cuda")
+        scans_p = torch.zeros(p, dtype=torch.int32, device="cuda")
+        mk, vk = hungarian.kernel(cost, n, scans=scans_k)
+        mp, vp = hungarian.hungarian_match_plain(cost, n, scans=scans_p)
+        torch.cuda.synchronize()
+        same = (torch.equal(mk, mp) and torch.equal(vk, vp)
+                and torch.equal(scans_k, scans_p))
+        err = (mk - mp).abs().max().item()
+        shape_ok, gap, opt_ok = _optimum_gap(cost, gt_counts, mk)
+        scans, longest = int(scans_k.sum()), int(scans_k.max())
+        ms = queued_ms(lambda: hungarian.kernel(cost, n))
+        plain_ms = cuda_ms(lambda: hungarian.hungarian_match_plain(cost, n),
+                           iters=1, warmup=0)           # warm: the check
+
+        def host():
+            hungarian.hungarian_match_host(cost, n)
+            torch.cuda.synchronize()
+
+        host_ms = 1e-3 * host_us(host, iters=10)
+        bound, by = bound_ms(counts.hungarian_operations(q, scans),
+                             torch.float32,
+                             counts.hungarian_bytes(q, gts, gt_counts))
+        rows = sum(min(c, gts) for c in gt_counts)
+        ok = same and shape_ok and opt_ok
+        print(f"hungarian {name} P={p} Q={q} G={gts} num_gt={gt_counts} "
+              f"({kind} costs): kernel = plain bit for bit (matches, "
+              f"validity, scans) {same} (max |diff| {err}); distinct real "
+              f"slots and sentinel Q {shape_ok}; matched total - scipy "
+              f"optimum max |diff| {gap:.3e} (rtol {HUNGARIAN_RTOL:.0e}, "
+              f"atol {HUNGARIAN_ATOL:.0e}); {scans} Dijkstra scans a call "
+              f"for {rows} rows, {longest} in its longest problem; kernel "
+              f"{ms:.4f} ms a call (queued), {1e3 * ms / max(longest, 1):.3f}"
+              f" us a scan of the longest problem; bound {bound:.5f} "
+              f"ms by {by}; plain {plain_ms:.2f} ms; host solve (scipy, "
+              f"two copies) {host_ms:.3f} ms {'ok' if ok else 'FAIL'} on "
+              f"{smi}")
+        bad += [] if ok else [name]
+        out[name] = {"max_abs_err": float(err), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None, "parent_ms": None,
+                     "host_ms": host_ms, "scans": scans,
+                     "scans_longest": longest}
+    if bad:
+        raise AssertionError(f"hungarian kernel: {bad} disagree with the "
+                             "plain version or miss scipy's optimum")
+    return out[HUNGARIAN_MAIN]
+
+
 def _initial_state(preset: str, cfg_options=()) -> tuple:
     """The parameters and buffers ``benchmark --train`` starts from (same
     seed, same randomized DCN and MSDeformAttn offsets), on the card."""
@@ -1695,7 +1918,7 @@ def phase_train(smi: str) -> dict:
     from transcar_tpu_torch.core.config import get_preset
     from transcar_tpu_torch.models.detector import resolve_remat
     from transcar_tpu_torch.models.resnet import RESNET_DEPTHS
-    from transcar_tpu_torch.ops import pallas_attention, pallas_dcn
+    from transcar_tpu_torch.ops import hungarian, pallas_attention, pallas_dcn
 
     out = {}
     for preset, warmup, timed in (("detr3d_r101", 2, 5),
@@ -1711,13 +1934,14 @@ def phase_train(smi: str) -> dict:
                                           str(timed), "--warmup",
                                           str(warmup)])
         launches = (pallas_dcn.launches, pallas_dcn.backward_launches,
-                    pallas_attention.launches)
+                    pallas_attention.launches, hungarian.launches)
         k1_wgmma = pallas_dcn.wgmma_launches
         steps = rec["steps"]
         fusion_only = rec["fusion_only"]
         remat = resolve_remat(cfg) and not fusion_only
+        # the matching: all L·B problems of a step in one launch
         want = (n_dcn * steps * (2 if remat else 1),
-                0 if fusion_only else n_dcn * steps, 0)
+                0 if fusion_only else n_dcn * steps, 0, steps)
         moved = _moved(state, start)
         finite = all(math.isfinite(v) for r in (rec["loss_first"],
                                                 rec["loss_last"])
@@ -1725,8 +1949,9 @@ def phase_train(smi: str) -> dict:
         print(f"train {preset} 6x928x1600 bs1 (bf16 backbone, fp32 head, "
               f"{'fusion-only' if fusion_only else 'full backbone'}): "
               f"{steps} steps, launches K1 {launches[0]} K3 {launches[1]} "
-              f"K2 {launches[2]} (want {want}: K1 {want[0] // steps} and K3 "
-              f"{want[1] // steps} per step), K1 on the wgmma tile {k1_wgmma} "
+              f"K2 {launches[2]} Hungarian {launches[3]} (want {want}: K1 "
+              f"{want[0] // steps}, K3 {want[1] // steps} and one matching "
+              f"per step), K1 on the wgmma tile {k1_wgmma} "
               f"of {launches[0]}; loss total first "
               f"{rec['loss_first']['total']:.4f} last "
               f"{rec['loss_last']['total']:.4f}, finite {finite}; trainable "
@@ -2293,7 +2518,7 @@ def phase_k6(parent=None) -> dict:
 
 
 def _zero_counts() -> None:
-    from transcar_tpu_torch.ops import (int8, pallas_attention,
+    from transcar_tpu_torch.ops import (hungarian, int8, pallas_attention,
                                         pallas_bottleneck, pallas_dcn,
                                         pallas_osa, pallas_osa_block)
 
@@ -2313,6 +2538,7 @@ def _zero_counts() -> None:
     pallas_msdeform.backward_value_group_launches = 0
     int8.launches = int8.quantize_launches = 0
     int8.wgmma_launches = int8.amax_launches = 0
+    hungarian.launches = 0
 
 
 def _fp32_vs_plain(preset: str, kernel_opts, plain_opts) -> float:
@@ -2541,8 +2767,11 @@ def phase_vovnet_train(smi: str) -> None:
     if not (rec["fusion_only"] and finite) or camera:
         raise AssertionError(f"vovnet train: fusion_only {rec['fusion_only']}"
                              f", finite {finite}, camera trains {camera[:3]}")
-    if any(rec["kernel_launches"].values()):
-        raise AssertionError(f"vovnet train launched {rec['kernel_launches']}")
+    want = dict.fromkeys(rec["kernel_launches"], 0)
+    want["hungarian"] = rec["steps"]              # one matching a step
+    if rec["kernel_launches"] != want:
+        raise AssertionError(f"vovnet train launched {rec['kernel_launches']}"
+                             f" (want {want})")
     if moved[0] + moved[4] != moved[1] or moved[2] != 0 or moved[0] == 0:
         raise AssertionError(f"vovnet train: moved {moved}")
     del state, start
@@ -3009,6 +3238,7 @@ def phase_lidar_train(smi: str, preset: str) -> dict:
     for k in ("msdeform_forward", "msdeform_backward_taps",
               "msdeform_backward_value"):
         want[k] = per_step * steps
+    want["hungarian"] = steps                     # one matching a step
     # elements moved: (all trainable, the voxel middle encoder's)
     moved, total = [0, 0], [0, 0]
     for name, p in state.model.named_parameters():
@@ -3026,7 +3256,8 @@ def phase_lidar_train(smi: str, preset: str) -> dict:
     print(f"{tag} train {preset} {rec['max_points']} points, "
           f"{LIDAR_SLICES[preset]}, dropout 0.1, batch statistics: {steps} "
           f"steps, launches {rec['kernel_launches']} (want {want}: K7, K8, "
-          f"K9 {per_step} per step), on the lane-group kernels K7 "
+          f"K9 {per_step} and one Hungarian matching per step), on the "
+          f"lane-group kernels K7 "
           f"{group[0]} of {counts[0]}, K8 {group[1]} of {counts[1]}, K9 "
           f"{group[2]} of {counts[2]}; loss total first "
           f"{rec['loss_first']['total']:.4f} last "
@@ -5075,12 +5306,14 @@ def phase_parallel(smi: str) -> None:
     for f in refs.values():
         os.remove(f)
     os.rmdir(tmp)
-    want = {"r101": {"dcn_forward": 26},
-            "pillar": {k: 3 for k in ("msdeform_forward",
-                                      "msdeform_backward_taps",
-                                      "msdeform_backward_value")}}
-    want_bf16 = {"r101": {"dcn_forward": 26},
-                 "pillar": {k: 8 for k in want["pillar"]}}
+    # a rank's step: its DCN or MSDeformAttn launches and one matching
+    want = {"r101": {"dcn_forward": 26, "hungarian": 1},
+            "pillar": {"hungarian": 1, **{k: 3 for k in (
+                "msdeform_forward", "msdeform_backward_taps",
+                "msdeform_backward_value")}}}
+    want_bf16 = {"r101": want["r101"],
+                 "pillar": {k: 8 if k.startswith("msdeform") else v
+                            for k, v in want["pillar"].items()}}
     bad = []
     for i, name in enumerate(("r101", "pillar")):
         for rank, res in enumerate(ranks):
@@ -5293,6 +5526,7 @@ def main(argv=None) -> None:
     phase_lidar_train(smi, "objdgcnn_voxel")
     phase_lidar_train_check("objdgcnn_voxel")
     phase_sync()
+    phase_step_sync()
     phase_pipeline(smi, then=lambda tmp, data: phase_tools(tmp, data,
                                                            smi))
     int8_launches, int8_shapes, int8_quants = phase_int8_slices(smi)
@@ -5300,6 +5534,8 @@ def main(argv=None) -> None:
     phase_parallel(smi)
     phase_nccl_world1(smi)
     phase_camera_sharding(smi)
+    k_hungarian = phase_hungarian(smi)
+    launches["hungarian"] = train["detr3d_r101"]["launches"][3]
     for name in ("msdeform_backward_taps", "msdeform_backward_value"):
         launches[name] = train_launches[name]
     kernels = []
@@ -5325,7 +5561,9 @@ def main(argv=None) -> None:
              "transcar_tpu/ops/pallas_msdeform.py:529"),
             ("msdeform_backward_value", k9,
              "transcar_tpu_torch/csrc/msdeform_backward.cu",
-             "transcar_tpu/ops/pallas_msdeform.py:592")):
+             "transcar_tpu/ops/pallas_msdeform.py:592"),
+            ("hungarian", k_hungarian, "transcar_tpu_torch/csrc/hungarian.cu",
+             "transcar_tpu/ops/hungarian.py:33")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -5333,7 +5571,9 @@ def main(argv=None) -> None:
                         "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"],
                         "library_ms": res["library_ms"],
-                        "parent_ms": res.get("parent_ms")})
+                        "parent_ms": res.get("parent_ms"),
+                        **{k: res[k] for k in ("host_ms", "scans",
+                                               "scans_longest") if k in res}})
     # the int8 conv's launches on the wgmma tile, and the quantize passes'
     # standalone amax launches (a codes pass without a producer's amax)
     extra = {"int8_conv": {"wgmma_launches": int8_launches["int8_wgmma"]},

@@ -14,9 +14,11 @@ flagship shapes.
 import pytest
 import torch
 
+import chip_smoke
 from transcar_tpu_torch.models.common import disable_tf32
-from transcar_tpu_torch.ops import (dcn, pallas_attention, pallas_bottleneck,
-                                    pallas_dcn, pallas_msdeform, pallas_osa,
+from transcar_tpu_torch.ops import (dcn, hungarian, pallas_attention,
+                                    pallas_bottleneck, pallas_dcn,
+                                    pallas_msdeform, pallas_osa,
                                     pallas_osa_block)
 from transcar_tpu_torch.ops.attention import (attention_core, merge_heads,
                                               split_heads)
@@ -1307,3 +1309,49 @@ def test_exported_opt_in_program_launches_what_eager_does(dev, option,
     assert eager[0 if "int8" in option else 3] > 0
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# --- the Hungarian matching (csrc/hungarian.cu) -------------------------------
+
+#: (P, Q, G, gt counts, costs): ``chip_smoke.py``'s problems and ragged
+#: ones: fewer queries than threads, more gts than queries (the backstops:
+#: unmatched real slots take the sentinel), more gt slots than threads.
+HUNGARIAN_CASES = [c[1:] for c in chip_smoke.HUNGARIAN_CASES] + [
+    (2, 37, 5, (5, 3), "uniform"), (2, 3, 8, (8, 2), "integer"),
+    (1, 1000, 300, (300,), "uniform")]
+
+
+@pytest.mark.parametrize("seed", range(len(HUNGARIAN_CASES)))
+def test_hungarian_kernel_is_the_plain_version_bit_for_bit(dev, seed):
+    p, q, g, counts, kind = HUNGARIAN_CASES[seed]
+    cost = chip_smoke._hungarian_costs(
+        torch.Generator(device=dev).manual_seed(seed), p, q, g, kind)
+    n = torch.tensor(counts, dtype=torch.int32, device=dev)
+    scans = [torch.zeros(p, dtype=torch.int32, device=dev) for _ in "kp"]
+    before = hungarian.launches
+    got = hungarian.hungarian_match(cost, n)
+    assert hungarian.launches == before + 1
+    mk, vk = hungarian.kernel(cost, n, scans=scans[0])
+    mp, vp = hungarian.hungarian_match_plain(cost, n, scans=scans[1])
+    torch.cuda.synchronize()
+    for a, b in ((got[0], mk), (got[1], vk), (mk, mp), (vk, vp),
+                 (scans[0], scans[1])):
+        assert torch.equal(a, b)
+    if q >= max(counts):                 # every real slot can be matched
+        shape_ok, _, opt_ok = chip_smoke._optimum_gap(cost, counts, mk)
+        assert shape_ok and opt_ok
+    else:
+        assert (mk[0, q:] == q).all() and (mk[0, :q] < q).all()
+
+
+def test_hungarian_kernel_makes_no_host_sync(dev):
+    cost = torch.rand(6, 900, 32, device=dev)
+    n = torch.tensor([7, 7, 7, 7, 7, 0], dtype=torch.int32, device=dev)
+    want = hungarian.hungarian_match(cost, n)                # warmup
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hungarian.hungarian_match(cost, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -250,7 +250,7 @@ def test_cli_benchmark_cpu(capsys, tmp_path):
         ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
          "osa_block", "bottleneck", "msdeform_forward",
          "msdeform_backward_taps", "msdeform_backward_value", "int8_conv",
-         "int8_wgmma", "int8_quantize", "int8_amax"), 0)
+         "int8_wgmma", "int8_quantize", "int8_amax", "hungarian"), 0)
     assert rec["peak_memory_bytes"] is None
     assert 0 <= rec["dcn_taps_past_5px"] <= 1
 

@@ -460,4 +460,5 @@ def test_cli_train_cpu(capsys):
             ("dcn_forward", "dcn_backward", "masked_attention", "osa_reduce",
              "osa_block", "bottleneck", "msdeform_forward",
              "msdeform_backward_taps", "msdeform_backward_value",
-             "int8_conv", "int8_wgmma", "int8_quantize", "int8_amax"), 0)
+             "int8_conv", "int8_wgmma", "int8_quantize", "int8_amax",
+             "hungarian"), 0)

@@ -13,8 +13,8 @@ Inference times batch requests after ``--warmup`` requests, with
 tools/analysis_tools/benchmark.py:64-91, which ``bench.py`` cites), on
 seeded random weights and the synthetic batch of ``data/synthetic.py``.
 It prints one JSON line: samples/s, ms/sample, the device's name, the
-launches of every kernel (K1-K9, and the int8 convolution and quantize
-pass) in the run, the peak device memory, and
+launches of every kernel (K1-K9, the int8 convolution and quantize
+pass, and the Hungarian matching) in the run, the peak device memory, and
 two audits of the first warmup request: the share of DCN taps whose
 vertical offset exceeds 5 px (the TPU kernel's exact band; here every tap
 is exact; null for a backbone without DCN, as VoVNet-99) and the share of
@@ -58,7 +58,8 @@ the sites before and after its cap (``max_voxels`` for ``gather``; the
 dense encoder keeps every site).
 
 ``--train`` times ``--samples`` train steps (forward, loss with Hungarian
-targets, backward, clip, AdamW; ``train/step.py``) after ``--warmup``
+targets matched on the card, one ``hungarian`` launch a step, backward,
+clip, AdamW; ``train/step.py``) after ``--warmup``
 steps on one synthetic batch, and prints steps/s, ms/step, the kernel
 launches of the run and per step, the peak device memory, and the loss
 of the first and the last step.  ``--dropout`` sets the head's dropout
@@ -92,7 +93,7 @@ from transcar_tpu_torch.data.synthetic import fake_batch, fake_lidar_batch
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.dgcnn import MSDeformAttention
 from transcar_tpu_torch.models.resnet import DCNConv
-from transcar_tpu_torch.ops import (int8, pallas_attention,
+from transcar_tpu_torch.ops import (hungarian, int8, pallas_attention,
                                     pallas_bottleneck, pallas_dcn,
                                     pallas_msdeform, pallas_osa,
                                     pallas_osa_block)
@@ -145,9 +146,10 @@ def parse_args(argv=None):
 
 
 def kernel_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name: K1-K9 and the
+    """Every kernel wrapper's launch count, by kernel name: K1-K9, the
     int8 serving mode's convolution (``int8_wgmma`` of them on the
-    ``wgmma`` tile), codes passes and standalone amax passes."""
+    ``wgmma`` tile), codes passes and standalone amax passes, and the
+    train step's Hungarian matching."""
     return {"dcn_forward": pallas_dcn.launches,
             "dcn_backward": pallas_dcn.backward_launches,
             "masked_attention": pallas_attention.launches,
@@ -161,7 +163,8 @@ def kernel_counts() -> dict:
             "int8_conv": int8.launches,
             "int8_wgmma": int8.wgmma_launches,
             "int8_quantize": int8.quantize_launches,
-            "int8_amax": int8.amax_launches}
+            "int8_amax": int8.amax_launches,
+            "hungarian": hungarian.launches}
 
 
 def _launches_since(start: dict) -> dict:
@@ -253,6 +256,7 @@ KERNEL_GROUPS = (
     ("K9 msdeform_backward_value", ("msdeform_backward_value_",)),
     ("int8 conv", ("int8_conv",)),
     ("int8 quantize", ("int8_amax", "int8_codes")),
+    ("Hungarian matching", ("hungarian",)),
     ("GEMM / convolution (cuBLAS, cuDNN)", (
         "gemm", "Gemm", "cutlass", "xmma", "conv", "Conv", "dgrad", "wgrad",
         "fprop", "implicit")),

@@ -1,12 +1,12 @@
-"""Operation counts of the serving kernels' work, by shape.
+"""Operation counts of the kernels' work, by shape.
 
 One place for the work each kernel does, whatever implements it: the
 flop formulas of the registered ops (``torch.utils.flop_counter``, read by
 ``cli/get_flops.py``) and the bounds ``chip_smoke.py`` prints beside each
 kernel's time both read these, so a FLOP count and a bound cannot drift
 apart.  An operation is a multiply or an add (a multiply-add is two).
-The int8 quantize passes do no product: they are counted in the bytes
-they must move, and have no flop formula.
+The int8 quantize passes and the Hungarian matching do no product: they
+are counted in the bytes they must move, and have no flop formula.
 """
 from __future__ import annotations
 
@@ -87,3 +87,19 @@ def int8_codes_bytes(numel: int, itemsize: int) -> int:
     byte written an element (a stem's zero codes past its Cin not
     counted), the amax read and the scale written."""
     return (itemsize + 1) * numel + 8
+
+
+def hungarian_bytes(q: int, g: int, num_gt: Sequence[int]) -> int:
+    """Bytes the matching must move for problems of Q queries and G gt
+    slots with these gt counts: the solved rows of the float32 cost read
+    once (Q a gt below its problem's count, as this run's data needs), the
+    int32 counts, and the int64 matches and bool validity written."""
+    solved = sum(min(max(int(n), 0), g) for n in num_gt)
+    return 4 * q * solved + len(num_gt) * (4 + 9 * g)
+
+
+def hungarian_operations(q: int, scans: int) -> float:
+    """Operations of the matching's Dijkstra scans: each scan's reduced
+    cost of a column, three float32 adds, over the Q columns (the scans a
+    run took, which its data decides)."""
+    return 3.0 * q * scans

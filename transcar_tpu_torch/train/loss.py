@@ -3,8 +3,9 @@
 detr3d_head.py:742-1001, and ``HungarianAssigner3D``).
 
   * cost = FocalLossCost(w 2.0) + BBox3DL1Cost(w 0.25) over normalized
-    boxes; all L·B problems of a step are solved in one host call
-    (ops/hungarian.py).
+    boxes; all L·B problems of a step are solved in one kernel launch
+    on the card, which the host never waits for (ops/hungarian.py; the
+    plain PyTorch solver on the CPU).
   * labels: matched queries get the gt label, the rest background
     (= num_classes); label weights are all ones.
   * bbox targets: normalized gt boxes at matched rows, weights 1 there ×
