@@ -103,8 +103,9 @@ def test_sparse_conv_down_matches_jax(out_max):
 
 def test_sparse_op_gradients_match_jax():
     """The gradients of both convs' features and weights (the gathers'
-    backward is an ``index_add_``) against ``jax.vjp``, the downsample
-    at a cap that binds; float32 at 1e-5 of each gradient's scale."""
+    backward is gathers by the inverse rule books, ``GatherConv``) against
+    ``jax.vjp``, the downsample at a cap that binds; float32 at 1e-5 of
+    each gradient's scale."""
     rng = np.random.default_rng(2)
     feats, coords, counts = _sites(rng, [60, 23], cin=4)
     w_subm = (rng.normal(size=(27, 4, 4)) * 0.2).astype(np.float32)

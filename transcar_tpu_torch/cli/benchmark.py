@@ -89,6 +89,7 @@ import numpy as np
 import torch
 
 from transcar_tpu_torch.core.config import get_preset, parse_overrides
+from transcar_tpu_torch.core.device import set_deterministic
 from transcar_tpu_torch.data.synthetic import fake_batch, fake_lidar_batch
 from transcar_tpu_torch.models.detector import build_model
 from transcar_tpu_torch.models.dgcnn import MSDeformAttention
@@ -253,7 +254,10 @@ KERNEL_GROUPS = (
     ("K6 bottleneck", ("bottleneck_", "conv_gemm_kernel<6,")),
     ("K7 msdeform_forward", ("msdeform_forward_",)),
     ("K8 msdeform_backward_taps", ("msdeform_backward_taps_",)),
-    ("K9 msdeform_backward_value", ("msdeform_backward_value_",)),
+    ("K9 msdeform_backward_value", ("msdeform_backward_value_",
+                                    "msdeform_value_sources")),
+    # csrc/ordered_sum.cuh's gather by target: K3's d_x and K9's d_value
+    ("K3 / K9 gather by target", ("ordered::",)),
     ("int8 conv", ("int8_conv",)),
     ("int8 quantize", ("int8_amax", "int8_codes")),
     ("Hungarian matching", ("hungarian",)),
@@ -322,7 +326,9 @@ def trace_summary(trace_path: str, wall_s: float, count: int) -> dict:
 
 def _setup(args, training: bool):
     """Config, model with randomized offsets, and the synthetic batch (or
-    point cloud, for a LiDAR preset) on the device."""
+    point cloud, for a LiDAR preset) on the device, in PyTorch's
+    deterministic mode there (``core/device.set_deterministic``)."""
+    set_deterministic(args.device)     # before anything touches the card
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch.cuda.is_available() is "

@@ -179,9 +179,11 @@ def main(argv=None):
 
     from transcar_tpu_torch.cli.train import _try_radar_fn
     from transcar_tpu_torch.core.config import get_preset, parse_overrides
+    from transcar_tpu_torch.core.device import set_deterministic
     from transcar_tpu_torch.models.detector import build_model
     from transcar_tpu_torch.train.loop import _load_params, resolve_device
 
+    set_deterministic(args.device)     # before anything touches the card
     device = resolve_device(args.device)
     cfg = get_preset(args.preset, parse_overrides(args.cfg_options))
     model = build_model(cfg, device=device)

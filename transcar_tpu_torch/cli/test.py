@@ -77,12 +77,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from transcar_tpu_torch.core.config import get_preset
+    from transcar_tpu_torch.core.device import set_deterministic
     from transcar_tpu_torch.models.detector import build_model
     from transcar_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed)
     from transcar_tpu_torch.train.loop import (_load_params, evaluate,
                                                resolve_device)
 
+    set_deterministic(args.device)     # before anything touches the card
     resolve_device(args.device)        # raises without CUDA, before a group
     rank, _ = maybe_initialize_distributed(args.device, args.dist_backend)
     device = resolve_device(args.device)

@@ -93,7 +93,9 @@ def main(argv=None):
         overrides["train.eval_interval_epochs"] = "0"
     cfg = get_preset(args.preset, overrides)
 
+    from transcar_tpu_torch.core.device import set_deterministic
     from transcar_tpu_torch.train.loop import resolve_device, train
+    set_deterministic(args.device)     # before anything touches the card
     resolve_device(args.device)        # raises without CUDA, before a group
     rank, world = maybe_initialize_distributed(args.device,
                                                args.dist_backend)

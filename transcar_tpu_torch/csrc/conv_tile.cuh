@@ -5,7 +5,7 @@
 //                 sum_{tap, c} a_s[n, i + dy(tap), j + dx(tap), c]
 //                              * b_s[tap * C_s + c, o]
 //   v = acc_0 * scale + bias  (+ acc_1 * scale2 + bias2)  (+ resid[p, o])
-//   out[p, o] = round_T(relu?(v)),   sums[n, o] += v over the real pixels
+//   out[p, o] = round_T(relu?(v)),   sums[n, o] = sum of v over the real pixels
 //
 // with p = (n*H + i)*W + j.  A segment is one activation tensor and its
 // weights: a 1x1 piece (taps = 1), or a 3x3 / stride 1 / pad 1 conv input
@@ -23,10 +23,13 @@
 // multiplies on the tensor cores (nvcuda::wmma 16x16x16, float32
 // accumulators, warp tile 32 x 64); float32 takes CUDA-core FMAs (8 x 8
 // per thread), so the float32 path has no TF32.  The K slices are double
-// buffered in shared memory with cp.async.  Blocks run in no order, so
-// the per-image channel sums are added with atomics: first over the
-// block's rows (warp shuffles, shared-memory atomics), then one global
-// float32 atomicAdd per (block, channel).
+// buffered in shared memory with cp.async.  The per-image channel sums
+// are summed in one fixed order: over the block's rows by warp shuffles
+// and then over its warps (or threads) in index order, into one partial a
+// (block, channel) written once; the block that completes an (image, Cout
+// tile) column, found by a ticket (ordered_sum.cuh), sums the column's
+// partials in pixel-block order.  Blocks run in no order, but no float
+// atomic takes part, so the sums are the same bits run after run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +38,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "ordered_sum.cuh"
 
 namespace tck {
 
@@ -63,7 +68,9 @@ struct ConvGemm {
   const float* bias2;
   const void* resid;     // [N, H, W, Cout] added in float32, or null
   void* out;             // [N, H, W, Cout]
-  float* sums;           // [N, Cout] accumulated (zeroed by the caller), or null
+  float* sums;           // [N, Cout] written, or null
+  float* partials;       // sums: [N, pixel blocks, Cout] a block's part
+  unsigned* tickets;     // sums: [N * Cout blocks], zero between launches
   int N, H, W, Cout;
   int relu;
   int bvec;              // every b loads as 16-byte vectors (Cout % 8 == 0)
@@ -123,7 +130,8 @@ __global__ void __launch_bounds__(NT) conv_gemm_kernel(const ConvGemm p) {
   __shared__ __align__(128) T b_s[2][BK * B_LD];
   __shared__ __align__(32) float stage[kBf16 ? 4 * 256 : 1];
   __shared__ int row_i[BM], row_j[BM];
-  __shared__ float colsum[BN];
+  __shared__ float colpart[8][BN];     // channel sums by warp row / thread row
+  __shared__ int last_flag;
   __shared__ Seg segs[kMaxSeg];
 
   const int HW = p.H * p.W;
@@ -141,7 +149,7 @@ __global__ void __launch_bounds__(NT) conv_gemm_kernel(const ConvGemm p) {
     row_i[r] = q < HW ? q / p.W : -(1 << 28);
     row_j[r] = q < HW ? q - (q / p.W) * p.W : 0;
   }
-  for (int c = tid; c < BN; c += NT) colsum[c] = 0.f;
+  for (int c = tid; c < 8 * BN; c += NT) colpart[c / BN][c % BN] = 0.f;
   __syncthreads();
 
   int total = 0;
@@ -339,9 +347,9 @@ __global__ void __launch_bounds__(NT) conv_gemm_kernel(const ConvGemm p) {
             for (int off = 2; off < 32; off <<= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
             v[e] = s;
           }
-          if (lane < 2) {
+          if (lane < 2) {        // this lane alone adds to these columns of row wm
 #pragma unroll
-            for (int e = 0; e < 8; ++e) atomicAdd(&colsum[lcol + e], v[e]);
+            for (int e = 0; e < 8; ++e) colpart[wm][lcol + e] += v[e];
           }
         }
       }
@@ -365,14 +373,30 @@ __global__ void __launch_bounds__(NT) conv_gemm_kernel(const ConvGemm p) {
     }
     if (p.sums != nullptr) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) atomicAdd(&colsum[tx + 16 * j], csum[j]);
+      for (int j = 0; j < 8; ++j) colpart[ty][tx + 16 * j] = csum[j];
     }
   }
 
   if (p.sums != nullptr) {
+    // this block's part: its rows of colpart in order, written once; the
+    // block that completes the (image, Cout tile) column sums its parts in
+    // pixel-block order
     __syncthreads();
-    for (int c = tid; c < BN; c += NT)
-      if (n0 + c < p.Cout) atomicAdd(&p.sums[img * p.Cout + n0 + c], colsum[c]);
+    const size_t col = static_cast<size_t>(img) * gridDim.y * p.Cout + n0;
+    for (int c = tid; c < BN; c += NT) {
+      if (n0 + c >= p.Cout) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < (kBf16 ? 2 : 8); ++r) s += colpart[r][c];
+      p.partials[col + static_cast<size_t>(blockIdx.y) * p.Cout + c] = s;
+    }
+    if (ordered::arrive(p.tickets + img * gridDim.x + blockIdx.x, gridDim.y, tid == 0,
+                        &last_flag, [] { __syncthreads(); })) {
+      for (int c = tid; c < BN; c += NT)
+        if (n0 + c < p.Cout)
+          p.sums[static_cast<size_t>(img) * p.Cout + n0 + c] =
+              ordered::sum_strided(p.partials + col + c, gridDim.y, p.Cout);
+    }
   }
 }
 

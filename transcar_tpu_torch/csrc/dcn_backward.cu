@@ -10,20 +10,31 @@
 // and the four bilinear corners v_00 .. v_11 of x (zero outside the image):
 //
 //   d_samp[p, k, c] = sum_o d_out[p, o] * w[k*Cin + c, o]          (fp32)
-//   d_x[corner, c] += s_k * bw_corner * d_samp[p, k, c]             (fp32 atomics)
+//   d_x[q, c]       = sum over the (p, k, corner) landing on pixel q, in
+//                     that order, of s_k * bw_corner * d_samp[p, k, c]
 //   d_om[p, 2k]     = s_k * sum_c d_samp * d bilinear / d py         (floor
 //   d_om[p, 2k+1]   = s_k * sum_c d_samp * d bilinear / d px          convention)
 //   d_om[p, 18+k]   = s_k (1 - s_k) * sum_c d_samp * bilinear
-//   d_w[k*Cin + c, o] += sum_p round_T(s_k * bilinear)[p, k, c] * d_out[p, o]
+//   d_w[k*Cin + c, o] = sum_p round_T(s_k * bilinear)[p, k, c] * d_out[p, o]
 //
 // The derivative at an integer sample position is the one-sided one of
 // the floor convention: py = y0 exactly gives (row y0+1) - (row y0).
 // Layouts: x [N,H,W,Cin], om [N,H,W,27] (ch 2k = dy_k, 2k+1 = dx_k,
 // 18+k = mask logit), w [9*Cin, Cout] row-major, d_out [N,H,W,Cout], all
 // of the working type T and contiguous; d_x [N,H,W,Cin] and d_w
-// [9*Cin, Cout] are float32 and zeroed by the caller; d_om is T.
-// Requires Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned tensors
-// (checked by the wrapper).
+// [9*Cin, Cout] are float32 and written whole; d_om is T.  Requires
+// Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned tensors (checked by
+// the wrapper).
+//
+// Every sum has one fixed order, so the results repeat bit for bit, as
+// the TPU kernel's do (ordered_sum.cuh).  (a) writes d_samp [M*9, Cin]
+// float32 and lists each (p, k, corner) with its pixel and weight
+// s_k * bw_corner; the gather by target then sums each pixel's list in
+// (p, k, corner) order into d_x, with no float atomic.  (b) writes one
+// partial d_W tile a pixel split; the split that completes a tile, found
+// by a ticket, sums the tile's partials in split order.  The workspace
+// (dcn_backward_*_workspace) holds d_samp, the gather's lists and the
+// partials; `zeroed` is int32 scratch, zero on entry and left zero.
 //
 // bfloat16 with Cout <= 1024 takes the Hopper kernels below (wgmma, TMA);
 // float32 (used by the checks) and a larger Cout take the first two (wmma or
@@ -35,6 +46,7 @@
 
 #include "dcn_tap.cuh"
 #include "hopper_tile.cuh"
+#include "ordered_sum.cuh"
 
 #include <cstdint>
 #include <type_traits>
@@ -120,10 +132,19 @@ __device__ __forceinline__ void zero8(T* dst) {
     reinterpret_cast<uint4*>(dst)[v] = make_uint4(0, 0, 0, 0);
 }
 
-// Four float32 atomic adds in one 16-byte vector atomic (sm_90).
-__device__ __forceinline__ void atomic_add4(float* p, float a, float b,
-                                            float c, float d) {
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+// The gather's entries of one (pixel p, tap k): its four corners' pixels
+// (-1: padding) and weights s_k * bw_corner, sources (p * 9 + k) * 4 + c.
+__device__ __forceinline__ void list_tap(const ordered::Gather& g, int p, int k,
+                                         const Tap& t) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    ordered::list_source(g, (static_cast<long long>(p) * 9 + k) * 4 + c, t.off[c],
+                         t.sig * t.w[c]);
+}
+
+// d_samp row (p, k), 4 channels from ch.
+__device__ __forceinline__ float* samp_row(float* dsamp, int p, int k, int Cin, int ch) {
+  return dsamp + (static_cast<size_t>(p) * 9 + k) * Cin + ch;
 }
 
 // ---------------------------------------------------------------------------
@@ -131,7 +152,7 @@ __device__ __forceinline__ void atomic_add4(float* p, float a, float b,
 // each BC-channel slice it first forms d_samp = d_out x w_k^T on the
 // tensor cores (bf16; float32 takes a CUDA-core FMA loop, no TF32), then
 // every warp walks 16 of the pixels with one lane per 4 channels: it
-// gathers the 4 corners, scatters s_k * bw * d_samp into d_x and reduces
+// stores d_samp for the gather of d_x, gathers the 4 corners and reduces
 // the offset and mask terms over the channels with warp shuffles.
 // ---------------------------------------------------------------------------
 
@@ -146,7 +167,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 dcn_bwd_data_kernel(const T* __restrict__ x, const T* __restrict__ om,
                     const T* __restrict__ w, const T* __restrict__ dout,
-                    float* __restrict__ dx, T* __restrict__ dom,
+                    float* __restrict__ dsamp, ordered::Gather g, T* __restrict__ dom,
                     int N, int H, int W, int Cin, int Cout) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   static_assert((BM + BC) * LD * sizeof(T) <= BM * DS_LD * sizeof(float),
@@ -171,6 +192,7 @@ dcn_bwd_data_kernel(const T* __restrict__ x, const T* __restrict__ om,
     if (tid < BM) {
       const int p = m0 + tid;
       taps[tid] = p < M ? make_tap(om, p, k, H, W) : empty_tap();
+      if (p < M) list_tap(g, p, k, taps[tid]);
       red[tid][0] = red[tid][1] = red[tid][2] = 0.f;
     }
     for (int c0 = 0; c0 < Cin; c0 += BC) {
@@ -273,6 +295,8 @@ dcn_bwd_data_kernel(const T* __restrict__ x, const T* __restrict__ om,
           float d[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) d[e] = ds[pi * DS_LD + ch + e];
+          *reinterpret_cast<float4*>(samp_row(dsamp, m0 + pi, k, Cin, c0 + ch)) =
+              make_float4(d[0], d[1], d[2], d[3]);
           float sy[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
           float sm[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -287,8 +311,6 @@ dcn_bwd_data_kernel(const T* __restrict__ x, const T* __restrict__ om,
               sx[e] += cx[c] * v[e];
               sm[e] += t.w[c] * v[e];
             }
-            const float g = t.sig * t.w[c];
-            atomic_add4(dx + base, g * d[0], g * d[1], g * d[2], g * d[3]);
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -331,7 +353,8 @@ dcn_bwd_data_kernel(const T* __restrict__ x, const T* __restrict__ om,
 // tile of d_w and one split of the pixels; per WK-pixel step it regathers
 // the modulated sample (rounded to T, as the forward rounds it) into
 // shared memory, stages d_out beside it and multiplies (bf16 wmma; float32
-// CUDA-core FMAs).  The splits add their fp32 partial tiles with atomics.
+// CUDA-core FMAs).  Each split writes its fp32 partial tile; the split
+// that completes a tile sums the tile's partials in split order.
 // ---------------------------------------------------------------------------
 
 constexpr int WM = 128;          // d_w rows per block
@@ -345,12 +368,14 @@ template <typename T>
 __global__ void __launch_bounds__(WNT)
 dcn_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ om,
                       const T* __restrict__ dout, float* __restrict__ dw,
+                      float* __restrict__ part, unsigned* __restrict__ tickets,
                       int N, int H, int W, int Cin, int Cout, int per_split) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   __shared__ Tap taps[WK];
   __shared__ __align__(32) T s_s[WK * S_LD];
   __shared__ __align__(32) T d_s[WK * D_LD];
   __shared__ __align__(32) float stage[kBf16 ? 8 * 256 : 1];
+  __shared__ int last_flag;
 
   const int M = N * H * W;
   const int ctiles = (Cin + WM - 1) / WM;
@@ -449,7 +474,10 @@ dcn_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ om,
     }
   }
 
-  // Epilogue: add the partial tile into d_w (float32).
+  // Epilogue: this split's partial tile (d_w itself when there is one split)
+  const int splits = gridDim.z;
+  const size_t dw_size = static_cast<size_t>(9) * Cin * Cout;
+  float* dst_base = splits == 1 ? dw : part + blockIdx.z * dw_size;
   if constexpr (kBf16) {
     float* st = stage + warp * 256;
 #pragma unroll
@@ -462,10 +490,10 @@ dcn_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ om,
         const int c = c0 + wm * 32 + i * 16 + r;
         const int col = o0 + wn * 64 + j * 16 + cc;
         if (c < Cin && col < Cout) {
-          float* dst = dw + static_cast<size_t>(k * Cin + c) * Cout + col;
+          float* dst = dst_base + static_cast<size_t>(k * Cin + c) * Cout + col;
           const float* s = st + r * 16 + cc;
-          atomic_add4(dst, s[0], s[1], s[2], s[3]);
-          atomic_add4(dst + 4, s[4], s[5], s[6], s[7]);
+          reinterpret_cast<float4*>(dst)[0] = make_float4(s[0], s[1], s[2], s[3]);
+          reinterpret_cast<float4*>(dst)[1] = make_float4(s[4], s[5], s[6], s[7]);
         }
         __syncwarp();
       }
@@ -478,19 +506,19 @@ dcn_bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ om,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = o0 + tx + 16 * j;
-        if (col < Cout) atomicAdd(dw + static_cast<size_t>(k * Cin + c) * Cout + col, facc[i][j]);
+        if (col < Cout) dst_base[static_cast<size_t>(k * Cin + c) * Cout + col] = facc[i][j];
       }
     }
   }
-}
-
-// Vector reductions into float32 global memory (no value returned).
-__device__ __forceinline__ void red_add4(float* p, float a, float b, float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "f"(a), "f"(b),
-               "f"(c), "f"(d) : "memory");
-}
-__device__ __forceinline__ void red_add2(float* p, float a, float b) {
-  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(p), "f"(a), "f"(b) : "memory");
+  if (splits > 1 && ordered::arrive(tickets + blockIdx.x + gridDim.x * blockIdx.y, splits,
+                                    tid == 0, &last_flag, [] { __syncthreads(); })) {
+    for (int e = tid; e < WM * WN / 4; e += WNT) {
+      const int r = e / (WN / 4), col = o0 + (e % (WN / 4)) * 4;
+      if (c0 + r >= Cin || col >= Cout) continue;
+      const size_t at = static_cast<size_t>(k * Cin + c0 + r) * Cout + col;
+      *reinterpret_cast<float4*>(dw + at) = ordered::sum_strided4(part + at, splits, dw_size);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -504,11 +532,10 @@ __device__ __forceinline__ void red_add2(float* p, float a, float b) {
 // [BM, 64] with wgmma (K = Cout, float32 accumulators) and hand it to a
 // double-buffered shared tile; two scatter warpgroups then rebuild the four
 // bilinear corners of each pixel (half a warp per pixel, 4 channels a
-// lane, the corner loads of two pixels in flight together), add
-// sigma * weight * d_samp into the float32 d_x with one 16-byte
-// red.global.add.v4.f32 per (pixel, corner, 4 channels) and reduce the
-// offset and mask terms over the channels with warp shuffles, while the
-// consumers multiply the next slice.  The taps per block (tg) trade the
+// lane, the corner loads of two pixels in flight together), store d_samp
+// for the gather of d_x (one 16-byte store per (pixel, 4 channels)) and
+// reduce the offset and mask terms over the channels with warp shuffles,
+// while the consumers multiply the next slice.  The taps per block (tg) trade the
 // wave tail against each block's start (loading its d_out band).
 // ---------------------------------------------------------------------------
 
@@ -521,7 +548,8 @@ struct DataParams {
   CUtensorMap w;                    // [9 * Cin, Cout], box [64, 64]
   const bf16* x;
   const bf16* om;
-  float* dx;
+  float* dsamp;                     // [M * 9, Cin]
+  ordered::Gather g;                // the (p, k, corner) list of d_x
   bf16* dom;
   int N, H, W, Cin, Cout;
   int tg;                           // taps per block
@@ -637,7 +665,10 @@ dcn_bwd_data_wgmma_kernel(const __grid_constant__ DataParams p) {
     int tile = 0;
     for (int k = k_begin; k < k_end; ++k) {
       asm volatile("bar.sync 1, 256;\n" ::: "memory");     // the last tap is read
-      if (st < BM) taps[st] = m0 + st < M ? make_tap(p.om, m0 + st, k, p.H, p.W) : empty_tap();
+      if (st < BM) {
+        taps[st] = m0 + st < M ? make_tap(p.om, m0 + st, k, p.H, p.W) : empty_tap();
+        if (m0 + st < M) list_tap(p.g, m0 + st, k, taps[st]);
+      }
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
       for (int c = 0; c < cs; ++c, ++tile) {
         const int b = tile & 1;
@@ -657,6 +688,7 @@ dcn_bwd_data_wgmma_kernel(const __grid_constant__ DataParams p) {
             on[u] = live && m0 + pi < M;
             const float4 d4 = on[u] ? *reinterpret_cast<const float4*>(dsb + pi * HD_LD + 4 * q)
                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+            if (on[u]) *reinterpret_cast<float4*>(samp_row(p.dsamp, m0 + pi, k, p.Cin, ch)) = d4;
             d[u][0] = d4.x; d[u][1] = d4.y; d[u][2] = d4.z; d[u][3] = d4.w;
 #pragma unroll
             for (int cn = 0; cn < 4; ++cn) {
@@ -683,11 +715,6 @@ dcn_bwd_data_wgmma_kernel(const __grid_constant__ DataParams p) {
               gy += cy[cn] * dv;
               gx += cx[cn] * dv;
               gm += tq.w[cn] * dv;
-              if (on[u] && tq.off[cn] >= 0) {
-                const float g = tq.sig * tq.w[cn];
-                red_add4(p.dx + static_cast<size_t>(tq.off[cn]) * p.Cin + ch, g * d[u][0],
-                         g * d[u][1], g * d[u][2], g * d[u][3]);
-              }
             }
 #pragma unroll
             for (int sh = 8; sh > 0; sh >>= 1) {
@@ -731,8 +758,8 @@ dcn_bwd_data_wgmma_kernel(const __grid_constant__ DataParams p) {
 // 16-byte stores, and its first thread brings the d_out slice by TMA, the
 // transposed B.  Two gather warpgroups take the slices in turn, so eight
 // warps keep corner loads in flight, while the consumer warpgroup
-// multiplies (K = pixels); the splits add their float32 tiles into d_W
-// with vector reductions.
+// multiplies (K = pixels); each split writes its float32 tile, and the
+// split that completes a tile sums the tile's partials in split order.
 // ---------------------------------------------------------------------------
 
 constexpr int HW_RING = 4;
@@ -743,13 +770,16 @@ struct WeightParams {
   const bf16* x;
   const bf16* om;
   float* dw;
+  float* part;                       // [splits, 9 * Cin, Cout] where splits > 1
+  unsigned* tickets;                 // [tiles], zero between launches
   int N, H, W, Cin, Cout;
   int ctiles, ntiles, per_split;     // per_split: pixels, a multiple of 64
+  int splits;
 };
 
 template <int BN>
 constexpr int weight_smem_bytes() {
-  return 1024 + HW_RING * (64 + BN) * HW_PX * 2 + 2 * HW_RING * 8;
+  return 1024 + HW_RING * (64 + BN) * HW_PX * 2 + 2 * HW_RING * 8 + 16;
 }
 
 template <int BN>
@@ -762,6 +792,7 @@ dcn_bwd_weight_wgmma_kernel(const __grid_constant__ WeightParams p) {
   unsigned char* b_s = a_s + HW_RING * 64 * HW_PX * 2;         // [RING][BN/64][64 px][128 B]
   uint64_t* full = reinterpret_cast<uint64_t*>(b_s + HW_RING * BN * HW_PX * 2);
   uint64_t* empty = full + HW_RING;
+  int* sflag = reinterpret_cast<int*>(empty + HW_RING);
 
   const int M = p.N * p.H * p.W;
   int u = blockIdx.x;
@@ -859,17 +890,32 @@ dcn_bwd_weight_wgmma_kernel(const __grid_constant__ WeightParams p) {
       if (t == 0) hop::mbar_arrive(&empty[r.stage]);
       r.next();
     }
+    // this split's tile (d_W itself when there is one split)
+    const size_t dw_size = static_cast<size_t>(9) * p.Cin * p.Cout;
+    float* dst = p.splits == 1 ? p.dw : p.part + split * dw_size;
     const int c_a = c0 + warp * 16 + lane / 4;     // and c_a + 8
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = o0 + 8 * j + 2 * (lane & 3);
       if (col < p.Cout) {
         if (c_a < p.Cin)
-          red_add2(p.dw + static_cast<size_t>(k * p.Cin + c_a) * p.Cout + col, acc[4 * j],
-                   acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(k * p.Cin + c_a) * p.Cout +
+                                     col) = make_float2(acc[4 * j], acc[4 * j + 1]);
         if (c_a + 8 < p.Cin)
-          red_add2(p.dw + static_cast<size_t>(k * p.Cin + c_a + 8) * p.Cout + col,
-                   acc[4 * j + 2], acc[4 * j + 3]);
+          *reinterpret_cast<float2*>(dst + static_cast<size_t>(k * p.Cin + c_a + 8) * p.Cout +
+                                     col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    const int tiles = 9 * p.ctiles * p.ntiles;
+    if (p.splits > 1 &&
+        ordered::arrive(p.tickets + blockIdx.x % tiles, p.splits, t == 0, sflag,
+                        [] { asm volatile("bar.sync 2, 128;\n" ::: "memory"); })) {
+      for (int e = t; e < 64 * BN / 4; e += 128) {
+        const int r = e / (BN / 4), col = o0 + (e % (BN / 4)) * 4;
+        if (c0 + r >= p.Cin || col >= p.Cout) continue;
+        const size_t at = static_cast<size_t>(k * p.Cin + c0 + r) * p.Cout + col;
+        *reinterpret_cast<float4*>(p.dw + at) =
+            ordered::sum_strided4(p.part + at, p.splits, dw_size);
       }
     }
   }
@@ -878,10 +924,37 @@ dcn_bwd_weight_wgmma_kernel(const __grid_constant__ WeightParams p) {
 // The largest Cout whose d_out band the (a) kernel keeps in shared memory.
 constexpr int kMaxHopperCout = 1024;
 
+// The (a) kernels' workspace: the gather's lists of d_x, then d_samp.
+struct DataWork {
+  ordered::Gather g;
+  float* dsamp;
+};
+
+inline size_t data_workspace(int N, int H, int W, int Cin) {
+  const long long M = static_cast<long long>(N) * H * W;
+  return ordered::workspace_bytes(M * 36, static_cast<int>(M)) +
+         ordered::align256(static_cast<size_t>(M) * 9 * Cin * sizeof(float));
+}
+
+inline DataWork carve_data(void* work, unsigned* zeroed, int N, int H, int W) {
+  const long long M = static_cast<long long>(N) * H * W;
+  DataWork d;
+  unsigned char* end = nullptr;
+  d.g = ordered::carve(work, M * 36, static_cast<int>(M), zeroed, &end);
+  d.dsamp = reinterpret_cast<float*>(end);
+  return d;
+}
+
+// d_x from the listed (p, k, corner) entries and d_samp [M * 9, Cin].
+inline int gather_dx(const DataWork& d, void* dx, int Cin, void* stream) {
+  return ordered::gather_sum(d.g, d.dsamp, Cin, 4, static_cast<float*>(dx),
+                             static_cast<cudaStream_t>(stream));
+}
+
 template <int BM>
 int launch_data_wgmma(const void* x, const void* om, const void* w, const void* dout,
-                      void* dx, void* dom, int N, int H, int W, int Cin, int Cout,
-                      void* stream) {
+                      void* dx, void* dom, void* work, unsigned* zeroed, int N, int H,
+                      int W, int Cin, int Cout, void* stream) {
   DataParams p{};
   const uint64_t M = static_cast<uint64_t>(N) * H * W;
   const uint64_t ddims[2] = {static_cast<uint64_t>(Cout), M};
@@ -892,9 +965,11 @@ int launch_data_wgmma(const void* x, const void* om, const void* w, const void* 
   if (!hop::make_map(&p.dout, dout, 2, ddims, dstr, dbox) ||
       !hop::make_map(&p.w, w, 2, wdims, dstr, wbox))
     return static_cast<int>(cudaErrorInvalidValue);
+  const DataWork d = carve_data(work, zeroed, N, H, W);
   p.x = static_cast<const bf16*>(x);
   p.om = static_cast<const bf16*>(om);
-  p.dx = static_cast<float*>(dx);
+  p.dsamp = d.dsamp;
+  p.g = d.g;
   p.dom = static_cast<bf16*>(dom);
   p.N = N; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout;
   const int smem = data_smem_bytes<BM>(Cout);
@@ -922,12 +997,57 @@ int launch_data_wgmma(const void* x, const void* om, const void* w, const void* 
   const int grid = bands * ((9 + p.tg - 1) / p.tg);
   dcn_bwd_data_wgmma_kernel<BM><<<grid, threads, smem,
                                   static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return gather_dx(d, dx, Cin, stream);
+}
+
+// The pixel splits of the (b) kernels: each fills whole waves of blocks.
+// Hopper kernel (BN-wide Cout tiles): at least 4 slices of 64 pixels a
+// split.  First kernel: about four blocks per SM in flight.
+struct Splits {
+  int per_split, splits;
+};
+
+template <int BN>
+Splits wgmma_weight_splits(int M, int Cin, int Cout) {
+  const int tiles = 9 * ((Cin + 63) / 64) * ((Cout + BN - 1) / BN), sms = hop::sm_count();
+  const int slices = (M + HW_PX - 1) / HW_PX;
+  int splits = 1;
+  float best = -1.f;
+  for (int s = 1; s <= 64 && (s == 1 || slices / s >= 4); ++s) {
+    const int units = tiles * s, waves = (units + sms - 1) / sms;
+    const float eff = static_cast<float>(units) / (waves * sms);
+    if (eff > best + 0.02f) { best = eff; splits = s; }
+  }
+  Splits r;
+  r.per_split = ((slices + splits - 1) / splits) * HW_PX;
+  r.splits = (M + r.per_split - 1) / r.per_split;
+  return r;
+}
+
+Splits first_weight_splits(int M, int Cin, int Cout) {
+  const int tiles = 9 * ((Cin + WM - 1) / WM) * ((Cout + WN - 1) / WN);
+  const int steps = (M + WK - 1) / WK;
+  int splits = (4 * 132 + tiles - 1) / tiles;
+  splits = splits < 1 ? 1 : (splits > steps ? steps : splits);
+  Splits r;
+  r.per_split = ((steps + splits - 1) / splits) * WK;
+  r.splits = (M + r.per_split - 1) / r.per_split;
+  return r;
+}
+
+// The splits the (b) entry of this dtype takes at this shape.
+Splits weight_splits(bool bf16_in, int M, int Cin, int Cout) {
+  if (!bf16_in || Cout > kMaxHopperCout) return first_weight_splits(M, Cin, Cout);
+  return Cout <= 128 ? wgmma_weight_splits<128>(M, Cin, Cout)
+                     : wgmma_weight_splits<256>(M, Cin, Cout);
 }
 
 template <int BN>
-int launch_weight_wgmma(const void* x, const void* om, const void* dout, void* dw, int N,
-                        int H, int W, int Cin, int Cout, void* stream) {
+int launch_weight_wgmma(const void* x, const void* om, const void* dout, void* dw,
+                        void* work, unsigned* zeroed, int N, int H, int W, int Cin,
+                        int Cout, void* stream) {
   WeightParams p{};
   const int M = N * H * W;
   const uint64_t ddims[2] = {static_cast<uint64_t>(Cout), static_cast<uint64_t>(M)};
@@ -938,98 +1058,114 @@ int launch_weight_wgmma(const void* x, const void* om, const void* dout, void* d
   p.x = static_cast<const bf16*>(x);
   p.om = static_cast<const bf16*>(om);
   p.dw = static_cast<float*>(dw);
+  p.part = static_cast<float*>(work);
+  p.tickets = zeroed;
   p.N = N; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout;
   p.ctiles = (Cin + 63) / 64;
   p.ntiles = (Cout + BN - 1) / BN;
-  // pixel splits: fill whole waves of blocks, at least 4 slices a split
-  const int tiles = 9 * p.ctiles * p.ntiles, sms = hop::sm_count();
-  const int slices = (M + HW_PX - 1) / HW_PX;
-  int splits = 1;
-  float best = -1.f;
-  for (int s = 1; s <= 64 && (s == 1 || slices / s >= 4); ++s) {
-    const int units = tiles * s, waves = (units + sms - 1) / sms;
-    const float eff = static_cast<float>(units) / (waves * sms);
-    if (eff > best + 0.02f) { best = eff; splits = s; }
-  }
-  p.per_split = ((slices + splits - 1) / splits) * HW_PX;
-  splits = (M + p.per_split - 1) / p.per_split;
+  const Splits sp = wgmma_weight_splits<BN>(M, Cin, Cout);
+  p.per_split = sp.per_split;
+  p.splits = sp.splits;
+  const int tiles = 9 * p.ctiles * p.ntiles;
   constexpr int smem = weight_smem_bytes<BN>();
   cudaError_t err = cudaFuncSetAttribute(dcn_bwd_weight_wgmma_kernel<BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dcn_bwd_weight_wgmma_kernel<BN><<<tiles * splits, 384, smem,
+  dcn_bwd_weight_wgmma_kernel<BN><<<tiles * p.splits, 384, smem,
                                     static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_data(const void* x, const void* om, const void* w, const void* dout,
-                void* dx, void* dom, int N, int H, int W, int Cin, int Cout,
-                void* stream) {
+                void* dx, void* dom, void* work, unsigned* zeroed, int N, int H, int W,
+                int Cin, int Cout, void* stream) {
   const int M = N * H * W;
+  const DataWork d = carve_data(work, zeroed, N, H, W);
   dcn_bwd_data_kernel<T><<<(M + BM - 1) / BM, NT, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(om),
-      static_cast<const T*>(w), static_cast<const T*>(dout),
-      static_cast<float*>(dx), static_cast<T*>(dom), N, H, W, Cin, Cout);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const T*>(w), static_cast<const T*>(dout), d.dsamp, d.g,
+      static_cast<T*>(dom), N, H, W, Cin, Cout);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return gather_dx(d, dx, Cin, stream);
 }
 
 template <typename T>
-int launch_weight(const void* x, const void* om, const void* dout, void* dw,
-                  int N, int H, int W, int Cin, int Cout, void* stream) {
+int launch_weight(const void* x, const void* om, const void* dout, void* dw, void* work,
+                  unsigned* zeroed, int N, int H, int W, int Cin, int Cout, void* stream) {
   const int M = N * H * W;
-  // Split the pixels so that about four blocks per SM are in flight.
-  const int tiles = 9 * ((Cin + WM - 1) / WM) * ((Cout + WN - 1) / WN);
-  const int steps = (M + WK - 1) / WK;
-  int splits = (4 * 132 + tiles - 1) / tiles;
-  splits = splits < 1 ? 1 : (splits > steps ? steps : splits);
-  const int per_split = ((steps + splits - 1) / splits) * WK;
-  splits = (M + per_split - 1) / per_split;
-  dim3 grid(9 * ((Cin + WM - 1) / WM), (Cout + WN - 1) / WN, splits);
+  const Splits sp = first_weight_splits(M, Cin, Cout);
+  dim3 grid(9 * ((Cin + WM - 1) / WM), (Cout + WN - 1) / WN, sp.splits);
   dcn_bwd_weight_kernel<T><<<grid, WNT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(om),
-      static_cast<const T*>(dout), static_cast<float*>(dw), N, H, W, Cin,
-      Cout, per_split);
+      static_cast<const T*>(dout), static_cast<float*>(dw), static_cast<float*>(work),
+      zeroed, N, H, W, Cin, Cout, sp.per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// (a): d_x (float32, zeroed by the caller) and d_om.
+// Bytes of workspace (a) needs: the gather's lists and d_samp.
+extern "C" long long dcn_backward_data_workspace(int N, int H, int W, int Cin) {
+  return static_cast<long long>(data_workspace(N, H, W, Cin));
+}
+
+// Bytes of workspace (b) needs: one partial d_W a pixel split where
+// there are several (bf16: the bfloat16 entry, else the float32 one).
+extern "C" long long dcn_backward_weight_workspace(int bf16_in, int N, int H, int W,
+                                                   int Cin, int Cout) {
+  const Splits sp = weight_splits(bf16_in != 0, N * H * W, Cin, Cout);
+  return sp.splits > 1 ? static_cast<long long>(sp.splits) * 9 * Cin * Cout * 4 : 0;
+}
+
+// (a): d_x (float32, written whole) and d_om; `work` holds
+// dcn_backward_data_workspace() bytes, `zeroed` N*H*W zero int32 (left
+// zero).
 extern "C" int dcn_backward_data_bf16(const void* x, const void* om,
                                       const void* w, const void* dout,
-                                      void* dx, void* dom, int N, int H,
-                                      int W, int Cin, int Cout, void* stream) {
+                                      void* dx, void* dom, void* work, void* zeroed,
+                                      int N, int H, int W, int Cin, int Cout,
+                                      void* stream) {
+  unsigned* z = static_cast<unsigned*>(zeroed);
   if (Cout > kMaxHopperCout)
-    return launch_data<bf16>(x, om, w, dout, dx, dom, N, H, W, Cin, Cout, stream);
+    return launch_data<bf16>(x, om, w, dout, dx, dom, work, z, N, H, W, Cin, Cout, stream);
   if (Cout <= 256)
-    return launch_data_wgmma<128>(x, om, w, dout, dx, dom, N, H, W, Cin, Cout, stream);
-  return launch_data_wgmma<64>(x, om, w, dout, dx, dom, N, H, W, Cin, Cout, stream);
+    return launch_data_wgmma<128>(x, om, w, dout, dx, dom, work, z, N, H, W, Cin, Cout,
+                                  stream);
+  return launch_data_wgmma<64>(x, om, w, dout, dx, dom, work, z, N, H, W, Cin, Cout,
+                               stream);
 }
 
 extern "C" int dcn_backward_data_f32(const void* x, const void* om,
                                      const void* w, const void* dout,
-                                     void* dx, void* dom, int N, int H, int W,
-                                     int Cin, int Cout, void* stream) {
-  return launch_data<float>(x, om, w, dout, dx, dom, N, H, W, Cin, Cout, stream);
+                                     void* dx, void* dom, void* work, void* zeroed,
+                                     int N, int H, int W, int Cin, int Cout,
+                                     void* stream) {
+  return launch_data<float>(x, om, w, dout, dx, dom, work, static_cast<unsigned*>(zeroed),
+                            N, H, W, Cin, Cout, stream);
 }
 
-// (b): d_w (float32 [9*Cin, Cout], zeroed by the caller).
+// (b): d_w (float32 [9*Cin, Cout], written whole); `work` holds
+// dcn_backward_weight_workspace() bytes, `zeroed` one zero int32 a d_W
+// tile (left zero).
 extern "C" int dcn_backward_weight_bf16(const void* x, const void* om,
-                                        const void* dout, void* dw, int N,
-                                        int H, int W, int Cin, int Cout,
-                                        void* stream) {
+                                        const void* dout, void* dw, void* work,
+                                        void* zeroed, int N, int H, int W, int Cin,
+                                        int Cout, void* stream) {
+  unsigned* z = static_cast<unsigned*>(zeroed);
   if (Cout > kMaxHopperCout)
-    return launch_weight<bf16>(x, om, dout, dw, N, H, W, Cin, Cout, stream);
+    return launch_weight<bf16>(x, om, dout, dw, work, z, N, H, W, Cin, Cout, stream);
   if (Cout <= 128)
-    return launch_weight_wgmma<128>(x, om, dout, dw, N, H, W, Cin, Cout, stream);
-  return launch_weight_wgmma<256>(x, om, dout, dw, N, H, W, Cin, Cout, stream);
+    return launch_weight_wgmma<128>(x, om, dout, dw, work, z, N, H, W, Cin, Cout, stream);
+  return launch_weight_wgmma<256>(x, om, dout, dw, work, z, N, H, W, Cin, Cout, stream);
 }
 
 extern "C" int dcn_backward_weight_f32(const void* x, const void* om,
-                                       const void* dout, void* dw, int N,
-                                       int H, int W, int Cin, int Cout,
-                                       void* stream) {
-  return launch_weight<float>(x, om, dout, dw, N, H, W, Cin, Cout, stream);
+                                       const void* dout, void* dw, void* work,
+                                       void* zeroed, int N, int H, int W, int Cin,
+                                       int Cout, void* stream) {
+  return launch_weight<float>(x, om, dout, dw, work, static_cast<unsigned*>(zeroed), N, H,
+                              W, Cin, Cout, stream);
 }

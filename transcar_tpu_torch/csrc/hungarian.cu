@@ -185,11 +185,12 @@ hungarian_kernel(const float* __restrict__ cost, const int* __restrict__ num_gt,
     __syncthreads();
   }
 
-  // a real slot the backstops left unmatched takes the sentinel Q too
+  // padded slots take the sentinel Q; a real slot the backstops left
+  // unmatched keeps -1, as the JAX solver returns
   for (int g = tid; g < G; g += kThreads) {
     const int q = col4row[g];
     const bool real = g < n;
-    matched[static_cast<long long>(p) * G + g] = (real && q >= 0) ? q : Q;
+    matched[static_cast<long long>(p) * G + g] = real ? q : Q;
     valid[static_cast<long long>(p) * G + g] = real;
   }
   if (scans != nullptr && tid == 0) scans[p] = total_scans;

@@ -1,5 +1,6 @@
 // Multi-scale deformable attention backward, float32 throughout: K8
-// (d_attn and d_loc) and K9 (d_value), two kernels and two launches.
+// (d_attn and d_loc, one launch) and K9 (d_value: a source list, then the
+// six launches of ordered_sum.cuh's gather).
 //
 // Replaces transcar_tpu/ops/pallas_msdeform.py::_bwd_taps_pair (K8, the
 // Pallas _bwd_taps_kernel) and ::_bwd_value_pair (K9, _bwd_value_kernel).
@@ -17,15 +18,16 @@
 //       d_loc[b,q,h,l,p, 1]   = a * sum_d g_d ds_d/dty * H_l
 //         ds/dtx = (v01 - v00)(1-ty) + (v11 - v10) ty
 //         ds/dty = (v10 - v00)(1-tx) + (v11 - v01) tx
-//   K9  d_value[b, corner, h, d] += (g_d * a) * w_corner   (float atomics)
+//   K9  d_value[b, t, h, d] = sum over the (q, l, p, corner) landing on
+//       token t, in that order, of (a * w_corner) * g_d
 //
 // tx = x - floor(x) is differentiated with floor's zero derivative, as
 // autograd does: at an integer coordinate the derivative is the one-sided
 // one towards the next cell.  A non-finite location gives NaN d_attn and
 // d_loc and adds nothing to d_value.  Layouts (contiguous float32): value
 // and d_value [B, S, H, D], loc and d_loc [B, Q, H, L, P, 2] (x, y), attn
-// and d_attn [B, Q, H, L, P], d_out [B, Q, H, D]; d_value is zeroed by the
-// caller.
+// and d_attn [B, Q, H, L, P], d_out [B, Q, H, D]; d_value is written
+// whole.
 //
 // K8 has two kernels:
 // - msdeform_backward_taps_group_kernel, for D % 8 == 0, D <= 64 and
@@ -43,28 +45,19 @@
 // - msdeform_backward_taps_kernel, for other D: one warp per (b, q, h);
 //   lane i holds channels d = i, i + 32, ..., so every tap is one
 //   coalesced read of D floats, and three warp-wide reductions a sample.
-// K9 has two kernels:
-// - msdeform_backward_value_group_kernel, for D % 8 == 0, D <= 64 and
-//   16-byte aligned d_out and d_value: one lane group per query, as K7,
-//   but one float4 a lane (G = 8 lanes of 4 channels for D = 32, 4
-//   neighbouring queries of one (batch, head) a warp), so that each
-//   instruction of a group adds a whole 128-byte row, one L2 request a
-//   row where K7's layout makes two.  The group reads its query's
-//   gradient row once (V float4 a lane) and walks the query's samples
-//   level by level, the locations and weights of R samples loaded ahead;
-//   for each sample it computes the corners and their weights once and
-//   adds (g a) w_corner into each corner row on the map with 16-byte
-//   vector atomic adds (atomicAdd(float4 *, float4)): V a lane a corner,
-//   where the first kernel makes 4 V scalar atomic adds.  The L2 adds
-//   one 32-byte sector per operation either way, so those sector
-//   operations, not instructions, pace it.
-// - msdeform_backward_value_kernel, for other D: one warp per (b, q, h),
-//   lanes over the channels; every tap is one coalesced atomic add of D
-//   floats.
+// K9 is a gather by target (ordered_sum.cuh), the JAX kernel's idea of
+// gathering each value row from the queries that sample it, made exact
+// for any location: msdeform_value_sources_kernel, one thread a sample,
+// lists each of its on-map corners (source ((b Q + q) H + h) L P + l P + p
+// times 4 plus the corner) with its value row and weight a * w_corner;
+// then every value row sums its list in source order, coef * d_out row,
+// and writes its D channels once, so d_value repeats bit for bit, as the
+// TPU kernel's sequential grid does, for any D.
 
 #include <cuda_runtime.h>
 
 #include "msdeform_gather.cuh"
+#include "ordered_sum.cuh"
 
 namespace {
 
@@ -274,151 +267,38 @@ msdeform_backward_taps_group_kernel(const float* __restrict__ value,
   }
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
-msdeform_backward_value_kernel(const float* __restrict__ loc,
-                               const float* __restrict__ attn,
-                               const float* __restrict__ d_out,
-                               float* __restrict__ d_value, Levels lv,
-                               long long items, int S, int Q, int H, int D,
-                               int L, int P) {
-  const long long item = static_cast<long long>(blockIdx.x) * kWarps
-                         + (threadIdx.x >> 5);             // (b, q, h)
-  if (item >= items) return;
-  const int lane = threadIdx.x & 31;
+// K9's producer: a thread a sample (b, q, h, l, p) lists its four
+// corners for the gather (ordered_sum.cuh): the value row (b, token, h)
+// of a corner on the map, -1 for one off it or a non-finite location.
+__global__ void __launch_bounds__(256)
+msdeform_value_sources_kernel(const float* __restrict__ loc,
+                              const float* __restrict__ attn, ordered::Gather g,
+                              Levels lv, long long samples, int S, int Q, int H,
+                              int L, int P) {
+  const long long u = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (u >= samples) return;
+  const int lp = static_cast<int>(u % (L * P));
+  const long long item = u / (L * P);                   // (b, q, h)
   const int h = static_cast<int>(item % H);
   const long long b = item / H / Q;
-  const long long row = static_cast<long long>(H) * D;
-  float* db = d_value + b * S * row + static_cast<long long>(h) * D;
-  const float2* loc_i = reinterpret_cast<const float2*>(loc) + item * L * P;
-  const float* att_i = attn + item * L * P;
-  const float* g_i = d_out + item * D;
-  const float g0 = lane < D ? __ldg(g_i + lane) : 0.f;
-
+  const int l = lp / P;
+  const int hl = lv.h[l], wl = lv.w[l];
+  const Corners c = corners(__ldg(reinterpret_cast<const float2*>(loc) + u), hl, wl);
+  const float a = __ldg(attn + u);
+  const float tx = c.tx, ty = c.ty;
+  const float w[4] = {(1.f - ty) * (1.f - tx), (1.f - ty) * tx, ty * (1.f - tx), ty * tx};
+  const bool on[4] = {c.v00, c.v01, c.v10, c.v11};
+  const long long t00 = b * S + lv.start[l] + c.tok;    // token of corner 00
+  const long long tok[4] = {t00, t00 + 1, t00 + wl, t00 + wl + 1};
 #pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-    if (l >= L) break;
-    const int hl = lv.h[l], wl = lv.w[l];
-    float* dl = db + lv.start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const float2 uv = __ldg(loc_i + l * P + p);
-      const float a = __ldg(att_i + l * P + p);
-      const Corners c = corners(uv, hl, wl);
-      if (!c.finite || !(c.v00 || c.v01 || c.v10 || c.v11)) continue;
-      const float tx = c.tx, ty = c.ty;
-      const float w00 = (1.f - ty) * (1.f - tx), w01 = (1.f - ty) * tx;
-      const float w10 = ty * (1.f - tx), w11 = ty * tx;
-      const long long t00 = c.tok * row;
-      const long long t10 = t00 + wl * row;
-      for (int d = lane; d - lane < D; d += 32) {
-        if (d >= D) break;
-        const float ga = (d == lane ? g0 : __ldg(g_i + d)) * a;
-        if (c.v00) atomicAdd(dl + t00 + d, ga * w00);
-        if (c.v01) atomicAdd(dl + t00 + row + d, ga * w01);
-        if (c.v10) atomicAdd(dl + t10 + d, ga * w10);
-        if (c.v11) atomicAdd(dl + t10 + row + d, ga * w11);
-      }
-    }
+  for (int k = 0; k < 4; ++k) {
+    const bool live = c.finite && on[k];
+    ordered::list_source(g, u * 4 + k, live ? static_cast<int>(tok[k] * H + h) : -1,
+                         live ? a * w[k] : 0.f);
   }
 }
 
-constexpr int kValueWarps = 4;     // warps per block of K9's group kernel
-
-// (g a) w, channel by channel: the value one corner of a sample adds
-__device__ __forceinline__ float4 scaled(float4 ga, float w) {
-  return make_float4(ga.x * w, ga.y * w, ga.z * w, ga.w * w);
-}
-
-// K9 with one lane group of G lanes per query (V float4 chunks a lane): a
-// warp owns 32 / G neighbouring queries of one (batch, head); each group
-// scatters its query's samples, R at a time, the locations and weights of
-// the R loaded first.
-template <int G, int V>
-__global__ void __launch_bounds__(32 * kValueWarps)
-msdeform_backward_value_group_kernel(const float* __restrict__ loc,
-                                     const float* __restrict__ attn,
-                                     const float* __restrict__ d_out,
-                                     float* __restrict__ d_value, Levels lv,
-                                     int q_blocks, int S, int Q, int H, int D,
-                                     int L, int P) {
-  constexpr int NG = 32 / G;                  // queries a warp holds
-  constexpr int R = 4;                        // samples loaded ahead
-  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
-  msd::stage_levels(lv, s_h, s_w, s_start);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gi = lane / G, j = lane % G;
-  // block -> (b, run of kValueWarps * NG queries, head), head fastest
-  const int h = static_cast<int>(blockIdx.x % H);
-  const int rest = static_cast<int>(blockIdx.x / H);
-  const long long b = rest / q_blocks;
-  const int q0 = ((rest % q_blocks) * kValueWarps + warp) * NG;
-  if (q0 >= Q) return;                       // whole warps leave together
-  const bool live_q = q0 + gi < Q;
-  const long long item = (b * Q + (live_q ? q0 + gi : q0)) * H + h;
-  float4 g[V];                               // the query's gradient, read once
-  msd::load_row<G, V>(d_out + item * D, live_q, j, D, g);
-  const long long row = static_cast<long long>(H) * D;       // token stride
-  float* db = d_value + b * S * row + static_cast<long long>(h) * D;
-  const int LP = L * P;
-  const float2* loc_i = reinterpret_cast<const float2*>(loc) + item * LP;
-  const float* att_i = attn + item * LP;
-  const float inv_p = 1.f / P;
-
-  for (int s0 = 0; s0 < LP; s0 += R) {
-    float2 uv[R];
-    float a[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bool live = live_q && s0 + r < LP;
-      uv[r] = live ? __ldg(loc_i + s0 + r) : make_float2(0.f, 0.f);
-      a[r] = live ? __ldg(att_i + s0 + r) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int s = s0 + r;
-      if (s >= LP) break;                     // uniform over the warp
-      const int l = small_div(s, inv_p), wl = s_w[l];
-      const Corners c = corners(uv[r], s_h[l], wl);
-      // a non-finite location, and a query past Q, add nothing
-      if (!(live_q && c.finite)) continue;
-      const float tx = c.tx, ty = c.ty;
-      const float w00 = (1.f - ty) * (1.f - tx), w01 = (1.f - ty) * tx;
-      const float w10 = ty * (1.f - tx), w11 = ty * tx;
-      float* c00 = db + static_cast<long long>(s_start[l]) * row + c.tok * row;
-      float* c10 = c00 + wl * row;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int ch = msd::chunk_channel<G>(k, j);
-        if (ch >= D) continue;
-        const float4 ga = make_float4(g[k].x * a[r], g[k].y * a[r], g[k].z * a[r],
-                                      g[k].w * a[r]);
-        if (c.v00) msd::red_add4(c00 + ch, scaled(ga, w00));
-        if (c.v01) msd::red_add4(c00 + row + ch, scaled(ga, w01));
-        if (c.v10) msd::red_add4(c10 + ch, scaled(ga, w10));
-        if (c.v11) msd::red_add4(c10 + row + ch, scaled(ga, w11));
-      }
-    }
-  }
-}
-
-// K9's group kernel launch for G lanes of V float4 chunks a query.
-template <int G, int V>
-int launch_value_group(const float* loc, const float* attn, const float* d_out,
-                       float* d_value, const Levels& lv, int B, int S, int Q, int H,
-                       int D, int L, int P, cudaStream_t stream) {
-  const int per_block = kValueWarps * (32 / G);
-  const int q_blocks = (Q + per_block - 1) / per_block;
-  const long long blocks = static_cast<long long>(B) * q_blocks * H;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  msdeform_backward_value_group_kernel<G, V>
-      <<<static_cast<unsigned>(blocks), 32 * kValueWarps, 0, stream>>>(
-          loc, attn, d_out, d_value, lv, q_blocks, S, Q, H, D, L, P);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The launch shape shared by K8 and K9: blocks of kWarps warps over the
+// The launch shape of K8's first kernel: blocks of kWarps warps over the
 // B*Q*H items; 0 blocks for no items, -1 for an invalid shape.
 long long launch_blocks(int B, int Q, int H, int D, int P,
                         long long* items) {
@@ -507,54 +387,40 @@ extern "C" int msdeform_backward_taps_group_f32(
       static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int msdeform_backward_value_f32(
-    const void* loc, const void* attn, const void* d_out, void* d_value,
-    int B, int S, int Q, int H, int D, int L, int P, const int* level_h,
-    const int* level_w, const int* level_start, void* stream) {
-  Levels lv;
-  long long items = 0;
-  const long long blocks = launch_blocks(B, Q, H, D, P, &items);
-  if (blocks < 0 ||
-      !make_levels(L, level_h, level_w, level_start, &lv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  msdeform_backward_value_kernel<<<static_cast<unsigned>(blocks),
-                                   32 * kWarps, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(loc), static_cast<const float*>(attn),
-      static_cast<const float*>(d_out), static_cast<float*>(d_value), lv,
-      items, S, Q, H, D, L, P);
-  return static_cast<int>(cudaGetLastError());
+// Bytes of workspace K9 needs: the gather's lists of B*Q*H*L*P*4 sources
+// over B*S*H value rows.
+extern "C" long long msdeform_backward_value_workspace(int B, int S, int Q, int H,
+                                                       int L, int P) {
+  const long long E = static_cast<long long>(B) * Q * H * L * P * 4;
+  return static_cast<long long>(
+      ordered::workspace_bytes(E, static_cast<int>(static_cast<long long>(B) * S * H)));
 }
 
-// K9 on the lane-group kernel: D % 8 == 0, D <= 64, 16-byte aligned d_out
-// and d_value; any other call returns cudaErrorInvalidValue.  G is the
-// least power of two with 4 G >= D (V = 1 chunk, 4 channels a lane), so
-// that one instruction of a group adds a whole row: at D = 32 that took
-// 0.85x the time of K7's G = 4 lanes of 8 channels, which add a row in
-// two instructions of half a row each (H100).
-extern "C" int msdeform_backward_value_group_f32(
-    const void* loc, const void* attn, const void* d_out, void* d_value,
-    int B, int S, int Q, int H, int D, int L, int P, const int* level_h,
+// K9: d_value [B, S, H, D] float32, written whole; `work` holds
+// msdeform_backward_value_workspace() bytes, `zeroed` B*S*H zero int32
+// (left zero).
+extern "C" int msdeform_backward_value_f32(
+    const void* loc, const void* attn, const void* d_out, void* d_value, void* work,
+    void* zeroed, int B, int S, int Q, int H, int D, int L, int P, const int* level_h,
     const int* level_w, const int* level_start, void* stream) {
   Levels lv;
-  if (B < 0 || Q < 0 || H < 1 || P < 1 || D < 8 || D % 8 != 0 ||
-      D > kGroupMaxD || !msd::aligned16(d_out) || !msd::aligned16(d_value) ||
-      !make_levels(L, level_h, level_w, level_start, &lv))
+  const long long cells = static_cast<long long>(B) * S * H;
+  const long long samples = static_cast<long long>(B) * Q * H * L * P;
+  if (B < 0 || S < 0 || Q < 0 || H < 1 || D < 1 || P < 1 || cells >= (1ll << 31) ||
+      samples * 4 >= (1ll << 31) || !make_levels(L, level_h, level_w, level_start, &lv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto lc = static_cast<const float*>(loc);
-  const auto at = static_cast<const float*>(attn);
-  const auto g = static_cast<const float*>(d_out);
-  const auto dv = static_cast<float*>(d_value);
   const auto st = static_cast<cudaStream_t>(stream);
-  switch (D <= 8 ? 2 : D <= 16 ? 4 : D <= 32 ? 8 : 16) {
-    case 2:
-      return launch_value_group<2, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
-    case 4:
-      return launch_value_group<4, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
-    case 8:
-      return launch_value_group<8, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
-    default:
-      return launch_value_group<16, 1>(lc, at, g, dv, lv, B, S, Q, H, D, L, P, st);
+  const ordered::Gather g = ordered::carve(work, samples * 4, static_cast<int>(cells),
+                                           static_cast<unsigned*>(zeroed), nullptr);
+  if (samples > 0) {
+    msdeform_value_sources_kernel<<<static_cast<unsigned>((samples + 255) / 256), 256, 0,
+                                    st>>>(static_cast<const float*>(loc),
+                                          static_cast<const float*>(attn), g, lv, samples,
+                                          S, Q, H, L, P);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  // value row (b, t, h) sums d_out row (b, q, h) = source / (L P 4)
+  return ordered::gather_sum(g, static_cast<const float*>(d_out), D, L * P * 4,
+                             static_cast<float*>(d_value), st);
 }

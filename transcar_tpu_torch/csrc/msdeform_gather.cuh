@@ -3,9 +3,9 @@
 // (corners()), a lane group's channel ownership and the lane-group gather
 // and scatter of a sample's four corner rows.
 //
-// The lane-group kernels of K7 (msdeform_forward.cu), K8 and K9
+// The lane-group kernels of K7 (msdeform_forward.cu) and K8
 // (msdeform_backward.cu) read their corners through corners() and
-// load_taps() (K7, K8) or add into them with red_add4() (K9).  The first
+// load_taps(); K9's source list takes corners() too.  The first
 // K7 kernel keeps its own inline copy of corners(): shared as a function,
 // it took that kernel from 80 to 100 registers and 1.56x the time on an
 // H100; the group kernels compute it once for 8 channels a lane, where
@@ -110,27 +110,6 @@ __device__ __forceinline__ void stage_levels(const Levels& lv, int* s_h, int* s_
 // rounding of the product for a < 2^20
 __device__ __forceinline__ int small_div(int a, float inv) {
   return static_cast<int>((static_cast<float>(a) + 0.5f) * inv);
-}
-
-// Lane j's V chunks of one row of D channels (zero past D); the row must
-// be 16-byte aligned.
-template <int G, int V>
-__device__ __forceinline__ void load_row(const float* row, bool live, int j, int D,
-                                         float4 (&r)[V]) {
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const int ch = chunk_channel<G>(k, j);
-    r[k] = live && ch < D ? __ldg(reinterpret_cast<const float4*>(row + ch))
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// One 16-byte vector atomic add into float32 global memory, its result
-// unused (CUDA's atomicAdd(float4 *, float4), compute capability 9.x,
-// global memory only): the four floats are added, each one atomically.
-// p must be 16-byte aligned.
-__device__ __forceinline__ void red_add4(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
 }
 
 // Issue lane j's loads of the four corner rows of one sample: t[corner][k]

@@ -22,7 +22,8 @@
 // tile: K-major [Ch, 3, 3, Cin_i]), conv_s[i] /
 // conv_b[i] [Ch] float32; chain[i] [N,H,W,Ch] scratch; red_w[0] [C0, Cr],
 // red_w[i>0] [Ch, Cr]; rs / rb [Cr] float32; out [N,H,W,Cr]; sums [N,Cr]
-// float32 (zeroed by the caller).
+// float32 (written whole), with K4's partials and tickets
+// (osa_reduce.cu).
 
 #include "conv_tile.cuh"
 #include "osa_wgmma.cuh"
@@ -40,7 +41,8 @@ int osa_block(const void* x, int c0, int n_convs, int ch,
               const void* const* conv_w, const float* const* conv_s,
               const float* const* conv_b, void* const* chain,
               const void* const* red_w, const float* rs, const float* rb,
-              void* out, float* sums, int N, int H, int W, int cr, void* stream) {
+              void* out, float* sums, float* partials, unsigned* tickets, int N,
+              int H, int W, int cr, void* stream) {
   if (n_convs < 1 || n_convs + 1 > tck::kMaxSeg)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n_convs; ++i) {
@@ -64,6 +66,8 @@ int osa_block(const void* x, int c0, int n_convs, int ch,
   p.bias = rb;
   p.out = out;
   p.sums = sums;
+  p.partials = partials;
+  p.tickets = tickets;
   p.N = N; p.H = H; p.W = W; p.Cout = cr;
   p.relu = 1;
   return tck::launch_conv_gemm<5, T>(p, stream);
@@ -93,18 +97,22 @@ extern "C" int osa_block_bf16(const void* x, int c0, int n_convs, int ch,
                               const void* const* conv_w, const float* const* conv_s,
                               const float* const* conv_b, void* const* chain,
                               const void* const* red_w, const float* rs,
-                              const float* rb, void* out, float* sums, int N,
-                              int H, int W, int cr, void* stream) {
+                              const float* rb, void* out, float* sums,
+                              float* partials, unsigned* tickets, int N, int H,
+                              int W, int cr, void* stream) {
   return osa_block<tck::bf16>(x, c0, n_convs, ch, conv_w, conv_s, conv_b, chain,
-                              red_w, rs, rb, out, sums, N, H, W, cr, stream);
+                              red_w, rs, rb, out, sums, partials, tickets, N, H, W, cr,
+                          stream);
 }
 
 extern "C" int osa_block_f32(const void* x, int c0, int n_convs, int ch,
                              const void* const* conv_w, const float* const* conv_s,
                              const float* const* conv_b, void* const* chain,
                              const void* const* red_w, const float* rs,
-                             const float* rb, void* out, float* sums, int N,
-                             int H, int W, int cr, void* stream) {
+                             const float* rb, void* out, float* sums,
+                             float* partials, unsigned* tickets, int N, int H,
+                             int W, int cr, void* stream) {
   return osa_block<float>(x, c0, n_convs, ch, conv_w, conv_s, conv_b, chain,
-                          red_w, rs, rb, out, sums, N, H, W, cr, stream);
+                          red_w, rs, rb, out, sums, partials, tickets, N, H, W, cr,
+                          stream);
 }

@@ -16,7 +16,10 @@
 // Layouts: piece_i [N,H,W,C_i]; W_i [C_i, Cout] (conv_tile.cuh: contiguous;
 // the Hopper tile: a K-major view, element (c, o) at w_i + o * w_ld_i + c);
 // scale / bias [Cout] float32, out [N,H,W,Cout], sums [N,Cout] float32
-// (zeroed by the caller).
+// (written whole).  The sums meet in a fixed order (ordered_sum.cuh):
+// partials [N, ceil(H*W / 64), Cout] float32 (the Hopper tile uses the
+// first ceil(H*W / 128) rows of each image) and tickets [N * ceil(Cout /
+// 128)] unsigned, zero on entry and left zero.
 
 #include "conv_tile.cuh"
 #include "osa_wgmma.cuh"
@@ -32,8 +35,8 @@ osa_reduce_wgmma_kernel(const __grid_constant__ osa::OsaParams p) {
 template <typename T>
 int osa_reduce(int n_pieces, const void* const* pieces, const void* const* weights,
                const int* widths, const float* scale, const float* bias,
-               void* out, float* sums, int N, int H, int W, int Cout, int relu,
-               void* stream) {
+               void* out, float* sums, float* partials, unsigned* tickets, int N,
+               int H, int W, int Cout, int relu, void* stream) {
   if (n_pieces < 1 || n_pieces > tck::kMaxSeg)
     return static_cast<int>(cudaErrorInvalidValue);
   tck::ConvGemm p{};
@@ -44,6 +47,8 @@ int osa_reduce(int n_pieces, const void* const* pieces, const void* const* weigh
   p.bias = bias;
   p.out = out;
   p.sums = sums;
+  p.partials = partials;
+  p.tickets = tickets;
   p.N = N; p.H = H; p.W = W; p.Cout = Cout;
   p.relu = relu;
   return tck::launch_conv_gemm<4, T>(p, stream);
@@ -56,8 +61,9 @@ int osa_reduce(int n_pieces, const void* const* pieces, const void* const* weigh
 extern "C" int osa_reduce_bf16_wgmma(int n_pieces, const void* const* pieces,
                                      const void* const* weights, const int* widths,
                                      const int* w_ld, const float* scale,
-                                     const float* bias, void* out, float* sums, int N,
-                                     int H, int W, int Cout, int relu, void* stream) {
+                                     const float* bias, void* out, float* sums,
+                                     float* partials, unsigned* tickets, int N, int H,
+                                     int W, int Cout, int relu, void* stream) {
   const int bn = Cout % 256 == 0 ? 256 : 128;
   osa::OsaParams p{};
   const int rc = osa::reduce_params(&p, n_pieces, pieces, weights, widths, w_ld, N, H,
@@ -67,6 +73,8 @@ extern "C" int osa_reduce_bf16_wgmma(int n_pieces, const void* const* pieces,
   p.bias = bias;
   p.out = static_cast<hop::bf16*>(out);
   p.sums = sums;
+  p.partials = partials;
+  p.tickets = tickets;
   p.relu = relu;
   return bn == 256 ? osa::launch_tile<256>(osa_reduce_wgmma_kernel<256>, p, stream)
                    : osa::launch_tile<128>(osa_reduce_wgmma_kernel<128>, p, stream);
@@ -75,17 +83,18 @@ extern "C" int osa_reduce_bf16_wgmma(int n_pieces, const void* const* pieces,
 extern "C" int osa_reduce_bf16(int n_pieces, const void* const* pieces,
                                const void* const* weights, const int* widths,
                                const float* scale, const float* bias, void* out,
-                               float* sums, int N, int H, int W, int Cout,
-                               int relu, void* stream) {
+                               float* sums, float* partials, unsigned* tickets, int N,
+                               int H, int W, int Cout, int relu, void* stream) {
   return osa_reduce<tck::bf16>(n_pieces, pieces, weights, widths, scale, bias,
-                               out, sums, N, H, W, Cout, relu, stream);
+                               out, sums, partials, tickets, N, H, W, Cout, relu,
+                               stream);
 }
 
 extern "C" int osa_reduce_f32(int n_pieces, const void* const* pieces,
                               const void* const* weights, const int* widths,
                               const float* scale, const float* bias, void* out,
-                              float* sums, int N, int H, int W, int Cout,
-                              int relu, void* stream) {
+                              float* sums, float* partials, unsigned* tickets, int N,
+                              int H, int W, int Cout, int relu, void* stream) {
   return osa_reduce<float>(n_pieces, pieces, weights, widths, scale, bias, out,
-                           sums, N, H, W, Cout, relu, stream);
+                           sums, partials, tickets, N, H, W, Cout, relu, stream);
 }

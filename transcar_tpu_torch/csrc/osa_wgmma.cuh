@@ -10,8 +10,8 @@
 //
 //   out[p, o] = round(relu?(acc[p, o] * scale[o] + bias[o] + res[p, o]))
 //   reduce:  acc[p, o] = sum_i sum_c piece_i[p, c] * W_i[c, o],
-//            sums[n, o] += the float32 value before the rounding (where
-//            sums is not null: a uniform branch)
+//            sums[n, o] = sum_p of the float32 value before the rounding
+//            (where sums is not null: a uniform branch)
 //   res:     0 (kResid 0); resid[p, o] read as float32 (kResid 1, K6's
 //            identity); acc2[p, o] * scale2[o] + bias2[o] (kResid 2, K6's
 //            downsample: piece 1 goes to its own accumulator acc2)
@@ -34,8 +34,11 @@
 //   [Cout, C_i] (K-major, row stride w_ld_i) as well, which keeps the
 //   product exact.  The channel sums: a butterfly of warp shuffles, one
 //   shared-memory row per warp (no shared atomics: contended, they cost
-//   more than the whole multiply) and one float32 global atomic per (tile,
-//   channel).
+//   more than the whole multiply), the 8 rows summed in warp order into
+//   one partial a (tile, channel), written once; the tile that completes
+//   an (image, Cout tile) column, found by a ticket (ordered_sum.cuh),
+//   sums that column's partials in pixel-tile order.  So the sums are the
+//   same bits run after run, with no float atomic and no extra launch.
 // - conv (K5): the tile is a rectangle of bh x bw = 128 pixels of one image
 //   and K = 9 taps x the input's 64-channel slices.  The input is a 4-D map
 //   [N, H, W, C] with a box of [1, bh, bw, 64], loaded for tap (ky, kx) at
@@ -79,6 +82,7 @@
 #pragma once
 
 #include "hopper_tile.cuh"
+#include "ordered_sum.cuh"
 
 namespace osa {
 
@@ -162,6 +166,9 @@ __device__ __forceinline__ void publish_amax(float m, float* red, int tid, int n
     __syncthreads();
   if (tid == 0) {
     for (int w = 1; w < nthreads / 32; ++w) m = fmaxf(m, red[w]);
+    // m = max |out| >= 0, whose float bits order as unsigned ints do: the
+    // atomicMax is the max whatever order the blocks arrive in, and the
+    // count below is an integer, so the result repeats bit for bit
     atomicMax(scratch, __float_as_uint(m));
     __threadfence();
     if (atomicAdd(scratch + 1, 1u) == gridDim.x * gridDim.y * gridDim.z - 1) {
@@ -186,6 +193,8 @@ struct OsaParams {
   const float* bias;
   hop::bf16* out;
   float* sums;                    // reduce only; null: none
+  float* partials;                // sums: [N, tiles_m, Cout] a tile's part
+  unsigned* tickets;              // sums: [N * tiles_n], zero between launches
   const float* scale2;            // kResid 2: piece 1's affine
   const float* bias2;
   int HW, Cout, relu;
@@ -207,7 +216,7 @@ struct OsaParams {
 template <int BN, bool kStage = false>
 constexpr int smem_bytes() {
   return 1024 + STAGES * (BM + BN) * ROW + (kStage ? 2 * BM * BN * 2 + 4 * 8 : 0) +
-         2 * STAGES * 8 + 10 * BN * 4;
+         2 * STAGES * 8 + 10 * BN * 4 + 16;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
@@ -282,6 +291,7 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
   float* part = reinterpret_cast<float*>(empty + STAGES + (kStage ? 4 : 0));
   float* sscale = part + 8 * BN;                               // [BN] this tile's
   float* sbias = sscale + BN;                                  // [BN] affine
+  int* sflag = reinterpret_cast<int*>(sbias + BN);             // sums: the ticket's
   const int taps = kConv ? p.taps : 1;
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
@@ -630,15 +640,24 @@ __device__ __forceinline__ void osa_tile(const OsaParams& p) {
         }
       }
       if (sums) {
-        // the 8 warps' partial rows, then one global atomic per (tile,
-        // channel)
+        // the 8 warps' partial rows in warp order: this tile's part of its
+        // image's channel sums, written once; the tile that completes the
+        // (image, Cout tile) column sums the column's parts in tile order
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        if (ct < BN && col_base + ct < p.Cout) {
+        const bool mine = ct < BN && col_base + ct < p.Cout;
+        const size_t col = static_cast<size_t>(img) * p.tiles_m * p.Cout + col_base + ct;
+        if (mine) {
           float sum = 0.f;
 #pragma unroll
           for (int w8 = 0; w8 < 8; ++w8) sum += part[w8 * BN + ct];
-          atomicAdd(p.sums + static_cast<size_t>(img) * p.Cout + col_base + ct, sum);
+          p.partials[col + static_cast<size_t>(mt) * p.Cout] = sum;
         }
+        const auto bar = [] { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+        if (ordered::arrive(p.tickets + img * p.tiles_n + nt, p.tiles_m, ct == 0, sflag,
+                            bar) &&
+            mine)
+          p.sums[static_cast<size_t>(img) * p.Cout + col_base + ct] =
+              ordered::sum_strided(p.partials + col, p.tiles_m, p.Cout);
       }
       if constexpr (kStage) hop::fence_proxy_async();   // the slot, for TMA
       // keeps the next tile's affine and partials after this tile's reads

@@ -62,9 +62,10 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 128,
     the JAX function computes them (float64 only under ``jax_enable_x64``,
     which the CPU parity tests use)."""
     eps = 1e-6
-    ones = torch.ones(h, w, device=device)
-    y = torch.cumsum(ones, 0)
-    x = torch.cumsum(ones, 1)
+    # the cumulative sums of an all-valid mask: 1..h down, 1..w across
+    # (exact in float32; a float cumsum has no deterministic CUDA kernel)
+    y = torch.arange(1.0, h + 1.0, device=device)[:, None].expand(h, w)
+    x = torch.arange(1.0, w + 1.0, device=device)[None, :].expand(h, w)
     y = (y + offset) / (y[-1:, :] + eps) * scale
     x = (x + offset) / (x[:, -1:] + eps) * scale
     exps = (2 * (torch.arange(num_feats, device=device) // 2)).to(dtype)
@@ -162,10 +163,13 @@ class DGCNNAttn(nn.Module):
         d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
         aff = d2.clamp(min=0.0).sqrt()
         _, idx = torch.topk(aff, min(self.k, x.shape[1]), dim=-1)  # [B,N,K]
-        # neighbour ROWS gathered directly ([B, N, K, C]); ties may order
-        # differently from lax.top_k, but only the set meets the max below
-        batch = torch.arange(x.shape[0], device=x.device)[:, None, None]
-        neigh = x[batch, idx]
+        # neighbour ROWS gathered directly ([B, N, K, C]; ``F.embedding``,
+        # whose backward sums each row's gradients by a sort of the row
+        # indices); ties may order differently from lax.top_k, but only
+        # the set meets the max below
+        b, n, c = x.shape
+        batch = torch.arange(b, device=x.device)[:, None, None] * n
+        neigh = F.embedding(idx + batch, x.reshape(b * n, c))
         center = x[:, :, None, :].expand_as(neigh)
         return torch.cat([neigh, center], -1)
 

@@ -58,9 +58,18 @@ class FPN(nn.Module):
 def _nearest_resize(x: torch.Tensor, hw) -> torch.Tensor:
     """Nearest upsample with torch ``F.interpolate(mode='nearest')``'s
     integer index arithmetic (src = floor(dst · in / out)), written out
-    rather than trusting a float scale."""
+    rather than trusting a float scale.  An integer factor f (every FPN
+    and SECOND-FPN level) is src = dst // f, each row and column repeated
+    f times: an expand, whose backward is a sum over the repeats, where
+    an ``index_select``'s is an ``index_add``, which PyTorch's
+    deterministic mode runs as a sort and a serial sum per index.  The
+    output is NCHW-contiguous either way."""
     h, w = hw
-    sh, sw = x.shape[-2:]
+    n, c, sh, sw = x.shape
+    if h % sh == 0 and w % sw == 0:
+        fy, fx = h // sh, w // sw
+        return x[:, :, :, None, :, None].expand(n, c, sh, fy, sw, fx).reshape(
+            n, c, h, w)
     ry = torch.arange(h, device=x.device) * sh // h
     rx = torch.arange(w, device=x.device) * sw // w
     return x.index_select(2, ry).index_select(3, rx)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transcar_tpu_torch.models.common import ConvBN
+from transcar_tpu_torch.models.fpn import _nearest_resize
 
 
 class SECOND(nn.Module):
@@ -66,13 +67,8 @@ class BNFPN(nn.Module):
                     for i in range(self.num_in)]
         for i in range(len(laterals) - 1, 0, -1):
             # nearest upsample by index, as the JAX module writes it
-            h, w = laterals[i - 1].shape[-2:]
-            sh, sw = laterals[i].shape[-2:]
-            dev = laterals[i].device
-            ry = torch.arange(h, device=dev) * sh // h
-            rx = torch.arange(w, device=dev) * sw // w
-            laterals[i - 1] = laterals[i - 1] + laterals[i].index_select(
-                2, ry).index_select(3, rx)
+            laterals[i - 1] = laterals[i - 1] + _nearest_resize(
+                laterals[i], laterals[i - 1].shape[-2:])
         outs = [getattr(self, f"fpn{i}")(lat)
                 for i, lat in enumerate(laterals)]
         while len(outs) < self.num_outs:

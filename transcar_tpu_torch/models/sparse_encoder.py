@@ -77,12 +77,13 @@ class SparseConvBlock(nn.Module):
         rows)."""
         if self.downsample:
             out = sparse.down_sites(sites, out_max)
-            feats = sparse.gather_conv(feats, sparse.down_rules(sites, out),
-                                       self.weight, out.valid)
+            feats = sparse.gather_conv(
+                feats, sparse.down_rules(sites, out), self.weight, out.valid,
+                lambda src=sites, dst=out: sparse.up_rules(src, dst))
             sites = out
         else:
             feats = sparse.gather_conv(feats, sites.subm_rules, self.weight,
-                                       sites.valid)
+                                       sites.valid, sites.subm_inverse)
         return self._bn_relu(feats, sites.valid), sites
 
 
@@ -191,21 +192,23 @@ class SparseEncoder(nn.Module):
 
     @staticmethod
     def _scatter(feats, coords, count, grid):
-        """Sites → the dense grid [B, Z, Y, X, C] and its mask; rows past
-        count go to a scratch cell that is dropped (every write there is
-        zero)."""
+        """Sites → the dense grid [B, Z, Y, X, C] and its mask; each row
+        past count goes to a scratch cell of its own, dropped afterwards
+        (every write there is zero; one shared cell would serialize a
+        deterministic-mode scatter on its repeats)."""
         b, v, c = feats.shape
         cells = grid[0] * grid[1] * grid[2]
+        real = b * cells
         valid = sparse.valid_rows(count, v)
         lin = sparse._linearize(coords, grid, valid)
-        lin = torch.where(lin == sparse.MISS, cells, lin) + torch.arange(
-            b, device=lin.device)[:, None] * (cells + 1)
-        canvas = feats.new_zeros(b * (cells + 1), c)
+        dev = lin.device
+        lin = torch.where(lin == sparse.MISS,
+                          real + torch.arange(b * v, device=dev).view(b, v),
+                          lin + torch.arange(b, device=dev)[:, None] * cells)
+        canvas = feats.new_zeros(real + b * v, c)
         canvas[lin.reshape(-1)] = torch.where(
             valid[..., None], feats, 0.0).reshape(-1, c)
-        mask = torch.zeros(b * (cells + 1), dtype=torch.bool,
-                           device=feats.device)
+        mask = torch.zeros(real + b * v, dtype=torch.bool, device=dev)
         mask[lin.reshape(-1)] = valid.reshape(-1)
-        shape = (b, cells + 1)
-        return (canvas.view(*shape, c)[:, :cells].reshape(b, *grid, c),
-                mask.view(shape)[:, :cells].reshape(b, *grid))
+        return (canvas[:real].view(b, *grid, c),
+                mask[:real].view(b, *grid))

@@ -26,10 +26,10 @@ become ±1e7 (NaN → +1e7) and every cost is clipped to ±1e7; only the
 first ``num_gt`` gt slots of a problem are solved; the float32 sums in
 the same order and argmin ties to the lowest query, so the matches are
 the JAX solver's; padded gt slots carry the out-of-range sentinel Q,
-which the target scatters drop.  One difference by design: a real slot
-that the solver's backstops leave unmatched (no sane input reaches that
-after sanitizing) also carries Q, where JAX returns −1, which
-``scatter_`` on the card would reject.
+which the target scatters drop, and a real slot that the solver's
+backstops leave unmatched (more gts than queries; no other sane input
+reaches that after sanitizing) carries −1, as the JAX solver returns.
+The targets (``train/loss.py``) place a −1 where the JAX scatter does.
 
 :func:`hungarian_match` takes the kernel on CUDA tensors and raises if it
 cannot; on CPU tensors it takes :func:`hungarian_match_plain`, the same
@@ -73,8 +73,9 @@ def hungarian_match(cost_qg: torch.Tensor, num_gt: torch.Tensor
       cost_qg: [P, Q, G] costs (rows: queries, cols: gt slots).
       num_gt: [P] real gt counts (≤ G), on ``cost_qg``'s device.
     Returns:
-      (matched [P, G] int64 query per gt slot, Q at padded slots;
-       valid [P, G] bool, slot < num_gt), both on ``cost_qg``'s device.
+      (matched [P, G] int64 query per gt slot, Q at padded slots and −1
+       at a real slot left unmatched; valid [P, G] bool, slot < num_gt),
+       both on ``cost_qg``'s device.
     A CUDA ``cost_qg`` launches the kernel (:func:`kernel`) or raises; a
     CPU one takes :func:`hungarian_match_plain`.
     """
@@ -200,7 +201,7 @@ def hungarian_match_plain(cost_qg: torch.Tensor, num_gt: torch.Tensor,
     matched = torch.full((p, g), q, dtype=torch.int64, device=dev)
     for k, n in enumerate(counts.tolist()):
         col4row, done = _solve_plain(cost[k], int(n))
-        matched[k] = torch.where(col4row >= 0, col4row, q)
+        matched[k, :n] = col4row[:n]
         if scans is not None:
             scans[k] = done
     valid = torch.arange(g, device=dev)[None, :] < counts.to(dev)[:, None]

@@ -271,19 +271,12 @@ def _channels_last(x: torch.Tensor) -> bool:
     return x.dim() == 4 and x.permute(0, 2, 3, 1).is_contiguous()
 
 
-_scratch_pairs: dict = {}
-
-
 def _scratch(device: torch.device) -> torch.Tensor:
-    """The [2] int32 scratch pair of the amax reductions on ``device``'s
-    current stream: zeroed once, and left zero by every launch that uses
-    it (its last block resets it), so no launch needs a memset first."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    pair = _scratch_pairs.get(key)
-    if pair is None:
-        pair = torch.zeros(2, dtype=torch.int32, device=device)
-        _scratch_pairs[key] = pair
-    return pair
+    """The int32 scratch pair of the amax reductions on ``device``'s
+    current stream (:func:`kernel_lib.zeroed_scratch`): left zero by every
+    launch that uses it (its last block resets it), so no launch needs a
+    memset first."""
+    return kernel_lib.zeroed_scratch(device, 2)
 
 
 def _check_activation(x: torch.Tensor, name: str) -> None:

@@ -117,17 +117,47 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def function(name: str, *argtypes):
-    """A C entry point of the library; every one returns a cudaError_t.
+def function(name: str, *argtypes, restype=ctypes.c_int):
+    """A C entry point of the library: a launch returns a cudaError_t
+    (``restype`` int), a workspace query its bytes (``ctypes.c_longlong``).
     Looked up and typed once per argument list, not at every launch."""
-    key = (name, argtypes)
+    key = (name, argtypes, restype)
     fn = _functions.get(key)
     if fn is None:
         fn = library()[name]           # an object of its own per key
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[key] = fn
     return fn
+
+
+def workspace(name: str, device, *args) -> torch.Tensor:
+    """A byte tensor on ``device`` as long as the C query ``name(*args)``
+    (int arguments) asks for (at least one byte, so it has an address)."""
+    fn = function(name, *([ctypes.c_int] * len(args)),
+                  restype=ctypes.c_longlong)
+    return torch.empty(max(int(fn(*args)), 1), dtype=torch.uint8,
+                       device=device)
+
+
+_zeroed: dict = {}
+
+
+def zeroed_scratch(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 of zeros on ``device`` for its current stream,
+    shared by every kernel that counts in it there: the tickets of the
+    fixed-order sums and the counts of the gathers (``csrc/ordered_sum.cuh``)
+    and the int8 amax pair.  Each launch leaves what it used zero again, and
+    launches on one stream run one after another, so no launch needs a
+    memset first; the scratch is zeroed once, and again only when a call
+    needs more than it holds."""
+    device = torch.device(device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _zeroed.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _zeroed[key] = buf
+    return buf
 
 
 def check(rc: int, name: str) -> None:

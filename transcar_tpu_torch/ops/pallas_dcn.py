@@ -70,21 +70,27 @@ once by TMA and stays in shared memory while the W9 slices [64 channels,
 64 Cout] stream through a 4-stage ring.  Consumer warpgroups form each
 [band, 64-channel] d_samp tile in float32 and hand it to a double-buffered
 shared tile; two scatter warpgroups rebuild each pixel's four bilinear
-corners, add σ(mask)·weight·d_samp into a float32 d_x with 16-byte vector
-reductions and reduce the offset and mask terms over the channels with
-warp shuffles (one-sided floor-convention derivatives, so an integer
-sample position differentiates as ``ops/dcn.py`` under autograd does),
-while the consumers multiply the next slice.  (b) d_W = sampledᵀ × d_out
-over the pixels: two gather warpgroups write the modulated sample,
-rounded to the working type as the forward rounds it, straight into the
-swizzled shared layout that ``wgmma`` reads as a transposed A, d_out
-arrives by TMA as a transposed B, and pixel splits add their float32
-tiles with vector reductions.  float32 (used only by the checks) and
-bfloat16 with Cout > 1024 keep the first kernels: per tap and 128-channel
-slice a ``wmma`` d_samp tile and a 4-warp scatter, and a 32-pixel
-regather against d_out.  The summation order of the atomics varies from
-run to run.  The band, one-hot matmuls and ``rows_per_step`` of the TPU
-kernel are gone: exact for any offset.
+corners, store d_samp [pixels, 9, Cin] in float32, list each (pixel, tap,
+corner) with its target pixel and weight σ(mask)·weight, and reduce the
+offset and mask terms over the channels with warp shuffles (one-sided
+floor-convention derivatives, so an integer sample position
+differentiates as ``ops/dcn.py`` under autograd does), while the
+consumers multiply the next slice.  d_x is then a gather by target
+(``csrc/ordered_sum.cuh``): each input pixel sums the entries that land
+on it in (pixel, tap, corner) order and writes its row once.  (b) d_W = sampledᵀ × d_out over the pixels: two gather
+warpgroups write the modulated sample, rounded to the working type as the
+forward rounds it, straight into the swizzled shared layout that
+``wgmma`` reads as a transposed A, d_out arrives by TMA as a transposed
+B, and each pixel split writes its float32 tile; the split that completes
+a tile (an integer ticket) sums the tile's splits in split order.
+float32 (used only by the checks) and bfloat16 with Cout > 1024 keep the
+first kernels: per tap and 128-channel slice a ``wmma`` d_samp tile and a
+4-warp pass that stores it, and a 32-pixel regather against d_out, with
+the same gather and ordered splits.  Every sum has one order, so the
+backward repeats bit for bit, as the TPU kernel's sequential grid does;
+d_samp costs a write and a read of 9·Cin floats a pixel (320.6 MB at the
+layer-3 shape).  The band, one-hot matmuls and ``rows_per_step`` of the
+TPU kernel are gone: exact for any offset.
 """
 from __future__ import annotations
 
@@ -285,9 +291,9 @@ def backward_kernel(x: torch.Tensor, offset_mask: torch.Tensor,
     if d_out.shape != (n, h, w, cout):
         raise ValueError(f"d_out {tuple(d_out.shape)} must be "
                          f"[{n}, {h}, {w}, {cout}]")
-    d_x = torch.zeros((n, h, w, cin), dtype=torch.float32, device=x.device)
+    d_x = torch.empty((n, h, w, cin), dtype=torch.float32, device=x.device)
     d_om = torch.empty_like(offset_mask)
-    d_w = torch.zeros((9 * cin, cout), dtype=torch.float32, device=x.device)
+    d_w = torch.empty((9 * cin, cout), dtype=torch.float32, device=x.device)
     _aligned(x, w_t, d_out, d_x, d_w)
     backward_data(x, offset_mask, w_t, d_out, d_x, d_om)
     backward_weight(x, offset_mask, d_out, d_w)
@@ -297,32 +303,46 @@ def backward_kernel(x: torch.Tensor, offset_mask: torch.Tensor,
 
 
 def backward_data(x, offset_mask, w_t, d_out, d_x, d_om) -> None:
-    """K3's first device kernel, (a): adds d_x into the zeroed float32
-    ``d_x`` and writes ``d_om``, on tensors :func:`backward_kernel` has
-    checked and laid out (``w_t`` [3, 3, Cin, Cout] in x.dtype).  Counts
-    no launch: :func:`backward_kernel` counts the backward once."""
+    """K3's first part, (a): the d_samp kernel, then the gather of d_x;
+    writes the float32 ``d_x`` and ``d_om`` whole, on tensors
+    :func:`backward_kernel` has checked and laid out (``w_t`` [3, 3, Cin,
+    Cout] in x.dtype).  Counts no launch: :func:`backward_kernel` counts
+    the backward once."""
     n, h, w, cin = x.shape
     name = _BWD_DATA[x.dtype]
-    fn = kernel_lib.function(name, _P, _P, _P, _P, _P, _P,
+    work = kernel_lib.workspace("dcn_backward_data_workspace", x.device,
+                                n, h, w, cin)
+    zeroed = kernel_lib.zeroed_scratch(x.device, n * h * w)
+    fn = kernel_lib.function(name, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), offset_mask.data_ptr(), w_t.data_ptr(),
                 d_out.data_ptr(), d_x.data_ptr(), d_om.data_ptr(),
-                n, h, w, cin, d_out.shape[-1], stream)
+                work.data_ptr(), zeroed.data_ptr(), n, h, w, cin,
+                d_out.shape[-1], stream)
     kernel_lib.check(rc, name)
 
 
 def backward_weight(x, offset_mask, d_out, d_w) -> None:
-    """K3's second device kernel, (b): adds d_W into the zeroed float32
-    ``d_w`` [9·Cin, Cout] (see :func:`backward_data`)."""
+    """K3's second part, (b): writes the float32 ``d_w`` [9·Cin, Cout]
+    whole, its pixel splits summed in split order (see
+    :func:`backward_data`)."""
     n, h, w, cin = x.shape
+    cout = d_out.shape[-1]
     name = _BWD_WEIGHT[x.dtype]
-    fn = kernel_lib.function(name, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+    work = kernel_lib.workspace("dcn_backward_weight_workspace", x.device,
+                                int(x.dtype == torch.bfloat16), n, h, w,
+                                cin, cout)
+    zeroed = kernel_lib.zeroed_scratch(x.device,
+                                       9 * -(-cin // 64) * -(-cout // 128))
+    fn = kernel_lib.function(name, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), offset_mask.data_ptr(), d_out.data_ptr(),
-                d_w.data_ptr(), n, h, w, cin, d_out.shape[-1], stream)
+                d_w.data_ptr(), work.data_ptr(), zeroed.data_ptr(), n, h, w,
+                cin, cout, stream)
     kernel_lib.check(rc, name)
 
 

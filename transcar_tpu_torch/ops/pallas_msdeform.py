@@ -80,11 +80,10 @@ d_loc and d_attn (~134 MB), about 0.133 ms at 3.35 TB/s, against ~8.2
 GFLOP (0.122 ms at the float32 peak); K9 must read the locations, the
 weights and the gradient (~223 MB) and write d_value (89 MB), about 0.093
 ms.  Both are bound by bytes.  At a decoder call (300 queries) the taps
-are few and K9's bound is the 89 MB d_value alone, which the wrapper's
-zero-fill writes.  What they really meet is the gather (K8 reads the
-same ~5.7 GB of taps through L2 as K7) and the scatter: K9 makes
-87 040 × 8 × 16 × 4 × 32 ≈ 1.4 G float atomic adds through L2 per
-encoder call.
+are few and K9's bound is the 89 MB d_value alone, which it writes whole.
+What they really meet is the gather: K8 reads the same ~5.7 GB of taps
+through L2 as K7, and K9 reads a gradient row for each of the 87 040 × 8
+× 16 × 4 ≈ 44.6 M corners an encoder call lists.
 
 What the design does about it.  K8, for a head dim D that is a multiple
 of 8 and at most 64 with 16-byte aligned rows (:func:`takes_group_kernel`:
@@ -110,28 +109,17 @@ d_loc, a warp's stores covering consecutive samples.  Other D keep the
 first kernel, openly: one warp per (batch, query, head) with lanes over
 the channels, three warp-wide sums a sample.
 
-K9, for the same D and 16-byte aligned d_out and d_value
-(:func:`takes_group_kernel`, counted in
-:data:`backward_value_group_launches`), runs one lane group per query as
-K7 does, but with one ``float4`` a lane (``msdeform_backward_value_group_kernel``:
-G the least power of two with 4·G ≥ D, 8 lanes for D = 32, so a warp
-holds 4 neighbouring queries): the group reads its query's gradient row
-once and, for each sample, computes the corners and their four weights
-once and adds (g·a)·w_corner into each corner row on the map with one
-16-byte vector atomic add a lane (``atomicAdd(float4 *, float4)``), in
-place of four scalar atomics: 0.36 G in place of 1.43 G an encoder call.
-That cuts instructions; what paces K9 is the L2's atomic work on the
-4.7 GB of corner rows an encoder call adds, which grows with the
-requests a row takes: a group adds a whole 128-byte row in one
-instruction, where K7's 8 channels a lane take two of half a row (1.17×
-the time on an H100) and scalar adds four times as many (3.8×).  Other D
-keep the first K9: one warp per (batch, query, head) with lanes over the
-channels, each tap one coalesced 128-byte scalar atomic add.  d_value is
-zeroed by the wrapper (``torch.zeros``, so 16-byte aligned); a
-non-finite location and an off-map corner add nothing.  The corner
-weights round as K7 and the plain version round them.  The atomics add
-in an order that changes from run to run, so d_value differs from the
-plain version by summation order only.
+K9 is a gather by target (``csrc/ordered_sum.cuh``), for any D: one
+thread a sample lists its four corners with their value rows and weights
+a·w_corner (a non-finite location and an off-map corner list none), then
+every value row sums coef·g over its list in (query, sample, corner)
+order and writes its D channels once, so d_value repeats bit for bit, as
+the TPU kernel's sequential grid does.  The lists cost 24 bytes a corner
+in traffic of their own (the filing, the ordering by rank and the scan of
+the counts).  The corner weights round as K7 and the plain
+version round them; a·w_corner is rounded once before it meets g, where
+the plain version's autograd rounds g·a first, so d_value differs from
+the plain version by that rounding and the order of summation.
 
 :func:`ms_deform_attn` on a CUDA tensor always goes through
 :class:`MSDeformAttnFunction` (K7 forward, K8 and K9 backward), with or
@@ -160,8 +148,6 @@ backward_taps_launches = 0
 backward_taps_group_launches = 0
 #: K9 (d_value) launches since the count was last set to 0.
 backward_value_launches = 0
-#: Of those, the launches that took the lane-group kernel.
-backward_value_group_launches = 0
 
 MAX_LEVELS = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -349,10 +335,10 @@ def kernel(value, spatial_shapes, sampling_locations, attention_weights):
 
 
 def takes_group_kernel(head_dim: int, *rows: torch.Tensor) -> bool:
-    """Whether K7, K8 or K9 takes its lane-group kernel: a head dim that is
-    a multiple of 8 and at most 64, and 16-byte aligned ``rows`` (the
+    """Whether K7 or K8 takes its lane-group kernel: a head dim that is a
+    multiple of 8 and at most 64, and 16-byte aligned ``rows`` (the
     tensors the kernel reads or writes as ``float4``: K7 value and output,
-    K8 value and d_out, K9 d_out and d_value)."""
+    K8 value and d_out)."""
     return (head_dim % 8 == 0 and head_dim <= 64
             and all(t.data_ptr() % 16 == 0 for t in rows))
 
@@ -388,21 +374,22 @@ def backward_value_kernel(value, spatial_shapes, sampling_locations,
     """K9 on CUDA tensors: d_value [B, S, H, D] of :func:`ms_deform_attn`
     for the output gradient ``d_out`` [B, Q, H·D], float32 (``value``
     gives the shape and device; its numbers are not read)."""
-    global backward_value_launches, backward_value_group_launches
+    global backward_value_launches
     _check(value, spatial_shapes, sampling_locations, attention_weights,
            d_out)
     b, s, h, d = value.shape
     q, p = sampling_locations.shape[1], sampling_locations.shape[4]
     loc, wgt, d_out = (t.contiguous() for t in (
         sampling_locations, attention_weights, d_out))
-    d_value = torch.zeros((b, s, h, d), dtype=torch.float32,
-                          device=value.device)
-    group = takes_group_kernel(d, d_out, d_value)
-    _launch("msdeform_backward_value_group_f32" if group
-            else "msdeform_backward_value_f32", (_P,) * 4 + _SHAPE_ARGS,
+    dev = value.device
+    d_value = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+    work = kernel_lib.workspace("msdeform_backward_value_workspace", dev,
+                                b, s, q, h, len(spatial_shapes), p)
+    _launch("msdeform_backward_value_f32", (_P,) * 6 + _SHAPE_ARGS,
             loc.data_ptr(), wgt.data_ptr(), d_out.data_ptr(),
-            d_value.data_ptr(), b, s, q, h, d, len(spatial_shapes), p,
-            *_levels(spatial_shapes), device=value.device)
+            d_value.data_ptr(), work.data_ptr(),
+            kernel_lib.zeroed_scratch(dev, b * s * h).data_ptr(),
+            b, s, q, h, d, len(spatial_shapes), p, *_levels(spatial_shapes),
+            device=dev)
     backward_value_launches += 1
-    backward_value_group_launches += int(group)
     return d_value

@@ -24,8 +24,10 @@ two consumer warpgroups run ``wgmma`` over 128 pixels × 256 channels; the
 epilogue applies the folded FrozenBN affine (staged in shared memory per
 tile) and the ReLU in float32 from the accumulator registers, stores
 bfloat16 once with 8-byte stores after one exchange between neighbouring
-lanes, and adds per-(tile, channel) column sums, reduced by a butterfly of
-warp shuffles and one shared-memory row per warp, into ``sums[n, Cout]``.  The weights
+lanes, and writes per-(tile, channel) column sums, reduced by a butterfly of
+warp shuffles and one shared-memory row per warp, as partials; the tile
+that completes an (image, Cout tile) column sums its partials in tile
+order into ``sums[n, Cout]`` (``csrc/ordered_sum.cuh``).  The weights
 are read K-major ([Cout, Cᵢ] rows, as the 1×1 conv parameter already
 stores them): :func:`kmajor_weights` gives the [Cᵢ, Cout] views the model
 caches, and any other weight is packed so on each call.  float32 calls and
@@ -33,11 +35,14 @@ bfloat16 calls outside those shapes take the ``wmma`` tile
 (``csrc/conv_tile.cuh``, shared with K5 and K6: 64 pixels × 128 channels,
 ``wmma`` bf16 or CUDA-core float32 FMAs without TF32, ``cp.async`` double
 buffering); the choice is made by dtype and shape, never on failure.  The
-TPU kernel carried the channel sums across its sequential grid axis;
-Hopper's blocks run in no order, so they meet in float32 ``atomicAdd``s,
-whose order changes from run to run (a relative error of order 1e-6 in
-float32 over a stage-2 image, checked at 1e-4).  ``rows_per_step`` was a
-VMEM tiling knob and is accepted and ignored.
+TPU kernel carried the channel sums across its sequential grid axis in
+order; Hopper's blocks run in no order, so each writes its part once and
+the last block of a column, found by an integer ticket, adds the parts in
+their fixed order: the sums repeat bit for bit.  Against the plain
+version's single float32 sum they differ by the other order of summation
+(a relative error of order 1e-6 in float32 over a stage-2 image, checked
+at 1e-4).  ``rows_per_step`` was a VMEM tiling knob and is accepted and
+ignored.
 """
 from __future__ import annotations
 
@@ -174,6 +179,18 @@ def takes_wgmma_tile(pieces, cout: int) -> bool:
                     for p in pieces))
 
 
+def sums_scratch(n: int, hw: int, cout: int, device):
+    """The channel sums of a reduce over [n, hw] pixels and what their
+    fixed order needs: ([n, cout] float32 sums, written whole by the
+    kernel; the [n, ⌈hw / 64⌉, cout] float32 partials, one a pixel tile of
+    either tile (the Hopper tile's 128-pixel tiles use the first half);
+    the zeroed int32 tickets, one an (image, 128-channel tile))."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((n, cout), **f32),
+            torch.empty((n, -(-hw // 64), cout), **f32),
+            kernel_lib.zeroed_scratch(device, n * -(-cout // 128)))
+
+
 def kernel(pieces, weights, scale, bias, relu: bool = True):
     """K4 on CUDA tensors (see :func:`osa_reduce`)."""
     global launches, wgmma_launches
@@ -201,7 +218,7 @@ def kernel(pieces, weights, scale, bias, relu: bool = True):
     scale = scale.to(device=dev, dtype=torch.float32).contiguous()
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty((n, h, w, cout), dtype=dtype, device=dev)
-    sums = torch.zeros((n, cout), dtype=torch.float32, device=dev)
+    sums, partials, tickets = sums_scratch(n, h * w, cout, dev)
     k = len(pieces)
     wgmma = takes_wgmma_tile(pieces, cout)
     if wgmma:
@@ -213,14 +230,15 @@ def kernel(pieces, weights, scale, bias, relu: bool = True):
         weights = [wi.to(dtype).contiguous() for wi in weights]
         extra = []
     fn = kernel_lib.function(name, _I, _P, _P, _P, *([_P] if wgmma else []),
-                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(k, (_P * k)(*[p.data_ptr() for p in pieces]),
                 (_P * k)(*[wi.data_ptr() for wi in weights]),
                 (_I * k)(*[p.shape[-1] for p in pieces]), *extra,
                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                sums.data_ptr(), n, h, w, cout, int(relu), stream)
+                sums.data_ptr(), partials.data_ptr(), tickets.data_ptr(), n,
+                h, w, cout, int(relu), stream)
     kernel_lib.check(rc, name)
     launches += 1
     wgmma_launches += int(wgmma)

@@ -258,15 +258,16 @@ def kernel(x, conv_w9s, conv_affines, reduce_ws, reduce_affine,
     chain = [torch.empty((n, h, w, ch), dtype=dtype, device=dev)
              for _ in range(k)]
     out = torch.empty((n, h, w, cr), dtype=dtype, device=dev)
-    sums = torch.zeros((n, cr), **f32)
+    sums, partials, tickets = pallas_osa.sums_scratch(n, h * w, cr, dev)
     ptrs = lambda ts: (_P * len(ts))(*[t.data_ptr() for t in ts])
     fn = kernel_lib.function(_ENTRY[dtype], _P, _I, _I, _I, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), c0, k, ch, ptrs(ws), ptrs(scales), ptrs(biases),
                 ptrs(chain), ptrs(rws), rs.data_ptr(), rb.data_ptr(),
-                out.data_ptr(), sums.data_ptr(), n, h, w, cr, stream)
+                out.data_ptr(), sums.data_ptr(), partials.data_ptr(),
+                tickets.data_ptr(), n, h, w, cr, stream)
     kernel_lib.check(rc, _ENTRY[dtype])
     launches += 1
     return out, sums

@@ -4,11 +4,17 @@ The reference calls ``F.grid_sample`` with its defaults: bilinear,
 ``padding_mode='zeros'``, ``align_corners=False``.  The same semantics as
 a gather on the NHWC ``[H·W, C]`` layout the head keeps its features in:
 grid coord g ∈ [-1, 1] maps to pixel ``(g + 1) / 2 · S − 0.5`` and taps
-outside the map contribute zeros.
+outside the map contribute zeros.  The four corners gather whole feature
+rows in one call (``F.embedding`` on the [M·H·W, C] rows): its backward
+sums the rows a pixel receives by one sort of the row indices, in one
+fixed order, where an element-wise ``torch.gather``'s scatter-add is,
+under PyTorch's deterministic mode, a sort of every (row, channel)
+element, and one a corner.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def bilinear_sample_nhwc(feat: torch.Tensor, uv01: torch.Tensor) -> torch.Tensor:
@@ -27,18 +33,18 @@ def bilinear_sample_nhwc(feat: torch.Tensor, uv01: torch.Tensor) -> torch.Tensor
     tx = (x - x0).to(feat.dtype)[..., None]
     ty = (y - y0).to(feat.dtype)[..., None]
     x0, y0 = x0.long(), y0.long()
-    flat = feat.reshape(m, h * w, c)
-
-    def tap(yi, xi):
-        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
-        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-        return vals * valid[..., None].to(feat.dtype)
-
-    return (tap(y0, x0) * ((1 - ty) * (1 - tx))
-            + tap(y0, x0 + 1) * ((1 - ty) * tx)
-            + tap(y0 + 1, x0) * (ty * (1 - tx))
-            + tap(y0 + 1, x0 + 1) * (ty * tx))
+    rows = feat.reshape(m * h * w, c)
+    base = torch.arange(m, device=feat.device)[:, None] * (h * w)
+    # corners 00, 01, 10, 11: [4, M, P]
+    ys = torch.stack([y0, y0, y0 + 1, y0 + 1])
+    xs = torch.stack([x0, x0 + 1, x0, x0 + 1])
+    valid = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    idx = ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1) + base
+    taps = F.embedding(idx, rows) * valid[..., None].to(feat.dtype)
+    return (taps[0] * ((1 - ty) * (1 - tx))
+            + taps[1] * ((1 - ty) * tx)
+            + taps[2] * (ty * (1 - tx))
+            + taps[3] * (ty * tx))
 
 
 def sample_multiview_multilevel(mlvl_feats, uv01: torch.Tensor) -> torch.Tensor:

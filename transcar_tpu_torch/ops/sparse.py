@@ -29,7 +29,15 @@ at a time:
     sum in ascending linear id: output slot j holds the (j+1)-th marked
     cell, found by ``searchsorted`` on the sum.  The first ``out_max``
     are kept, as in JAX; the output set also holds how many the cap
-    dropped (``Sites.dropped``).
+    dropped (``Sites.dropped``);
+  * a conv's backward is gathers too (:class:`GatherConv`), as the JAX
+    package's transposed gathers are: d_feats gathers d_out by the
+    inverse rule book, the output row that reads each input site at each
+    tap (a submanifold conv's is its own rule book mirrored, tap 26 − k:
+    the neighbours of one site set are symmetric; a strided conv's comes
+    from the output set's table), and contracts it with the transposed
+    weights; d_W = tapsᵀ · d_out.  No ``index_add_`` adds float rows in
+    the order its threads arrive, so the step repeats bit for bit.
 
 Outputs are masked to their valid rows, and unused output coords are 0.
 No function here reads a value back to the host (no ``nonzero``,
@@ -110,12 +118,16 @@ class Sites:
             keys = _keys(self.coords, self.grid, self.valid)
             rows = torch.arange(b * v, device=keys.device,
                                 dtype=torch.int32).view(b, v)
-            # every write to the last slot (invalid rows) writes B·V
+            # every write to the last slot (invalid rows) writes B·V; the
+            # writes meet by a min (a cell's one row beats the B·V fill),
+            # which needs no order, where a deterministic-mode index_put_
+            # would walk the last slot's repeats one by one
             dump = b * _cells(self.grid)
             table = torch.full((dump + 1,), b * v, dtype=torch.int32,
                                device=keys.device)
             rows = torch.where(keys < dump, rows, b * v)
-            table.index_put_((keys.reshape(-1),), rows.reshape(-1))
+            table.scatter_reduce_(0, keys.reshape(-1), rows.reshape(-1),
+                                  reduce="amin")
             self._table = table
         return self._table
 
@@ -137,6 +149,11 @@ class Sites:
             self._rules = self.lookup(self.coords[:, :, None, :] + offs,
                                       self.valid[..., None])
         return self._rules
+
+    def subm_inverse(self) -> torch.Tensor:
+        """The submanifold rule book's inverse: the site whose tap k reads
+        site r is r's neighbour at −offset_k, tap 26 − k of r's rules."""
+        return self.subm_rules.flip(-1)
 
 
 def down_sites(sites: Sites, out_max: int):
@@ -194,17 +211,70 @@ def down_rules(sites: Sites, out: Sites) -> torch.Tensor:
     return sites.lookup(src, out.valid[..., None])
 
 
+def up_rules(sites: Sites, out: Sites) -> torch.Tensor:
+    """The strided conv's inverse rule book: [B·V, 27] rows of ``out``
+    (the downsampled set) whose tap k reads each site of ``sites``, the o
+    with o·2 + t_k = i; B·V' (the zero row) where i − t_k is odd, o is off
+    the halved grid or the cap left it out, and for an invalid row."""
+    offs = _kernel_offsets(sites.coords.device)
+    src = sites.coords.long()[:, :, None, :] - offs              # 2·o
+    even = (src % 2 == 0).all(-1)
+    return out.lookup(torch.div(src, 2, rounding_mode="floor"),
+                      sites.valid[..., None] & even)
+
+
+def _taps(feats: torch.Tensor, rules: torch.Tensor) -> torch.Tensor:
+    """[B·V', 27·C]: the 27 rows of feats [B, V, C] that ``rules``
+    [B·V', 27] names (a miss, row B·V, reads zeros)."""
+    b, v, c = feats.shape
+    rows = torch.cat([feats.reshape(b * v, c), feats.new_zeros(1, c)])
+    return rows.index_select(0, rules.reshape(-1)).view(-1, 27 * c)
+
+
+class GatherConv(torch.autograd.Function):
+    """Σ_k feats[rules[:, k]] · W_k, masked to the valid output rows, with
+    its backward as gathers: d_feats = Σ_k d_out[inverse[:, k]] · W_kᵀ,
+    d_W = tapsᵀ · d_out.  ``inverse`` is a function giving the inverse rule
+    book [B·V, 27] (rows of the output; B·V' for none), called only in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, rules, valid, inverse):
+        b, v, cin = feats.shape
+        taps = _taps(feats, rules)
+        out = torch.mm(taps, weight.reshape(27 * cin, -1).to(taps.dtype))
+        out = out.view(b, valid.shape[1], -1) * valid[..., None].to(out.dtype)
+        ctx.save_for_backward(taps, weight, valid)
+        ctx.inverse = inverse
+        ctx.feats_shape = feats.shape
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        taps, weight, valid = ctx.saved_tensors
+        b, v, cin = ctx.feats_shape
+        d_out = d_out * valid[..., None].to(d_out.dtype)
+        d_feats = d_w = None
+        if ctx.needs_input_grad[0]:
+            wt = weight.to(d_out.dtype).transpose(1, 2)           # [27, Cout, Cin]
+            d_feats = torch.mm(_taps(d_out, ctx.inverse()),
+                               wt.reshape(-1, cin)).view(b, v, cin)
+        if ctx.needs_input_grad[1]:
+            d_w = torch.mm(taps.t(), d_out.reshape(taps.shape[0], -1))
+            d_w = d_w.view(weight.shape).to(weight.dtype)
+        return d_feats, d_w, None, None, None
+
+
 def gather_conv(feats: torch.Tensor, rules: torch.Tensor,
-                weight: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                weight: torch.Tensor, valid: torch.Tensor,
+                inverse) -> torch.Tensor:
     """Σ_k feats[rules[:, k]] · W_k: feats [B, V, Cin] (a miss, row B·V,
     reads zeros), rules [B·V', 27], weight [27, Cin, Cout], valid
-    [B, V'] → [B, V', Cout] masked to the valid rows."""
-    b, v, cin = feats.shape
-    rows = torch.cat([feats.reshape(b * v, cin), feats.new_zeros(1, cin)])
-    taps = rows.index_select(0, rules.reshape(-1)).view(-1, 27 * cin)
-    out = torch.mm(taps, weight.reshape(27 * cin, -1).to(taps.dtype))
-    out = out.view(b, valid.shape[1], -1)
-    return out * valid[..., None].to(out.dtype)
+    [B, V'] → [B, V', Cout] masked to the valid rows; ``inverse`` gives
+    the inverse rule book for the backward (:class:`GatherConv`:
+    ``sites.subm_inverse`` or ``lambda: up_rules(sites, out)``)."""
+    return GatherConv.apply(feats, weight, rules, valid, inverse)
 
 
 def subm_conv(feats: torch.Tensor, coords: torch.Tensor,
@@ -213,7 +283,8 @@ def subm_conv(feats: torch.Tensor, coords: torch.Tensor,
     """Submanifold 3×3×3 conv: [B, V, Cin] → [B, V, Cout] on the same
     sites; weight [27, Cin, Cout]."""
     sites = Sites(coords, count, grid)
-    return gather_conv(feats, sites.subm_rules, weight, sites.valid)
+    return gather_conv(feats, sites.subm_rules, weight, sites.valid,
+                       sites.subm_inverse)
 
 
 def sparse_conv_down(feats: torch.Tensor, coords: torch.Tensor,
@@ -225,5 +296,6 @@ def sparse_conv_down(feats: torch.Tensor, coords: torch.Tensor,
     int32, out_count [B] int32, dropped [B] int32)."""
     sites = Sites(coords, count, grid)
     out = down_sites(sites, out_max)
-    feats = gather_conv(feats, down_rules(sites, out), weight, out.valid)
+    feats = gather_conv(feats, down_rules(sites, out), weight, out.valid,
+                        lambda: up_rules(sites, out))
     return feats, out.coords, out.count, out.dropped

@@ -8,7 +8,7 @@ with a *stable* sort (``jnp.argsort`` is stable, so the ``max_points``
 points a full voxel keeps are the first ones in cloud order), a point's
 rank inside its voxel is its distance to the start of its run, and voxel
 slots come from a cumulative sum of first occurrences.  Points and voxels
-past the budgets land in an overflow row that is dropped.  All outputs
+past the budgets land in scratch cells (one each) that are dropped.  All outputs
 are fixed ``[max_voxels, max_points, ...]`` with counts.
 """
 from __future__ import annotations
@@ -66,41 +66,50 @@ def hard_voxelize(points: torch.Tensor, num_points: torch.Tensor,
     rank = ar - first_pos
 
     keep = valid_s & (rank < max_points) & (voxel_slot < max_voxels)
-    slot = torch.where(keep, voxel_slot, max_voxels)          # overflow row
-    rank = torch.where(keep, rank, 0)
-    row = slot + torch.arange(b, device=dev)[:, None] * (max_voxels + 1)
+    # kept points fill rows b·max_voxels + slot; every dropped point takes
+    # a scratch cell of its own past them (its id among the b·n points),
+    # dropped afterwards: under PyTorch's deterministic mode a scatter
+    # walks the repeats of each index in turn, so one overflow row that
+    # took every dropped point would serialize on it
+    real = b * max_voxels
+    pid = torch.arange(b * n, device=dev).view(b, n)
+    row = torch.where(keep, voxel_slot + torch.arange(
+        b, device=dev)[:, None] * max_voxels, real + pid)
 
-    voxels = torch.zeros(b * (max_voxels + 1), max_points, f,
+    voxels = torch.zeros(real + -(-b * n // max_points), max_points, f,
                          dtype=points.dtype, device=dev)
-    voxels[row, rank] = torch.where(keep[..., None], pts_s, 0.0)
-    counts = torch.zeros(b * (max_voxels + 1), dtype=torch.int32, device=dev)
+    voxels[torch.where(keep, row, real + pid // max_points),
+           torch.where(keep, rank, pid % max_points)] = torch.where(
+               keep[..., None], pts_s, 0.0)
+    counts = torch.zeros(real + b * n, dtype=torch.int32, device=dev)
     counts.index_add_(0, row.reshape(-1), keep.reshape(-1).to(torch.int32))
-    coords = torch.zeros(b * (max_voxels + 1), 3, dtype=torch.int32,
-                         device=dev)
+    coords = torch.zeros(real + b * n, 3, dtype=torch.int32, device=dev)
     zyx = idx3_s.flip(-1)
     coords[row] = torch.where(keep[..., None], zyx, 0)
 
     num_voxels = first.sum(1).clamp(max=max_voxels).to(torch.int32)
-    shape = (b, max_voxels + 1)
-    return (voxels.reshape(*shape, max_points, f)[:, :max_voxels],
-            coords.reshape(*shape, 3)[:, :max_voxels],
-            counts.reshape(shape)[:, :max_voxels], num_voxels)
+    return (voxels[:real].view(b, max_voxels, max_points, f),
+            coords[:real].view(b, max_voxels, 3),
+            counts[:real].view(b, max_voxels), num_voxels)
 
 
 def pillar_scatter(pillar_feats: torch.Tensor, coords: torch.Tensor,
                    num_voxels: torch.Tensor,
                    bev_hw: Tuple[int, int]) -> torch.Tensor:
     """PointPillarsScatter: [B, P, C] pillar features → [B, H, W, C] BEV
-    canvas.  coords are (z, y, x); rows ≥ num_voxels go to a scratch cell
-    that is dropped."""
+    canvas.  coords are (z, y, x); each row ≥ num_voxels goes to a scratch
+    cell of its own, dropped afterwards (one shared cell would serialize a
+    deterministic-mode scatter on its repeats)."""
     b, p, c = pillar_feats.shape
     h, w = bev_hw
     dev = pillar_feats.device
     valid = torch.arange(p, device=dev) < num_voxels.to(dev)[:, None]
-    lin = torch.where(valid, coords[..., 1].long() * w + coords[..., 2].long(),
-                      h * w)
-    lin = lin + torch.arange(b, device=dev)[:, None] * (h * w + 1)
-    canvas = torch.zeros(b * (h * w + 1), c, dtype=pillar_feats.dtype,
+    real = b * h * w
+    lin = (coords[..., 1].long() * w + coords[..., 2].long()
+           + torch.arange(b, device=dev)[:, None] * (h * w))
+    lin = torch.where(valid, lin,
+                      real + torch.arange(b * p, device=dev).view(b, p))
+    canvas = torch.zeros(real + b * p, c, dtype=pillar_feats.dtype,
                          device=dev)
     canvas[lin] = torch.where(valid[..., None], pillar_feats, 0.0)
-    return canvas.reshape(b, h * w + 1, c)[:, :h * w].reshape(b, h, w, c)
+    return canvas[:real].view(b, h, w, c)

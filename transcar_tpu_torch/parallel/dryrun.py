@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from transcar_tpu_torch.core.config import get_preset, parse_overrides
+from transcar_tpu_torch.core.device import set_deterministic
 from transcar_tpu_torch.data.synthetic import fake_batch, fake_lidar_batch
 from transcar_tpu_torch.parallel.distributed import (host_group, init_group,
                                                      local_batch_slice,
@@ -554,6 +555,7 @@ def _rank_entry(rank, world, backend, address, device, threads, fn, args,
                 results):
     torch.set_num_threads(threads)
     try:
+        set_deterministic(device)      # before the group touches the card
         init_group(rank, world, backend, address)
         dev = torch.device(device)
         if dev.type == "cuda":

@@ -53,8 +53,11 @@ def hungarian_targets(cls_all: torch.Tensor, box_all: torch.Tensor,
         matched, _ = hungarian_match(cost.reshape(nl * b, nq, g),
                                      num_gt.repeat(nl))
     # padded slots carry the sentinel Q: they land in an extra column that
-    # is then dropped (the JAX scatter's mode="drop")
+    # is then dropped (the JAX scatter's mode="drop"); a real slot left
+    # unmatched carries -1, which the JAX scatter, like NumPy indexing,
+    # takes from the end: query Q - 1
     idx = matched.reshape(nl, b, g)
+    idx = torch.where(idx < 0, idx + nq, idx)
     labels = torch.full((nl, b, nq + 1), cfg.num_classes, dtype=torch.int64,
                         device=cls_all.device)
     labels.scatter_(2, idx, gt_labels.long().expand(nl, b, g))
